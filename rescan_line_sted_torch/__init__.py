@@ -1,0 +1,28 @@
+"""PyTorch + CUDA port of the rescanned line-STED simulation engine.
+
+The JAX package ``rescan_line_sted_tpu`` beside this one is the reference.
+This package imports torch and numpy only. Its hot path runs hand-written
+CUDA kernels for Hopper (``csrc/``, built with nvcc at first use) on CUDA
+tensors and their plain PyTorch versions on CPU tensors.
+
+The port computes in float32 throughout: TF32 (a 10-bit mantissa) would
+miss the engine's 1e-5 parity bar, so it is switched off here.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+from rescan_line_sted_torch.config import (  # noqa: E402
+    Grid,
+    LineSTEDParams,
+    RescanGeometry,
+    RescanParams,
+)
+from rescan_line_sted_torch.imaging.rescan import (  # noqa: E402
+    rescanned_line_sted_image,
+)
+
+__all__ = ["Grid", "LineSTEDParams", "RescanGeometry", "RescanParams",
+           "rescanned_line_sted_image"]

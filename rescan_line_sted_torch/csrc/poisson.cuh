@@ -1,0 +1,153 @@
+// K2a: the tiered Poisson sampler as __device__ functions.
+//
+// Replaces store_poisson_tiered and sample_poisson of
+// rescan_line_sted_tpu/kernels/poisson_pallas.py (with _inversion_from_uniform,
+// _stirling_lgamma and the _INV_TIERS ladder). Every tier and bound is kept:
+//   max <= 0      exact zeros, no random bits;
+//   max < 1e-3    one-uniform Bernoulli;
+//   max < 10      single-uniform CDF inversion, kmax 3/4/6/8/24 by the max;
+//   max >= 10/NaN 24-round Knuth + 10-attempt Hormann PTRS (Stirling lgamma).
+// On the TPU the tier came from a sub-block's max; here it comes from the
+// max over a WARP's rates (32 per warp in K2b, 32 x 16 in K1), so the
+// branch is warp-uniform (no divergence) and each tier's truncation bound
+// still holds because the max bounds every rate it covers.
+//
+// Bound on the card: integer arithmetic of Philox-10 and one exp per
+// element; the Bernoulli and inversion tiers take one Philox word per
+// element (a block serves four), the bright tier 11 blocks.
+#pragma once
+
+#include "philox.cuh"
+
+namespace rls {
+
+constexpr float kCut = 10.0f;
+constexpr int kKnuthRounds = 24;
+constexpr int kPtrsRounds = 10;
+constexpr float kHalfLn2Pi = 0.9189385332046727f;
+
+// Rates are clamped at 0 before sampling; NaN stays NaN (fmaxf would drop it).
+static __device__ __forceinline__ float clamp_rate(float lam) {
+  return lam > 0.0f ? lam : (lam != lam ? lam : 0.0f);
+}
+
+static __device__ __forceinline__ float stirling_lgamma(float z) {
+  return (z - 0.5f) * logf(z) - z + kHalfLn2Pi + 1.0f / (12.0f * z) -
+         1.0f / (360.0f * z * z * z);
+}
+
+// Poisson quantile N(u) = #{k < KMAX : u > F(k)} (poisson_pallas.py
+// _inversion_from_uniform): exact given the uniform, excess mass on KMAX.
+template <int KMAX>
+static __device__ __forceinline__ float inversion(float u, float lam) {
+  float term = expf(-lam);
+  float cdf = term;
+  float n = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    n += u > cdf ? 1.0f : 0.0f;
+    if (k + 1 < KMAX) {
+      term = term * (lam * (1.0f / static_cast<float>(k + 1)));
+      cdf = cdf + term;
+    }
+  }
+  return n;
+}
+
+// Knuth product method below kCut, PTRS transformed rejection at or above
+// it (poisson_pallas.py sample_poisson). lam <= 0 gives 0; NaN gives NaN.
+// The TPU evaluated both branches and selected per element; here each lane
+// runs only its own branch, on the same draws (Knuth 0-23, PTRS 24-43).
+static __device__ __forceinline__ float sample_poisson(float lam, Uniforms& u) {
+  if (!(lam > 0.0f)) return lam * 0.0f;  // zero for lam <= 0, NaN for NaN
+  if (lam < kCut) {
+    const float threshold = expf(-lam);
+    float prod = 1.0f, small = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kKnuthRounds; ++k) {
+      prod *= u.next();
+      small += prod >= threshold ? 1.0f : 0.0f;
+    }
+    return small;
+  }
+  u.n = kKnuthRounds;
+  const float lam_b = lam;  // >= kCut here, so max(lam, kCut - 1) = lam
+  const float log_lam = logf(lam_b);
+  const float b = 0.931f + 2.53f * sqrtf(lam_b);
+  const float a = -0.059f + 0.02483f * b;
+  const float vr = 0.9277f - 3.6224f / (b - 2.0f);
+  const float inv_alpha = 1.1239f + 1.1328f / (b - 3.4f);
+  float large = rintf(lam_b);
+  bool done = false;
+#pragma unroll
+  for (int r = 0; r < kPtrsRounds; ++r) {
+    const float uu = u.next() - 0.5f;
+    const float v = u.next();
+    const float us = 0.5f - fabsf(uu);
+    const float k = floorf((2.0f * a / us + b) * uu + lam_b + 0.43f);
+    const bool accept_fast = (us >= 0.07f) && (v <= vr);
+    const bool reject = (k < 0.0f) || ((us < 0.013f) && (v > us));
+    const float safe_us = fmaxf(us, 1e-6f);
+    const float lhs = logf(v * inv_alpha / (a / (safe_us * safe_us) + b));
+    const float rhs = -lam_b + k * log_lam - stirling_lgamma(fmaxf(k, 0.0f) + 1.0f);
+    const bool accept = accept_fast || (!reject && lhs <= rhs);
+    if (accept && !done) large = k;
+    done = done || accept;
+  }
+  return large;
+}
+
+// The bright tier, kept out of line: it is rare and large.
+static __device__ __noinline__ float sample_poisson_at(float lam,
+                                                       unsigned long long index,
+                                                       uint2 key) {
+  Uniforms u(key, index);
+  return sample_poisson(lam, u);
+}
+
+// Tiered draws for N elements per lane, in place: element i of this lane
+// has global index index0 + i and single-draw uniform u[i] (single_draw;
+// the Bernoulli and inversion tiers use it, and callers may draw it for
+// four elements at once). ONE tier serves all 32 x N rates of the warp: it
+// comes from their max, so EVERY lane of the warp must call this; lanes
+// without elements pass rates of 0.
+template <int N>
+static __device__ __forceinline__ void poisson_tiered(float (&lam)[N],
+                                                      const float (&u)[N],
+                                                      unsigned long long index0,
+                                                      uint2 key) {
+  uint32_t mxb = 0u;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    lam[i] = clamp_rate(lam[i]);
+    // non-negative floats order like their bits; any NaN sorts above +inf
+    mxb = max(mxb, __float_as_uint(lam[i]));
+  }
+  mxb = __reduce_max_sync(0xffffffffu, mxb);
+  const float mx = __uint_as_float(mxb);
+  if (mxb == 0u) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) lam[i] = 0.0f;
+  } else if (mxb > 0x7f800000u || mx >= kCut) {
+    for (int i = 0; i < N; ++i) lam[i] = sample_poisson_at(lam[i], index0 + i, key);
+  } else if (mx < 1e-3f) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) lam[i] = u[i] < lam[i] ? 1.0f : 0.0f;
+  } else if (mx < 0.1f) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) lam[i] = inversion<3>(u[i], lam[i]);
+  } else if (mx < 0.33f) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) lam[i] = inversion<4>(u[i], lam[i]);
+  } else if (mx < 0.85f) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) lam[i] = inversion<6>(u[i], lam[i]);
+  } else if (mx < 1.5f) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) lam[i] = inversion<8>(u[i], lam[i]);
+  } else {
+    for (int i = 0; i < N; ++i) lam[i] = inversion<24>(u[i], lam[i]);
+  }
+}
+
+}  // namespace rls

@@ -1,0 +1,102 @@
+"""Closed-form rescanned line-STED canvas (port of the rescan part of
+``rescan_line_sted_tpu.imaging.analytic``; the point and descanned-line
+system kernels are queued in ROADMAP.md open item 8).
+
+Reassigning camera column x of scan position x0 to canvas column
+``u = R*x0 + (x - x0)`` gives ``canvas(y, u) = sum_a sample(., a)
+H(y - ., u - R*a)``: the sample upsampled by R along x convolved with the
+rescan kernel ``H(vy, vx) = sum_t e(t) det(vy, vx + (R-1) t)``. Subpixel
+placement uses band-limited phase ramps; detector binning by b splits the
+map into b column-phase kernels ``H_rho``. The canvas differs from the
+per-step scan only through circular wrap, so the two agree on samples that
+are zero within ~PSF support of their x-edges.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rescan_line_sted_torch.kernels import fftconv
+from rescan_line_sted_torch.physics import models
+from rescan_line_sted_torch.physics import psf as psfs
+
+
+def _np_phases(theta: np.ndarray, device=None) -> torch.Tensor:
+    """``exp(-2i pi theta)`` built in float64 on the host -> complex64.
+
+    Phase arguments reach ~1e4 radians at large widths; in f32 they would
+    lose ~1e-4 of phase and break the 1e-5 parity bar. A CUDA copy goes
+    from pinned memory without blocking, so the host keeps queueing work.
+    """
+    z = np.exp(-2j * np.pi * np.asarray(theta, np.float64))
+    table = torch.from_numpy(z.astype(np.complex64))
+    if torch.device(device or "cpu").type == "cuda":
+        return table.pin_memory().to(device, non_blocking=True)
+    return table
+
+
+def rescan_x_kernels_rfft(geom, params, device=None) -> torch.Tensor:
+    """rfft-domain column-phase rescan kernels ``H_rho`` [b, Wc//2+1].
+
+    ``H_rho_hat(k) = D_hat_rho(k) * E_hat_rho(k)`` with ``d_rho(X) =
+    sum_j det_x(b X + j - rho)`` the phase-rho binned detection profile
+    and ``E_hat_rho`` the (R-1)-stretched effective line's phase sum.
+    Brightness is NOT included.
+    """
+    b = geom.binning
+    r = float(geom.rescan_factor)
+    h, w = geom.grid.shape
+    hc, wc = geom.canvas_shape
+    kk = np.arange(wc // 2 + 1, dtype=np.float64)
+
+    eff = models.effective_line_profile(w, params, device)
+    det_x = psfs.detection_profile(w, params.sigma_det, device)
+
+    x_idx = torch.arange(w // b, device=device)
+    j_idx = torch.arange(b, device=device)
+    gather = (b * x_idx[None, :, None] + j_idx[None, None, :]
+              - j_idx[:, None, None]) % w                        # [rho, X, j]
+    d = det_x[gather].sum(-1)                                    # [b, w/b]
+    rho_idx = np.arange(b)
+    center_ph = _np_phases(-kk * (w // (2 * b)) / wc, device)
+    d_hat = torch.fft.rfft(d, n=wc, dim=-1) * center_ph[None, :]
+
+    t_c = np.arange(w, dtype=np.float64) - w // 2
+    pe = _np_phases(-kk[None, :] * (r - 1.0) * t_c[:, None] / (b * wc),
+                    device)                                      # [W, K]
+    e_base = eff.to(torch.complex64) @ pe                        # [K]
+    rho_ph = _np_phases(kk[None, :] * (r - 1.0) * rho_idx[:, None]
+                        / (b * wc), device)                      # [b, K]
+    return d_hat * e_base[None, :] * rho_ph
+
+
+def _binned_row_matrix(h: int, b: int, det_y: torch.Tensor) -> torch.Tensor:
+    """[h, h/b] matrix G with ``(G^T @ sample)[Y] = sum_j conv_y(sample,
+    det_y)[b Y + j]`` -- the y-convolve + row-bin of the scan engine."""
+    my = fftconv.circulant_matrix(det_y)                         # [h, h]
+    return my.reshape(h, h // b, b).sum(-1)
+
+
+def rescan_canvas_mean(sample: torch.Tensor, params, geom) -> torch.Tensor:
+    """Noise-free rescanned canvas [H/b, Wc]: exact closed form for any
+    ``rescan_factor >= 1`` and any ``binning``."""
+    device = sample.device
+    b = geom.binning
+    r = float(geom.rescan_factor)
+    h, w = geom.grid.shape
+    hc, wc = geom.canvas_shape
+    kk = np.arange(wc // 2 + 1, dtype=np.float64)
+
+    det_y = psfs.detection_profile(h, params.sigma_det, device)
+    gy = _binned_row_matrix(h, b, det_y)                         # [h, hc]
+    s_yb = gy.T @ sample                                         # [hc, w]
+    # split columns by phase: a = b*m + rho -> [b(rho), hc, w/b(m)]
+    s_ph = s_yb.reshape(hc, w // b, b).permute(2, 0, 1)
+
+    h_hat = rescan_x_kernels_rfft(geom, params, device)          # [b, K]
+    pm = _np_phases(kk[None, :] * r * np.arange(w // b)[:, None] / wc,
+                    device)                                      # [w/b, K]
+    canvas_rfft = ((s_ph.to(torch.complex64) @ pm)
+                   * h_hat[:, None, :]).sum(0)                   # [hc, K]
+    return params.brightness * torch.fft.irfft(canvas_rfft, n=wc, dim=-1)

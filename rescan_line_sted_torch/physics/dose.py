@@ -1,0 +1,50 @@
+"""Photodose accounting (port of ``rescan_line_sted_tpu.physics.dose``).
+
+For circular line scans that visit every column the accumulated dose is
+spatially uniform: every pixel receives ``sum_x(exc_profile)`` excitation
+and ``s * sum_x(stripe_profile)`` depletion, and emits
+``sum_x(eff_profile)`` photons per unit sample brightness.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from rescan_line_sted_torch.physics import models
+from rescan_line_sted_torch.physics import psf as psfs
+
+
+@dataclasses.dataclass(frozen=True)
+class DoseReport:
+    """Per-pixel photodose and signal ledger for one acquisition (all f32
+    0-d tensors; ``num_steps`` is the scan-position count)."""
+
+    excitation_dose: torch.Tensor
+    depletion_dose: torch.Tensor
+    emission_per_unit_sample: torch.Tensor
+    num_steps: torch.Tensor
+
+    @property
+    def total_dose(self) -> torch.Tensor:
+        return self.excitation_dose + self.depletion_dose
+
+    @property
+    def signal_per_dose(self) -> torch.Tensor:
+        return self.emission_per_unit_sample / self.total_dose
+
+
+def line_sted_dose(params, geom, device=None) -> DoseReport:
+    """Dose ledger of a line scan over all ``geom.grid.width`` columns."""
+    w = geom.grid.width
+    m = models.line_model(params)
+    exc = m.excitation(w, params, device)
+    dep = m.depletion(w, params, device)
+    eff = psfs.effective_psf(exc, dep, params.depletion)
+    return DoseReport(
+        excitation_dose=exc.sum(),
+        depletion_dose=params.depletion * dep.sum(),
+        emission_per_unit_sample=eff.sum(),
+        num_steps=torch.full((), float(geom.num_steps), device=device),
+    )

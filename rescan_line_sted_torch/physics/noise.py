@@ -1,0 +1,29 @@
+"""Poisson shot noise (port of ``rescan_line_sted_tpu.physics.noise``).
+
+Sums of independent Poisson variables are Poisson in the summed mean, so a
+detection pipeline that only adds raw camera pixels may sample once from
+the accumulated noise-free mean. A ``torch.Generator`` takes the place of
+the JAX package's PRNG key; ``None`` means noise-free.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rescan_line_sted_torch.kernels.poisson import poisson_flat
+
+
+def poisson_counts(generator: torch.Generator,
+                   mean: torch.Tensor) -> torch.Tensor:
+    """Sample detected photon counts (float32). A CUDA ``mean`` runs the
+    flat sampler kernel (K2c), a CPU ``mean`` its plain version; both clamp
+    the mean at 0 and propagate NaN."""
+    return poisson_flat(mean.contiguous(), generator)
+
+
+def maybe_poisson(generator: torch.Generator | None,
+                  mean: torch.Tensor) -> torch.Tensor:
+    """Noise-free passthrough when ``generator is None``."""
+    if generator is None:
+        return mean
+    return poisson_counts(generator, mean)
