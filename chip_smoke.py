@@ -17,7 +17,7 @@ sm_90a), then:
    and collapsed noise and the noisy analytic method, with the launch
    counters reset just before, and checks the images and that K1 and K2c
    ran; noise-free scan vs analytic on a star with zeroed x-margins;
-5. times K1 and K2c against their plain versions and the end-to-end
+5. times K1, K2b and K2c against their plain versions and the end-to-end
    per-step image with CUDA events (median of 7 after warm-up).
 
 Prints one JSON line with the kernels, then the card, then the result line
@@ -157,9 +157,9 @@ def phase_sampler(dev) -> dict:
     for lam, r0 in bands:
         m = float(x[r0:r0 + 32].double().mean())
         check(abs(m - lam) <= 5 * math.sqrt(lam / (32 * 512)),
-              (lam, m))
+              f"mixed tiers: rate {lam} band mean {m}")
     check(float(x[:100].abs().sum()) == 0.0,
-          'float(x[:100].abs().sum()) == 0.0')
+          "mixed tiers: zero-rate rows gave counts")
 
     for name, fn in (("poisson_rows_tiered", poisson_rows_tiered),
                      ("poisson_flat", poisson_flat)):
@@ -169,9 +169,9 @@ def phase_sampler(dev) -> dict:
         a, b, c = (fn(rate, torch.Generator().manual_seed(s)).nan_to_num(-1)
                    for s in (11, 11, 12))
         check(float(a[7, 9]) == -1 and int((a < 0).sum()) == 1,
-              name)
+              f"{name}: NaN rate must give NaN, and only there")
         check(float(a[0, 0]) == 0.0,
-              name)
+              f"{name}: negative rate must give 0")
         check(torch.equal(a, b),
               f"{name}: same seed, different counts")
         check(not torch.equal(a, c),
@@ -209,7 +209,8 @@ def phase_k1(dev) -> float:
         log(f"K1 vs plain {size}^2 R={rf} b={b} q={kw['q']} "
             f"d_in={kw['d_in']} d_out={kw['d_out']}: max abs err {err:.3e}, "
             f"max rel err {rel:.3e}")
-        check(got.shape == want.shape and rel <= 1e-5, rel)
+        check(got.shape == want.shape and rel <= 1e-5,
+              f"K1 vs plain at {size}^2 R={rf} b={b}: rel err {rel}")
         worst = {"abs": max(worst["abs"], err), "rel": max(worst["rel"], rel)}
         if (size, rf, b) == K1_CASES[0]:
             noisy = rescan_banded_fused(
@@ -217,11 +218,11 @@ def phase_k1(dev) -> float:
             total = float(noisy.double().sum())
             clean = float(want.double().sum())
             check(torch.isfinite(noisy).all() and (noisy >= 0).all(),
-                  'torch.isfinite(noisy).all() and (noisy >= 0).all()')
+                  "K1 noisy canvas must be finite and non-negative")
             check(torch.equal(noisy, noisy.round()),
-                  'torch.equal(noisy, noisy.round())')
+                  "K1 noisy canvas must hold integer counts")
             check(abs(total - clean) <= 5 * math.sqrt(clean),
-                  (total, clean))
+                  f"K1 noisy total {total} vs noise-free {clean}")
             log(f"K1 noisy total {total:.1f} vs noise-free {clean:.1f}")
     return worst
 
@@ -248,16 +249,16 @@ def phase_e2e(dev) -> dict:
     launches = dict(_build.LAUNCHES)
     log(f"main-path launches: {json.dumps(launches)}")
     check(launches["rescan_banded_fused"] >= 5,
-          launches)
+          f"main path must launch K1 for every scan image: {launches}")
     check(launches["poisson_flat"] >= 2,
-          launches)
+          f"collapsed and analytic noise must launch K2c: {launches}")
 
     total = float(clean.double().sum())
     check(clean.shape == geom.canvas_shape,
-          'clean.shape == geom.canvas_shape')
+          f"canvas shape {tuple(clean.shape)} != {geom.canvas_shape}")
     for img in (*per_step, collapsed, analytic):
         check(img.shape == geom.canvas_shape and torch.isfinite(img).all(),
-              'img.shape == geom.canvas_shape and torch.isfinite(img).all()')
+              "noisy image must be finite with the canvas shape")
         t = float(img.double().sum())
         # per-step subpixel canvases place integer counts band-limitedly
         # (half-pixel class shift), which rings below zero (rescan module
@@ -266,12 +267,12 @@ def phase_e2e(dev) -> dict:
         log(f"image total {t:.1f} vs noise-free {total:.1f} "
             f"(ratio {t / total:.5f}), negative mass {neg / t:.2e}")
         check(abs(t / total - 1.0) <= max(0.01, 5 / math.sqrt(total)),
-              'abs(t / total - 1.0) <= max(0.01, 5 / math.sqrt(total))')
+              f"noisy total {t} not within 1% of noise-free {total}")
     for img in (collapsed, analytic):
         check((img >= 0).all() and torch.equal(img, img.round()),
-              '(img >= 0).all() and torch.equal(img, img.round())')
+              "collapsed / analytic noise must give non-negative counts")
     check(not torch.equal(per_step[0], per_step[1]),
-          'not torch.equal(per_step[0], per_step[1])')
+          "two per-step images from one generator must differ")
 
     margin = 64
     padded = sample.clone()
@@ -284,7 +285,7 @@ def phase_e2e(dev) -> dict:
     log(f"scan vs analytic (zero x-margins): rel err {rel:.3e} "
         f"(max-rel {rel_max:.3e})")
     check(rel <= 1e-5,
-          rel)
+          f"scan vs analytic rel err {rel}")
     return launches
 
 
@@ -293,7 +294,7 @@ def phase_times(dev) -> dict:
     from rescan_line_sted_torch.data import siemens_star
     from rescan_line_sted_torch.imaging.rescan import _banded_inputs
     from rescan_line_sted_torch.kernels.poisson import (
-        poisson_flat, poisson_reference)
+        poisson_flat, poisson_reference, poisson_rows_tiered)
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
         rescan_banded_fused, rescan_banded_fused_reference)
 
@@ -315,7 +316,8 @@ def phase_times(dev) -> dict:
     canvas = rescanned_line_sted_image(sample, params, geom,
                                        method="scan").image
     t["k2c_ms"] = cuda_ms(lambda: poisson_flat(canvas, cpu_gen))
-    t["k2c_plain_ms"] = cuda_ms(lambda: poisson_reference(canvas, dev_gen))
+    t["k2b_ms"] = cuda_ms(lambda: poisson_rows_tiered(canvas, cpu_gen))
+    t["k2_plain_ms"] = cuda_ms(lambda: poisson_reference(canvas, dev_gen))
     t["e2e_per_step_ms"] = cuda_ms(lambda: rescanned_line_sted_image(
         sample, params, geom, cpu_gen, method="scan", noise_mode="per_step"))
     t["e2e_per_step_steps_per_s"] = size / (t["e2e_per_step_ms"] * 1e-3)
@@ -353,7 +355,9 @@ def main() -> int:
         "source": "rescan_line_sted_torch/csrc/poisson.cu",
         "replaces": "rescan_line_sted_tpu/kernels/poisson_pallas.py:344",
         "launches": launches["poisson_rows_tiered"],
-        "max_abs_err": sampler_err["poisson_rows_tiered"]}]}))
+        "max_abs_err": sampler_err["poisson_rows_tiered"],
+        "err_kind": "max |mean(kernel) - mean(plain)| over rates",
+        "ms": times["k2b_ms"], "plain_ms": times["k2_plain_ms"]}]}))
     log(json.dumps({"kernels": [
         {"name": "rescan_banded_fused", "route": "cuda",
          "source": "rescan_line_sted_torch/csrc/rescan_banded_fused.cu",
@@ -368,7 +372,7 @@ def main() -> int:
          "launches": launches["poisson_flat"],
          "max_abs_err": sampler_err["poisson_flat"],
          "err_kind": "max |mean(kernel) - mean(plain)| over rates",
-         "ms": times["k2c_ms"], "plain_ms": times["k2c_plain_ms"]},
+         "ms": times["k2c_ms"], "plain_ms": times["k2_plain_ms"]},
     ]}))
     log(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -66,11 +66,16 @@ def rescanned_line_sted_image(
     """Simulate a full rescanned line-STED acquisition of ``sample`` [H, W].
 
     Returns the canvas ``[H/b, round(R*W)/b]`` on ``sample``'s device.
-    ``generator`` (a ``torch.Generator``) draws shot noise; ``None`` gives
-    the noise-free mean. ``reassignment`` ("auto" | "rounded" |
-    "subpixel") and ``noise_mode`` ("collapsed" | "per_step") apply to the
-    scan method (module doc).
+    ``sample`` (a tensor or array) is taken as float32, as the JAX package
+    takes it. ``generator`` (a ``torch.Generator``) draws shot noise;
+    ``None`` gives the noise-free mean. ``reassignment`` ("auto" |
+    "rounded" | "subpixel") and ``noise_mode`` ("collapsed" | "per_step")
+    apply to the scan method (module doc).
     """
+    sample = torch.as_tensor(sample, dtype=torch.float32)
+    if tuple(sample.shape) != geom.grid.shape:
+        raise ValueError(f"sample shape {tuple(sample.shape)} does not match "
+                         f"the grid {geom.grid.shape}")
     if boundary in ("padded", "apodized"):
         raise NotImplementedError(
             f"boundary={boundary!r} is not ported yet (ROADMAP.md open "

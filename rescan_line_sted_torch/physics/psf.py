@@ -16,13 +16,10 @@ import math
 import numpy as np
 import torch
 
-
-def _f32(x) -> float:
-    """``x`` rounded to float32, as a Python float. Scalar arithmetic is
-    done in numpy float32 (as the JAX package does it on f32 scalars), and
-    the result enters torch as a Python scalar, so no host-to-device copy
-    (and no stall) is needed for it."""
-    return float(np.float32(x))
+# Scalar arithmetic is done in numpy float32 (as the JAX package does it on
+# f32 scalars), and the result enters torch as a Python scalar, so no
+# host-to-device copy (and no stall) is needed for it.
+from rescan_line_sted_torch.config import _f as _f32
 
 
 def _centered_coords(n: int, device=None) -> torch.Tensor:

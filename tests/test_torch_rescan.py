@@ -209,6 +209,18 @@ def test_unknown_arguments_raise():
                dict(method="scan", reassignment="nope")):
         with pytest.raises(ValueError):
             T.rescanned_line_sted_image(s, tp, tg, **kw)
+    with pytest.raises(ValueError, match="grid"):
+        T.rescanned_line_sted_image(s[:, :128], tp, tg)
+
+
+def test_sample_taken_as_float32():
+    """numpy and float64 samples are imaged as float32, as JAX does."""
+    _, (tp, tg) = _both(1.5)
+    s = _sample(8)
+    want = _port(s, tp, tg, method="scan").image
+    for other in (s.astype(np.float64), torch.from_numpy(s).double()):
+        got = T.rescanned_line_sted_image(other, tp, tg, method="scan").image
+        assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
 def test_convert_round_trip():
