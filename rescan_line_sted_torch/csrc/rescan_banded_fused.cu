@@ -272,7 +272,28 @@ rescan_banded_fused_kernel(const float* __restrict__ g_t,         // [d_in, dob]
   }
 }
 
+// Dynamic shared memory of one CTA: the two-slot frame-row ring, the
+// sample window and the two resident conv-table factors.
+size_t banded_smem_bytes(int d_in, int dob, int chunk) {
+  return (static_cast<size_t>(2 * kPassRows + d_in) * kLanes +
+          static_cast<size_t>(d_in) * (dob + chunk)) * sizeof(float);
+}
+
 }  // namespace
+
+// Shared memory K1 needs for these band windows (*need) and what one block
+// of `device` may opt in to (*limit), so the caller can refuse windows that
+// do not fit before it builds any table.
+extern "C" int rls_rescan_banded_fused_smem(int device, int d_in, int dob,
+                                            int chunk, long long* need,
+                                            long long* limit) {
+  int optin = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  *need = static_cast<long long>(banded_smem_bytes(d_in, dob, chunk));
+  *limit = optin;
+  return static_cast<int>(err);
+}
 
 extern "C" int rls_rescan_banded_fused(const float* g_t, const float* ill,
                                        const float* sample_ext, const int* sa_lo,
@@ -282,9 +303,7 @@ extern "C" int rls_rescan_banded_fused(const float* g_t, const float* ill,
                                        int wc, int noisy, unsigned seed0,
                                        unsigned seed1, void* stream) {
   const int hb = h / b;
-  const size_t smem =
-      (static_cast<size_t>(2 * kPassRows + d_in) * kLanes +
-       static_cast<size_t>(d_in) * (dob + chunk)) * sizeof(float);
+  const size_t smem = banded_smem_bytes(d_in, dob, chunk);
   cudaError_t err = cudaFuncSetAttribute(
       rescan_banded_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "rls_poisson_rows_tiered": [_P, _P, _I, _I, _U, _U, _P],
     "rls_poisson_flat": [_P, _P, _LL, _U, _U, _P],
     "rls_rescan_banded_fused": [_P] * 8 + [_I] * 9 + [_U, _U, _P],
+    "rls_rescan_banded_fused_smem": [_I] * 4 + [ctypes.POINTER(_LL)] * 2,
 }
 
 _lib = None

@@ -11,11 +11,17 @@ the plain version, ``torch.poisson`` on the clamped rate. Rates are clamped
 at 0 and NaN rates give NaN counts on both routes. The kernels draw their
 two Philox key words from ``generator``; the plain version draws from it
 directly, so the two routes give different (equally distributed) counts.
+
+``poisson_rows_tiered_reference`` is K2b draw for draw: numpy Philox4x32-10
+on the kernel's counters, the kernel's uniforms and tiers, and the plain
+quantile function, so a card run can be checked count by count.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from rescan_line_sted_torch.kernels import _build
 
@@ -49,6 +55,63 @@ def inversion_from_uniform(u: torch.Tensor, lam: torch.Tensor,
             term = term * (lam * (1.0 / (k + 1)))
             cdf = cdf + term
     return n
+
+
+def philox4x32_10(ctr: np.ndarray, key: tuple[int, int]) -> np.ndarray:
+    """Philox4x32-10 (``csrc/philox.cuh``) of uint32 counters ``ctr``
+    [n, 4] under the two key words; returns the [n, 4] uint32 blocks."""
+    mask = np.uint64(0xFFFFFFFF)
+    x0, x1, x2, x3 = (ctr[:, i].astype(np.uint64) for i in range(4))
+    k0, k1 = np.uint64(key[0]), np.uint64(key[1])
+    for _ in range(10):
+        p0 = np.uint64(0xD2511F53) * x0      # 32 x 32 bits: fits in 64
+        p1 = np.uint64(0xCD9E8D57) * x2
+        x0, x1, x2, x3 = ((p1 >> np.uint64(32)) ^ x1 ^ k0, p1 & mask,
+                          (p0 >> np.uint64(32)) ^ x3 ^ k1, p0 & mask)
+        k0 = (k0 + np.uint64(0x9E3779B9)) & mask
+        k1 = (k1 + np.uint64(0xBB67AE85)) & mask
+    return np.stack([x0, x1, x2, x3], axis=1).astype(np.uint32)
+
+
+def single_draw_uniforms(n: int, key: tuple[int, int]) -> np.ndarray:
+    """K2a's single-draw uniforms of global indices 0..n-1: index i takes
+    word i % 4 of Philox(i // 4 (lo, hi), 0, 1), as
+    ``(bits >> 9) * 2^-23 + 2^-24`` (exact in float32)."""
+    group = np.arange((n + 3) // 4, dtype=np.uint64)
+    ctr = np.stack([group & np.uint64(0xFFFFFFFF), group >> np.uint64(32),
+                    np.zeros_like(group), np.ones_like(group)], axis=1)
+    bits = philox4x32_10(ctr, key).reshape(-1)[:n]
+    return ((bits >> 9).astype(np.float32) * np.float32(2.0 ** -23)
+            + np.float32(2.0 ** -24))
+
+
+def poisson_rows_tiered_reference(lam: torch.Tensor,
+                                  key: tuple[int, int]) -> torch.Tensor:
+    """K2b's counts for Philox key words ``key`` (``_build.seeds_from`` of
+    the generator K2b is given), on the host: one tier per 32 adjacent
+    columns of a row, from their max. Covers the zero, Bernoulli and
+    inversion tiers; raises where a warp would take the bright tier (its
+    Knuth / PTRS draws are checked by their statistics). The card's ``expf``
+    and CDF sums may differ from these by an ulp, so a count may differ by
+    one where a uniform sits on a CDF boundary."""
+    lam = lam.detach().to("cpu", torch.float32).clamp_min(0.0)
+    cols = lam.shape[-1]
+    rows = lam.numel() // cols
+    x = lam.reshape(rows, cols)
+    mx = F.pad(x, (0, -cols % 32)).reshape(rows, -1, 32).amax(-1)
+    if bool((torch.isnan(mx) | (mx >= _CUT)).any()):
+        raise ValueError("rates at or above the bright-tier cut (or NaN): "
+                         "K2b draws them with Knuth / PTRS")
+    mx = mx.repeat_interleave(32, dim=1)[:, :cols]
+    u = torch.from_numpy(single_draw_uniforms(rows * cols, key)).reshape(
+        rows, cols)
+    out = (u < x).to(torch.float32)                          # Bernoulli tier
+    lo = 1e-3
+    for hi, kmax in _INV_TIERS:
+        tier = (mx >= lo) & (mx < hi)
+        out = torch.where(tier, inversion_from_uniform(u, x, kmax), out)
+        lo = hi
+    return torch.where(mx > 0, out, 0.0).reshape(lam.shape)
 
 
 def poisson_rows_tiered(lam: torch.Tensor,

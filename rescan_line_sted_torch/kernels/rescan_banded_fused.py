@@ -24,14 +24,12 @@ kernel (``csrc/rescan_banded_fused.cu``) or the plain loop consumes them.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from rescan_line_sted_torch.kernels import _build, fftconv
 from rescan_line_sted_torch.kernels.poisson import poisson_reference
-
-_KERNEL_LANES = 16          # canvas lanes per CTA (csrc kLanes)
-_PASS_ROWS = 512            # frame rows per pass (csrc kPassRows)
-_MAX_SMEM = 227 * 1024      # shared memory one Hopper block may use
 
 
 def _check(h, w, *, wc, d_in, d_out, chunk, binning):
@@ -162,11 +160,16 @@ def rescan_banded_fused(
            binning=binning)
     b = binning
     hb, dob = h // b, d_out // b
-    smem = 4 * ((2 * _PASS_ROWS + d_in) * _KERNEL_LANES
-                + d_in * (dob + chunk))
-    if smem > _MAX_SMEM:
-        raise ValueError(f"band windows d_in={d_in}, d_out={d_out} do not fit "
-                         "the kernel's shared memory")
+    need, limit = ctypes.c_longlong(), ctypes.c_longlong()
+    _build.check(_build.lib().rls_rescan_banded_fused_smem(
+        sample_y.device.index, d_in, dob, chunk, ctypes.byref(need),
+        ctypes.byref(limit)), "rescan_banded_fused")
+    if need.value > limit.value:
+        raise NotImplementedError(
+            f"band windows d_in={d_in}, d_out={d_out} at chunk {chunk} need "
+            f"{need.value} bytes of shared memory per block, the card allows "
+            f"{limit.value}: K1 with the detection factor streamed in slices "
+            "is not ported yet (ROADMAP.md queue 2, item 2)")
     g0w, ill_w, sample_ext, sa_lo, sa_hi, m0, cls = _tables(
         sample_y, eff_scaled, gx, int_offsets, classes, wc=wc, d_in=d_in,
         d_out=d_out, chunk=chunk, binning=b, q=q)

@@ -18,6 +18,7 @@ from rescan_line_sted_torch.kernels.poisson import (
     poisson_flat,
     poisson_reference,
     poisson_rows_tiered,
+    poisson_rows_tiered_reference,
 )
 from rescan_line_sted_torch.kernels.rescan_banded_fused import (
     rescan_banded_fused,
@@ -76,6 +77,36 @@ def test_sampler_contract(cuda, kernel):
         kernel(lam.T, torch.Generator())
     with pytest.raises(ValueError, match="float32"):
         kernel(lam.double(), torch.Generator())
+
+
+@pytest.mark.parametrize("lam_val", [0.0, 5e-4, 0.05, 0.3, 0.7, 1.2, 5.0])
+def test_rows_tiered_draw_for_draw(cuda, lam_val):
+    """K2b against its host reference on the same Philox stream: equal
+    counts, except at most a few off by one where a uniform sits on an f32
+    CDF boundary. Rates vary across each warp (tier from the warp max) and
+    the 1000 columns end in a partial warp."""
+    lam = lam_val * (0.5 + 0.5 * torch.rand(
+        (256, 1000), generator=torch.Generator().manual_seed(3)))
+    got = poisson_rows_tiered(lam.to(cuda),
+                              torch.Generator().manual_seed(21)).cpu()
+    want = poisson_rows_tiered_reference(
+        lam, _build.seeds_from(torch.Generator().manual_seed(21)))
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 1 and int((diff > 0).sum()) <= 4
+
+
+def test_banded_kernel_refuses_wide_windows(cuda):
+    """Band windows whose resident factors exceed the card's shared
+    memory per block raise NotImplementedError naming the ROADMAP item;
+    the plain version still takes them."""
+    w = 512
+    args = (torch.rand((64, w), device=cuda), _profile(w, 12.0, cuda),
+            _profile(w, 12.0, cuda),
+            torch.zeros(w, dtype=torch.int32, device=cuda))
+    kw = dict(wc=w + 64, d_in=320, d_out=320, chunk=32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
+        rescan_banded_fused(*args, **kw)
+    assert rescan_banded_fused_reference(*args, **kw).shape == (1, w + 64, 64)
 
 
 def _profile(w, sigma, device):

@@ -3,7 +3,9 @@
 On the CPU every sampler runs its plain version (``torch.poisson`` on the
 clamped rate); the inversion tiers of the device sampler K2a are checked
 through their plain quantile function against the JAX package's on a
-deterministic grid of uniforms. The CUDA kernels are tested on the card
+deterministic grid of uniforms. K2b's host reference (numpy Philox on the
+kernel's counters, the kernel's tiers) is held to the Random123 known
+answers and to the Poisson pmf here, and to K2b count by count on the card
 by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
@@ -17,9 +19,12 @@ from rescan_line_sted_torch.kernels import _build
 from rescan_line_sted_torch.kernels.poisson import (
     _INV_TIERS,
     inversion_from_uniform,
+    philox4x32_10,
     poisson_flat,
     poisson_reference,
     poisson_rows_tiered,
+    poisson_rows_tiered_reference,
+    single_draw_uniforms,
 )
 from rescan_line_sted_torch.physics.noise import maybe_poisson, poisson_counts
 from rescan_line_sted_tpu.kernels.poisson_pallas import (
@@ -62,6 +67,66 @@ def test_inv_tier_budget():
     assert _INV_TIERS == J_INV_TIERS
     for hi, kmax in _INV_TIERS:
         assert stats.poisson.sf(kmax, hi) < 5e-5, (hi, kmax)
+
+
+# Random123's known-answer vectors for philox4x32-10: counter, key, output
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+@pytest.mark.parametrize("ctr,key,want", PHILOX_KAT)
+def test_philox_known_answers(ctr, key, want):
+    got = philox4x32_10(np.array([ctr], np.uint32), key)[0]
+    assert tuple(int(v) for v in got) == want
+
+
+@pytest.mark.parametrize("lam_val,kmax", [
+    (5e-4, 1), (0.05, 3), (0.29, 4), (0.7, 6), (1.2, 8), (7.0, 24)])
+def test_rows_tiered_reference_statistics(lam_val, kmax):
+    """K2b's host reference at one rate per single-draw tier: counts
+    capped at the tier's kmax, mean within 5 sigma, chi-square against
+    the pmf truncated at kmax (tail mass on kmax)."""
+    n = 1 << 17
+    x = poisson_rows_tiered_reference(torch.full((256, n // 256), lam_val),
+                                      (11, int(lam_val * 1000))).numpy()
+    assert x.min() >= 0 and x.max() <= kmax and (x == np.round(x)).all()
+    assert abs(x.mean() - lam_val) <= 5 * np.sqrt(lam_val / n)
+    pmf = stats.poisson.pmf(np.arange(kmax + 1), lam_val)
+    pmf[kmax] += stats.poisson.sf(kmax, lam_val)
+    obs = np.bincount(x.astype(np.int64).ravel(), minlength=kmax + 1)
+    exp = pmf * n
+    keep = exp > 5
+    chi2 = ((obs[keep] - exp[keep]) ** 2 / exp[keep]).sum()
+    assert stats.chi2.sf(chi2, max(keep.sum() - 1, 1)) > 1e-4
+
+
+def test_rows_tiered_reference_tiers():
+    """Zero and negative warps give 0; a warp's tier comes from its max,
+    so one bright lane lifts its 31 neighbours' cap; the bright tier and
+    NaN are refused (K2b draws them with Knuth / PTRS)."""
+    lam = torch.zeros((4, 70))
+    lam[1] = -0.3
+    lam[2] = 0.5
+    lam[2, 40] = 1.4               # second warp of row 2: kmax 8, not 6
+    x = poisson_rows_tiered_reference(lam, (5, 6))
+    assert x.shape == lam.shape and (x[:2] == 0).all() and (x[3] == 0).all()
+    u = torch.from_numpy(single_draw_uniforms(lam.numel(), (5, 6)))
+    u = u.reshape(lam.shape)
+    assert torch.equal(x[2, 32:64], inversion_from_uniform(
+        u[2, 32:64], lam[2, 32:64], 8))
+    assert torch.equal(x[2, :32], inversion_from_uniform(
+        u[2, :32], lam[2, :32], 6))
+    for bad in (10.0, float("nan")):
+        lam[3, 3] = bad
+        with pytest.raises(ValueError, match="bright"):
+            poisson_rows_tiered_reference(lam, (5, 6))
 
 
 @pytest.mark.parametrize("lam_val", [0.05, 0.7, 5.0, 30.0, 300.0])
