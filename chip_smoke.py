@@ -13,17 +13,26 @@ sm_90a), then:
    every rate below the bright tier, and its chi-square p over 16 seeds per
    single-draw tier;
 3. holds kernel K1 (banded fused scan) against its plain PyTorch version,
-   noise-free, at the flagship shape (2048^2, R = 1.5, q = 2), at 2048^2
-   R = 2.0 and at 512^2 R = 3.0, b = 2 (max relative error <= 1e-5);
-4. drives ``rescanned_line_sted_image`` at the flagship configuration
-   (2048^2, R = 1.5, chunk 32, depletion 8, siemens star) with per-step
-   and collapsed noise and the noisy analytic method, with the launch
-   counters reset just before, and checks the images and that K1 and K2c
-   ran (every noisy total within 5 sigma of its mean); K2c and its plain
-   version on the flagship's noise-free canvas (totals, dispersion);
-   noise-free scan vs analytic on a star with zeroed x-margins;
-5. times K1, K2b and K2c against their plain versions and the end-to-end
-   per-step image with CUDA events (median of 7 after warm-up).
+   noise-free, in each of its modes (max relative error <= 1e-5): integer
+   and class placement at the flagship shape (2048^2, R = 1.5, q = 2), at
+   2048^2 R = 2.0 and at 512^2 R = 3.0, b = 2; NUFFT spreading at 2048^2
+   R = 1 + pi/16 and 512^2 R = 1 + pi/8, b = 2; the wide layout (band
+   windows D_in = D_out = 256, sigma_exc = 8) at 2048^2, R = 1.5 and
+   R = 1 + pi/16; and a noisy class and NUFFT canvas total within 5 sigma;
+4. drives ``rescanned_line_sted_image`` on each path, with the launch
+   counters reset just before and read just after each: the flagship
+   (2048^2, R = 1.5, chunk 32, depletion 8, siemens star; per-step,
+   collapsed and analytic), the irrational cell (R = 1 + pi/16, same
+   three), the wide-window cell (sigma_exc = 8, R = 1.5 and R = 1 + pi/16,
+   per-step), and the flagship with ``boundary="padded"`` and
+   ``"apodized"``; every noisy total within 5 sigma of its mean, noise-free
+   scan vs analytic on a star with zeroed x-margins (R = 1.5 and 1 + pi/16)
+   and padded scan vs padded analytic within 1e-5 (relative L2); K2c and
+   its plain version on the flagship's noise-free canvas (totals,
+   dispersion);
+5. times every K1 mode, K2b and K2c against their plain versions (and
+   ``torch.poisson``) and each path's per-step image with CUDA events
+   (median of 7 after warm-up), with each kernel's bound on this card.
 
 Prints one JSON line with the kernels, then the card, then the result line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -52,7 +61,29 @@ SEEDS = 16                                    # K2b chi-square seeds per tier
 SPREAD_RATES = (5e-4, 0.05, 0.3, 0.7, 1.2, 5.0)  # one per single-draw tier
 DISP_MIN = 0.05      # dispersion over rates above this (bounded terms)
 SIZE = 2048                                   # flagship grid (bench.py:335)
-K1_CASES = ((SIZE, 1.5, 1), (SIZE, 2.0, 1), (512, 3.0, 2))
+IRRATIONAL = 1.0 + math.pi / 16               # bench.py:355-374
+WIDE_SIGMA = 8.0          # sigma_exc giving D_in = D_out = 256 at chunk 32
+# K1 cases (size, R, b, sigma_exc), noise-free against the plain version
+K1_CASES = ((SIZE, 1.5, 1, 3.0), (SIZE, 2.0, 1, 3.0), (512, 3.0, 2, 3.0),
+            (SIZE, IRRATIONAL, 1, 3.0), (512, 1.0 + math.pi / 8, 2, 3.0),
+            (SIZE, 1.5, 1, WIDE_SIGMA), (SIZE, IRRATIONAL, 1, WIDE_SIGMA))
+# K1 modes: launch counter, the TPU code it replaces, the timed case
+K1_MODES = {
+    "rescan_banded_fused": (
+        "rescan_line_sted_tpu/kernels/rescan_banded_fused.py:317",
+        (SIZE, 1.5, 1, 3.0)),
+    "rescan_banded_fused_spread": (
+        "rescan_line_sted_tpu/kernels/rescan_banded_fused.py:244",
+        (SIZE, IRRATIONAL, 1, 3.0)),
+    "rescan_banded_fused_wide": (
+        "rescan_line_sted_tpu/kernels/rescan_banded_fused.py:317",
+        (SIZE, 1.5, 1, WIDE_SIGMA)),
+    "rescan_banded_fused_spread_wide": (
+        "rescan_line_sted_tpu/kernels/rescan_banded_fused.py:244",
+        (SIZE, IRRATIONAL, 1, WIDE_SIGMA)),
+}
+PEAK_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
 
 def log(msg: str) -> None:
@@ -260,121 +291,261 @@ def k2b_seed_spread(dev) -> None:
         check(ks > 1e-6, f"K2b p values at rate {lam} not uniform: KS p {ks}")
 
 
-def flagship(size=None, rescan_factor=1.5, binning=1):
+def flagship(size=None, rescan_factor=1.5, binning=1, sigma_exc=3.0):
     from rescan_line_sted_torch import Grid, LineSTEDParams, RescanGeometry
 
     size = size or SIZE
     geom = RescanGeometry(Grid(size, size), rescan_factor=rescan_factor,
                           binning=binning, chunk=32)
-    return LineSTEDParams.create(depletion=8.0, **LINE_KW), geom
+    kw = dict(LINE_KW, sigma_exc=sigma_exc)
+    return LineSTEDParams.create(depletion=8.0, **kw), geom
 
 
-def phase_k1(dev) -> float:
+def k1_inputs(case, dev):
+    """The scan's own K1 arguments for a (size, R, b, sigma_exc) case."""
     from rescan_line_sted_torch.data import siemens_star
     from rescan_line_sted_torch.imaging.rescan import _banded_inputs
+
+    size, rf, b, sig = case
+    params, geom = flagship(size, rf, b, sig)
+    args, kw, _ = _banded_inputs(siemens_star((size, size), device=dev),
+                                 params, geom)
+    return args, kw
+
+
+def k1_bound(args, kw) -> tuple[float, str]:
+    """Least time (ms) of one K1 call on this card, and what bounds it:
+    the conv FMAs (and spreading taps) at the fp32 peak, against the
+    sample read once and the canvas written once."""
+    sample_y = args[0]
+    h, w = sample_y.shape
+    b = kw.get("binning", 1)
+    dob, hb = kw["d_out"] // b, h // b
+    fma = w * dob * kw["d_in"] * hb
+    q = kw.get("q", 1)
+    if "spread_weights" in kw:
+        fma += w * dob * hb * kw["spread_weights"].shape[1]
+        q = 2
+    nbytes = 4 * ((w + kw["d_in"]) * h + q * kw["wc"] * hb)
+    return roofline(2 * fma, nbytes)
+
+
+def roofline(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_k1(dev) -> dict:
+    """K1 against its plain version in every mode; returns the worst
+    absolute and relative error per mode (launch counter name)."""
+    from rescan_line_sted_torch.kernels import _build
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
         rescan_banded_fused, rescan_banded_fused_reference)
 
-    worst = {"abs": 0.0, "rel": 0.0}
-    for size, rf, b in K1_CASES:
-        params, geom = flagship(size, rf, b)
-        sample = siemens_star((size, size), device=dev)
-        args, kw, _ = _banded_inputs(sample, params, geom)
+    worst = {}
+    for case in K1_CASES:
+        args, kw = k1_inputs(case, dev)
+        before = dict(_build.LAUNCHES)
         got = rescan_banded_fused(*args, **kw)
+        mode = next(k for k, v in _build.LAUNCHES.items() if v != before[k])
         want = rescan_banded_fused_reference(*args, **kw)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
-        log(f"K1 vs plain {size}^2 R={rf} b={b} q={kw['q']} "
-            f"d_in={kw['d_in']} d_out={kw['d_out']}: max abs err {err:.3e}, "
+        log(f"K1 {mode} vs plain {case[0]}^2 R={case[1]:.6f} b={case[2]} "
+            f"sigma_exc={case[3]} q={got.shape[0]} d_in={kw['d_in']} "
+            f"d_out={kw['d_out']}: max abs err {err:.3e}, "
             f"max rel err {rel:.3e}")
         check(got.shape == want.shape and rel <= 1e-5,
-              f"K1 vs plain at {size}^2 R={rf} b={b}: rel err {rel}")
-        worst = {"abs": max(worst["abs"], err), "rel": max(worst["rel"], rel)}
-        if (size, rf, b) == K1_CASES[0]:
-            noisy = rescan_banded_fused(
-                *args, **kw, generator=torch.Generator().manual_seed(3))
-            total = float(noisy.double().sum())
-            clean = float(want.double().sum())
-            check(torch.isfinite(noisy).all() and (noisy >= 0).all(),
-                  "K1 noisy canvas must be finite and non-negative")
-            check(torch.equal(noisy, noisy.round()),
-                  "K1 noisy canvas must hold integer counts")
-            check(abs(total - clean) <= 5 * math.sqrt(clean),
-                  f"K1 noisy total {total} vs noise-free {clean}")
-            log(f"K1 noisy total {total:.1f} vs noise-free {clean:.1f}")
+              f"K1 {mode} vs plain at {case}: rel err {rel}")
+        w0 = worst.setdefault(mode, {"abs": 0.0, "rel": 0.0})
+        worst[mode] = {"abs": max(w0["abs"], err), "rel": max(w0["rel"], rel)}
+        if case in (K1_CASES[0], K1_CASES[3]):
+            k1_noisy_total(args, kw, want, mode)
+    missing = set(K1_MODES) - set(worst)
+    check(not missing, f"K1 modes never taken: {missing}")
     return worst
 
 
-def phase_e2e(dev) -> dict:
-    from rescan_line_sted_torch import rescanned_line_sted_image
-    from rescan_line_sted_torch.data import siemens_star
+def k1_noisy_total(args, kw, clean, mode) -> None:
+    """A noisy K1 canvas: finite, non-negative (integer counts where each
+    lands whole), its total within 5 sigma of the noise-free total. With
+    spreading a count n of position c adds n * S_c (S_c: the sum of c's
+    taps), so Var(total) = sum_c S_c^2 mu_c <= max S_c * total."""
+    from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+        rescan_banded_fused)
+
+    noisy = rescan_banded_fused(*args, **kw,
+                                generator=torch.Generator().manual_seed(3))
+    total = float(noisy.double().sum())
+    mu = float(clean.double().sum())
+    scale = 1.0
+    if "spread_weights" in kw:
+        scale = float(kw["spread_weights"].double().sum(1).max())
+    else:
+        check(torch.equal(noisy, noisy.round()),
+              f"K1 {mode} noisy canvas must hold integer counts")
+    check(torch.isfinite(noisy).all() and (noisy >= 0).all(),
+          f"K1 {mode} noisy canvas must be finite and non-negative")
+    z = (total - mu) / math.sqrt(scale * mu)
+    log(f"K1 {mode} noisy total {total:.1f} vs noise-free {mu:.1f} "
+        f"({z:+.2f} sigma)")
+    check(abs(z) <= 5, f"K1 {mode} noisy total {total} vs noise-free {mu}")
+
+
+def drive(name, fn):
+    """Run one path with every launch counter set to 0 just before and
+    read just after; returns fn's result and the counts that moved."""
     from rescan_line_sted_torch.kernels import _build
 
-    params, geom = flagship()
-    size = geom.grid.width
-    sample = siemens_star((size, size), device=dev)
-    gen = torch.Generator().manual_seed(2024)
     _build.reset_launches()
-    clean = rescanned_line_sted_image(sample, params, geom,
-                                      method="scan").image
-    per_step = [rescanned_line_sted_image(
-        sample, params, geom, gen, method="scan", noise_mode="per_step").image
-        for _ in range(3)]
-    collapsed = rescanned_line_sted_image(
-        sample, params, geom, gen, method="scan").image
-    analytic = rescanned_line_sted_image(sample, params, geom, gen).image
+    out = fn()
     torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    log(f"main-path launches: {json.dumps(launches)}")
-    check(launches["rescan_banded_fused"] >= 5,
-          f"main path must launch K1 for every scan image: {launches}")
-    check(launches["poisson_flat"] >= 2,
-          f"collapsed and analytic noise must launch K2c: {launches}")
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    log(f"path {name}: launches {json.dumps(launches)}")
+    return out, launches
 
+
+def noisy_path(name, sample, params, geom, n_per_step=2, others=True):
+    """Drive a noise-free scan, ``n_per_step`` per-step scans and (with
+    ``others``) a collapsed scan and a noisy analytic image; each noisy
+    total must lie within 5 sigma of its Poisson mean. Returns the
+    noise-free canvas and the path's launch counts."""
+    from rescan_line_sted_torch import rescanned_line_sted_image as image
+
+    gen = torch.Generator().manual_seed(2024)
+
+    def run():
+        clean = image(sample, params, geom, method="scan").image
+        imgs = [image(sample, params, geom, gen, method="scan",
+                      noise_mode="per_step").image
+                for _ in range(n_per_step)]
+        if others:
+            imgs += [image(sample, params, geom, gen, method="scan").image,
+                     image(sample, params, geom, gen).image]
+        return clean, imgs
+
+    (clean, imgs), launches = drive(name, run)
     check(clean.shape == geom.canvas_shape,
-          f"canvas shape {tuple(clean.shape)} != {geom.canvas_shape}")
-    clean_ana = rescanned_line_sted_image(sample, params, geom).image
+          f"{name}: canvas shape {tuple(clean.shape)} != {geom.canvas_shape}")
+    # per-step noise draws every (non-negative) frame element, and the
+    # class residues / NUFFT deconvolution keep the sum; collapsed /
+    # analytic noise draws the clamped canvas
     total = float(clean.double().sum())
-    # per-step noise draws every (non-negative) frame element, and the class
-    # residues keep the sum; collapsed / analytic noise draws the clamped
-    # canvas. Each noisy total is Poisson: within 5 sigma of its mean.
-    means = [total] * len(per_step) + [
-        float(clean.clamp_min(0).double().sum()),
-        float(clean_ana.clamp_min(0).double().sum())]
-    for img, mu in zip((*per_step, collapsed, analytic), means):
+    means = [total] * n_per_step
+    if others:
+        clean_ana = image(sample, params, geom).image
+        means += [float(clean.clamp_min(0).double().sum()),
+                  float(clean_ana.clamp_min(0).double().sum())]
+        for img in imgs[n_per_step:]:
+            check((img >= 0).all() and torch.equal(img, img.round()),
+                  f"{name}: collapsed / analytic noise must give "
+                  "non-negative counts")
+    for img, mu in zip(imgs, means):
         check(img.shape == geom.canvas_shape and torch.isfinite(img).all(),
-              "noisy image must be finite with the canvas shape")
+              f"{name}: noisy image must be finite with the canvas shape")
         t = float(img.double().sum())
-        # per-step subpixel canvases place integer counts band-limitedly
-        # (half-pixel class shift), which rings below zero (rescan module
-        # doc); K1's own noisy output is checked non-negative in phase_k1
+        # per-step subpixel canvases place integer counts band-limitedly,
+        # which rings below zero (rescan module doc); K1's own noisy output
+        # is checked non-negative in phase_k1
         neg = float(img.clamp_max(0).double().sum())
-        log(f"image total {t:.1f} vs mean {mu:.1f} "
+        log(f"{name}: image total {t:.1f} vs mean {mu:.1f} "
             f"({(t - mu) / math.sqrt(mu):+.2f} sigma), "
             f"negative mass {neg / t:.2e}")
         check(abs(t - mu) <= 5 * math.sqrt(mu),
-              f"noisy total {t} not within 5 sigma of its mean {mu}")
-    for img in (collapsed, analytic):
-        check((img >= 0).all() and torch.equal(img, img.round()),
-              "collapsed / analytic noise must give non-negative counts")
-    check(not torch.equal(per_step[0], per_step[1]),
-          "two per-step images from one generator must differ")
-    k2c_on_canvas(clean, dev)
+              f"{name}: noisy total {t} not within 5 sigma of its mean {mu}")
+    check(not torch.equal(imgs[0], imgs[1]),
+          f"{name}: two noisy images from one generator must differ")
+    return clean, launches
 
-    margin = 64
-    padded = sample.clone()
-    padded[:, :margin] = 0
-    padded[:, -margin:] = 0
-    scan = rescanned_line_sted_image(padded, params, geom, method="scan").image
-    ana = rescanned_line_sted_image(padded, params, geom).image
-    rel = float((scan - ana).double().norm() / ana.double().norm())
+
+def rel_l2(got, want) -> float:
+    return float((got - want).double().norm() / want.double().norm())
+
+
+def scan_vs_analytic(name, sample, params, geom, **kw) -> float:
+    """Noise-free scan against the analytic canvas (relative L2)."""
+    from rescan_line_sted_torch import rescanned_line_sted_image as image
+
+    scan = image(sample, params, geom, method="scan", **kw).image
+    ana = image(sample, params, geom, **kw).image
+    rel = rel_l2(scan, ana)
     rel_max = float((scan - ana).abs().max() / ana.abs().max())
-    log(f"scan vs analytic (zero x-margins): rel err {rel:.3e} "
-        f"(max-rel {rel_max:.3e})")
-    check(rel <= 1e-5,
-          f"scan vs analytic rel err {rel}")
-    return launches
+    log(f"{name}: scan vs analytic rel err {rel:.3e} (max-rel {rel_max:.3e})")
+    return rel
+
+
+def zero_margins(sample, margin=64):
+    out = sample.clone()
+    out[:, :margin] = 0
+    out[:, -margin:] = 0
+    return out
+
+
+def phase_e2e(dev) -> dict:
+    """Every path through ``rescanned_line_sted_image``; returns each
+    path's launch counts."""
+    from rescan_line_sted_torch import rescanned_line_sted_image as image
+    from rescan_line_sted_torch.data import siemens_star
+
+    sample = siemens_star((SIZE, SIZE), device=dev)
+    paths = {}
+
+    params, geom = flagship()
+    clean, paths["flagship"] = noisy_path("flagship", sample, params, geom,
+                                          n_per_step=3)
+    check(paths["flagship"].get("rescan_banded_fused", 0) >= 5,
+          f"flagship must launch K1 for every scan image: {paths}")
+    check(paths["flagship"].get("poisson_flat", 0) >= 2,
+          f"collapsed and analytic noise must launch K2c: {paths}")
+    k2c_on_canvas(clean, dev)
+    rel = scan_vs_analytic("flagship (zero x-margins)", zero_margins(sample),
+                           params, geom)
+    check(rel <= 1e-5, f"flagship scan vs analytic rel err {rel}")
+
+    params, geom = flagship(rescan_factor=IRRATIONAL)
+    _, paths["irrational"] = noisy_path("irrational", sample, params, geom)
+    check(paths["irrational"].get("rescan_banded_fused_spread", 0) >= 4
+          and paths["irrational"].get("poisson_flat", 0) >= 2,
+          f"irrational R must launch K1's NUFFT mode and K2c: {paths}")
+    rel = scan_vs_analytic("irrational (zero x-margins)",
+                           zero_margins(sample), params, geom)
+    check(rel <= 1e-5, f"irrational scan vs analytic rel err {rel}")
+
+    for name, rf in (("wide", 1.5), ("spread_wide", IRRATIONAL)):
+        params, geom = flagship(rescan_factor=rf, sigma_exc=WIDE_SIGMA)
+        _, paths[name] = noisy_path(name, sample, params, geom, others=False)
+        key = "rescan_banded_fused_" + name
+        check(paths[name].get(key, 0) >= 3,
+              f"sigma_exc = {WIDE_SIGMA} must launch K1 {key}: {paths}")
+
+    params, geom = flagship()
+
+    def boundaries():
+        return {bd: (image(sample, params, geom, method="scan",
+                           boundary=bd).image,
+                     image(sample, params, geom, boundary=bd).image)
+                for bd in ("padded", "apodized")}
+
+    out, paths["padded"] = drive("padded / apodized", boundaries)
+    scan, ana = out["padded"]
+    rel = rel_l2(scan, ana)
+    log(f"padded: scan vs analytic rel err {rel:.3e}, canvas "
+        f"{tuple(scan.shape)}")
+    check(scan.shape == geom.canvas_shape and rel <= 1e-5,
+          f"padded scan vs padded analytic rel err {rel}")
+    # the apodized sample still reaches the x-edges, so its circular scan
+    # and analytic canvas differ at the seam; their totals agree exactly
+    scan, ana = out["apodized"]
+    tot = abs(float(scan.double().sum()) / float(ana.double().sum()) - 1.0)
+    log(f"apodized: scan vs analytic rel err {rel_l2(scan, ana):.3e}, "
+        f"totals differ by {tot:.2e} (relative)")
+    check(scan.shape == geom.canvas_shape and torch.isfinite(scan).all()
+          and tot <= 1e-5, f"apodized scan total off by {tot}")
+    check(paths["padded"].get("rescan_banded_fused", 0) >= 2,
+          f"padded and apodized scans must launch K1: {paths}")
+    return paths
 
 
 def k2c_on_canvas(canvas, dev) -> None:
@@ -424,39 +595,64 @@ def k2c_on_canvas(canvas, dev) -> None:
 
 
 def phase_times(dev) -> dict:
-    from rescan_line_sted_torch import rescanned_line_sted_image
+    """CUDA-event times (ms): each K1 mode and its plain version, noisy and
+    noise-free, with its bound; K2b / K2c, their plain version and
+    ``torch.poisson`` on the flagship canvas; each path's per-step image."""
+    from rescan_line_sted_torch import rescanned_line_sted_image as image
     from rescan_line_sted_torch.data import siemens_star
-    from rescan_line_sted_torch.imaging.rescan import _banded_inputs
+    from rescan_line_sted_torch.imaging.boundary import default_margin
     from rescan_line_sted_torch.kernels.poisson import (
         poisson_flat, poisson_reference, poisson_rows_tiered)
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
         rescan_banded_fused, rescan_banded_fused_reference)
 
-    params, geom = flagship()
-    size = geom.grid.width
-    sample = siemens_star((size, size), device=dev)
-    args, kw, _ = _banded_inputs(sample, params, geom)
     cpu_gen = torch.Generator().manual_seed(1)
     dev_gen = torch.Generator(dev).manual_seed(1)
-    t = {
-        "k1_noisy_ms": cuda_ms(lambda: rescan_banded_fused(
-            *args, **kw, generator=cpu_gen)),
-        "k1_noisy_plain_ms": cuda_ms(lambda: rescan_banded_fused_reference(
-            *args, **kw, generator=dev_gen)),
-        "k1_clean_ms": cuda_ms(lambda: rescan_banded_fused(*args, **kw)),
-        "k1_clean_plain_ms": cuda_ms(
-            lambda: rescan_banded_fused_reference(*args, **kw)),
-    }
-    canvas = rescanned_line_sted_image(sample, params, geom,
-                                       method="scan").image
-    t["k2c_ms"] = cuda_ms(lambda: poisson_flat(canvas, cpu_gen))
-    t["k2b_ms"] = cuda_ms(lambda: poisson_rows_tiered(canvas, cpu_gen))
-    t["k2_plain_ms"] = cuda_ms(lambda: poisson_reference(canvas, dev_gen))
-    t["e2e_per_step_ms"] = cuda_ms(lambda: rescanned_line_sted_image(
-        sample, params, geom, cpu_gen, method="scan", noise_mode="per_step"))
-    t["e2e_per_step_steps_per_s"] = size / (t["e2e_per_step_ms"] * 1e-3)
-    for k, v in t.items():
-        log(f"time {k} {v:.4f}")
+    sample = siemens_star((SIZE, SIZE), device=dev)
+
+    def per_step(params, geom, **kw):
+        return cuda_ms(lambda: image(sample, params, geom, cpu_gen,
+                                     method="scan", noise_mode="per_step",
+                                     **kw))
+
+    # the flagship image first, before the heavier configurations
+    t = {"e2e": {"flagship": per_step(*flagship())}}
+    for mode, (_, case) in K1_MODES.items():
+        args, kw = k1_inputs(case, dev)
+        bound, by = k1_bound(args, kw)
+        t[mode] = {
+            "ms": cuda_ms(lambda: rescan_banded_fused(
+                *args, **kw, generator=cpu_gen)),
+            "plain_ms": cuda_ms(lambda: rescan_banded_fused_reference(
+                *args, **kw, generator=dev_gen)),
+            "noise_free_ms": cuda_ms(lambda: rescan_banded_fused(*args, **kw)),
+            "noise_free_plain_ms": cuda_ms(
+                lambda: rescan_banded_fused_reference(*args, **kw)),
+            "bound_ms": bound, "bound_by": by}
+    canvas = image(sample, *flagship(), method="scan").image
+    lam = canvas.clamp_min(0)
+    bound, by = roofline(0.0, 2 * 4 * canvas.numel())
+    plain = cuda_ms(lambda: poisson_reference(canvas, dev_gen))
+    library = cuda_ms(lambda: torch.poisson(lam, dev_gen))
+    for name, fn in (("poisson_flat", poisson_flat),
+                     ("poisson_rows_tiered", poisson_rows_tiered)):
+        t[name] = {"ms": cuda_ms(lambda: fn(canvas, cpu_gen)),
+                   "plain_ms": plain, "library_ms": library,
+                   "bound_ms": bound, "bound_by": by}
+    t["e2e"]["irrational"] = per_step(*flagship(rescan_factor=IRRATIONAL))
+    t["e2e"]["wide"] = per_step(*flagship(sigma_exc=WIDE_SIGMA))
+    t["e2e"]["spread_wide"] = per_step(*flagship(rescan_factor=IRRATIONAL,
+                                                 sigma_exc=WIDE_SIGMA))
+    t["e2e"]["padded"] = per_step(*flagship(), boundary="padded")
+    t["e2e"]["flagship_again"] = per_step(*flagship())
+    margin = default_margin(flagship()[1])
+    for name, ms in t["e2e"].items():
+        steps = SIZE + (2 * margin if name == "padded" else 0)
+        log(f"time e2e per-step {name} {ms:.4f} ms, "
+            f"{steps / (ms * 1e-3):.1f} steps/s")
+    for name, v in t.items():
+        if name != "e2e":
+            log(f"time {name} {json.dumps(v)}")
     return t
 
 
@@ -482,35 +678,44 @@ def main() -> int:
 
     sampler_err = phase_sampler(dev)
     k1_err = phase_k1(dev)
-    launches = phase_e2e(dev)
+    paths = phase_e2e(dev)
     times = phase_times(dev)
     log(f"after timing: {clocks()}")
+    log(f"smoke run took {time.time() - t0:.1f} s after the card was named")
 
+    k1_path = {"rescan_banded_fused": "flagship",
+               "rescan_banded_fused_spread": "irrational",
+               "rescan_banded_fused_wide": "wide",
+               "rescan_banded_fused_spread_wide": "spread_wide"}
+    kernels = [
+        {"name": mode, "route": "cuda",
+         "source": "rescan_line_sted_torch/csrc/rescan_banded_fused.cu",
+         "replaces": replaces, "path": k1_path[mode],
+         "launches": paths[k1_path[mode]][mode],
+         "max_abs_err": k1_err[mode]["abs"],
+         "max_rel_err": k1_err[mode]["rel"],
+         "err_kind": "noise-free, against the plain version",
+         **times[mode], "library_ms": None}
+        for mode, (replaces, _) in K1_MODES.items()]
+    kernels.append(
+        {"name": "poisson_flat", "route": "cuda",
+         "source": "rescan_line_sted_torch/csrc/poisson.cu",
+         "replaces": "rescan_line_sted_tpu/kernels/poisson_pallas.py:398",
+         "path": "flagship", "launches": paths["flagship"]["poisson_flat"],
+         "max_abs_err": sampler_err["poisson_flat"],
+         "err_kind": "max |mean(kernel) - mean(plain)| over rates",
+         **times["poisson_flat"]})
     log(json.dumps({"standalone": [{
         "name": "poisson_rows_tiered", "route": "cuda",
         "source": "rescan_line_sted_torch/csrc/poisson.cu",
         "replaces": "rescan_line_sted_tpu/kernels/poisson_pallas.py:344",
-        "launches": launches["poisson_rows_tiered"],
+        "launches": 0,
         "max_abs_err": sampler_err["k2b_draw_for_draw"],
         "err_kind": "counts against the host reference on the same "
                     "Philox stream, rates below the bright tier",
-        "ms": times["k2b_ms"], "plain_ms": times["k2_plain_ms"]}]}))
-    log(json.dumps({"kernels": [
-        {"name": "rescan_banded_fused", "route": "cuda",
-         "source": "rescan_line_sted_torch/csrc/rescan_banded_fused.cu",
-         "replaces": "rescan_line_sted_tpu/kernels/rescan_banded_fused.py:317",
-         "launches": launches["rescan_banded_fused"],
-         "max_abs_err": k1_err["abs"], "max_rel_err": k1_err["rel"],
-         "err_kind": "noise-free, against the plain version",
-         "ms": times["k1_noisy_ms"], "plain_ms": times["k1_noisy_plain_ms"]},
-        {"name": "poisson_flat", "route": "cuda",
-         "source": "rescan_line_sted_torch/csrc/poisson.cu",
-         "replaces": "rescan_line_sted_tpu/kernels/poisson_pallas.py:398",
-         "launches": launches["poisson_flat"],
-         "max_abs_err": sampler_err["poisson_flat"],
-         "err_kind": "max |mean(kernel) - mean(plain)| over rates",
-         "ms": times["k2c_ms"], "plain_ms": times["k2_plain_ms"]},
-    ]}))
+        **times["poisson_rows_tiered"]}]}))
+    log(json.dumps({"e2e_per_step_ms": times["e2e"]}))
+    log(json.dumps({"kernels": kernels}))
     log(name_power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

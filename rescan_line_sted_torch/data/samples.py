@@ -6,10 +6,14 @@ from __future__ import annotations
 
 import torch
 
+from rescan_line_sted_torch.device import resolve
+
 
 def siemens_star(shape: tuple[int, int], spokes: int = 16,
                  inner: float = 2.0, device=None) -> torch.Tensor:
-    """Siemens-star resolution target: spoke spacing shrinks toward center."""
+    """Siemens-star resolution target: spoke spacing shrinks toward center.
+    Made on ``device`` (None: the CUDA card; raises without one)."""
+    device = resolve(device)
     y = (torch.arange(shape[0], dtype=torch.float32, device=device)
          - shape[0] // 2)[:, None]
     x = (torch.arange(shape[1], dtype=torch.float32, device=device)

@@ -30,10 +30,16 @@ def _np_phases(theta: np.ndarray, device=None) -> torch.Tensor:
     from pinned memory without blocking, so the host keeps queueing work.
     """
     z = np.exp(-2j * np.pi * np.asarray(theta, np.float64))
-    table = torch.from_numpy(z.astype(np.complex64))
+    return host_table(z.astype(np.complex64), device)
+
+
+def host_table(table: np.ndarray, device=None) -> torch.Tensor:
+    """A host-built numpy table on ``device``; a CUDA copy goes from pinned
+    memory without blocking (the array is copied, never aliased)."""
+    t = torch.from_numpy(np.array(table))
     if torch.device(device or "cpu").type == "cuda":
-        return table.pin_memory().to(device, non_blocking=True)
-    return table
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def rescan_x_kernels_rfft(geom, params, device=None) -> torch.Tensor:

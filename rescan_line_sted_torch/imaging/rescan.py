@@ -18,27 +18,38 @@ Methods:
   each offset to the nearest binned canvas pixel; ``"subpixel"`` places a
   rational step ``(R-1)/b = p/q`` (q <= 8, q | chunk) exactly through q
   class canvases whose fractional residues are applied once per image as
-  spectral shifts; ``"auto"`` picks subpixel exactly when offsets are
-  fractional.
+  spectral shifts, and any other step (irrational, or q > 8) through K1's
+  NUFFT spreading mode: each frame is spread by 8 exponential-of-semicircle
+  taps onto the two parity canvases of a 2x-oversampled grid, merged and
+  deconvolved once per image; ``"auto"`` picks subpixel exactly when
+  offsets are fractional.
 
 Subpixel placement spreads a camera pixel band-limitedly over the canvas:
 per-step subpixel canvases carry small negative excursions (sinc ringing
 of integer counts), and ``noise_mode="collapsed"`` then means "shot noise
 of the ideal canvas".
 
+Boundaries: ``"circular"`` (the grid wraps), ``"padded"`` (acquire on a
+zero-padded grid and crop, ``imaging/boundary.py``) and ``"apodized"``
+(taper the sample's edges to zero).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-open item): irrational or q > 8 steps (K1's NUFFT mode), configurations
-without band windows, custom illumination models, the ``padded`` and
-``apodized`` boundaries, and row-sharded samples.
+open item): configurations without band windows (the full-frame kernel
+K4), custom illumination models, and row-sharded samples.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from rescan_line_sted_torch.config import RescanGeometry, RescanParams
+from rescan_line_sted_torch.device import resolve
 from rescan_line_sted_torch.imaging import analytic
+from rescan_line_sted_torch.imaging import boundary as boundaries
 from rescan_line_sted_torch.imaging.line_sted import effective_line_profile
 from rescan_line_sted_torch.imaging.point_sted import AcquisitionResult
 from rescan_line_sted_torch.kernels import fftconv
@@ -54,7 +65,7 @@ _SIGMA_FROM_FWHM = 2.3548200450309493
 
 
 def rescanned_line_sted_image(
-    sample: torch.Tensor,
+    sample,
     params: RescanParams,
     geom: RescanGeometry,
     generator: torch.Generator | None = None,
@@ -62,30 +73,49 @@ def rescanned_line_sted_image(
     noise_mode: str = "collapsed",
     reassignment: str = "auto",
     boundary: str = "circular",
+    margin: int | None = None,
+    device=None,
 ) -> AcquisitionResult:
     """Simulate a full rescanned line-STED acquisition of ``sample`` [H, W].
 
-    Returns the canvas ``[H/b, round(R*W)/b]`` on ``sample``'s device.
-    ``sample`` (a tensor or array) is taken as float32, as the JAX package
-    takes it. ``generator`` (a ``torch.Generator``) draws shot noise;
-    ``None`` gives the noise-free mean. ``reassignment`` ("auto" |
-    "rounded" | "subpixel") and ``noise_mode`` ("collapsed" | "per_step")
-    apply to the scan method (module doc).
+    Returns the canvas ``[H/b, round(R*W)/b]`` for any ``rescan_factor >=
+    1`` and any binning. ``sample`` (a tensor or array) is taken as
+    float32, as the JAX package takes it, and moved to ``device``: None
+    means the CUDA card (a CUDA ``sample`` stays on its card), and raises
+    without one; pass ``device="cpu"`` for the plain PyTorch versions.
+    ``generator`` (a ``torch.Generator``) draws shot noise; ``None`` gives
+    the noise-free mean. ``reassignment`` ("auto" | "rounded" |
+    "subpixel") and ``noise_mode`` ("collapsed" | "per_step") apply to the
+    scan method (module doc). ``boundary``: "circular", "padded" (open
+    boundary via pad-acquire-crop; the dose is reported for the requested
+    field) or "apodized"; ``margin`` defaults to
+    ``boundary.default_margin(geom)``.
     """
-    sample = torch.as_tensor(sample, dtype=torch.float32)
-    if tuple(sample.shape) != geom.grid.shape:
-        raise ValueError(f"sample shape {tuple(sample.shape)} does not match "
-                         f"the grid {geom.grid.shape}")
-    if boundary in ("padded", "apodized"):
-        raise NotImplementedError(
-            f"boundary={boundary!r} is not ported yet (ROADMAP.md open "
-            "item 6: imaging/boundary.py)")
-    if boundary != "circular":
-        raise ValueError(f"unknown boundary {boundary!r}")
     if hasattr(sample, "device_mesh"):
         raise NotImplementedError(
             "row-sharded samples are not ported yet (ROADMAP.md open "
             "item 12: parallel/ on torch.distributed)")
+    if device is None and isinstance(sample, torch.Tensor) and sample.is_cuda:
+        device = sample.device
+    sample = torch.as_tensor(sample, dtype=torch.float32,
+                             device=resolve(device))
+    if tuple(sample.shape) != geom.grid.shape:
+        raise ValueError(f"sample shape {tuple(sample.shape)} does not match "
+                         f"the grid {geom.grid.shape}")
+    if boundary not in ("circular", "padded", "apodized"):
+        raise ValueError(f"unknown boundary {boundary!r}")
+    if margin is None and boundary != "circular":
+        margin = boundaries.default_margin(geom)
+    if boundary == "apodized":
+        sample = boundaries.apodize_sample(sample, margin)
+    elif boundary == "padded":
+        res = boundaries.acquire_padded(
+            lambda s, g, **kw: rescanned_line_sted_image(s, params, g, **kw),
+            sample, geom, margin, generator=generator, method=method,
+            noise_mode=noise_mode, reassignment=reassignment,
+            device=sample.device)
+        return dataclasses.replace(
+            res, dose=line_sted_dose(params, geom, sample.device))
     models.line_model(params)           # raises on an unported model
     if method == "analytic":
         image = maybe_poisson(
@@ -191,6 +221,84 @@ def _apply_class_residues(folded: torch.Tensor, fracs, wc: int
                            dim=0).T.contiguous()
 
 
+_NUFFT_P = 8  # spreading-window width (fine-grid taps); see _nufft_beta
+
+
+def _nufft_beta(p: int) -> float:
+    """Exponential-of-semicircle shape parameter for oversampling 2:
+    ``beta = 0.976 * pi * P * (1 - 1/(2 sigma))`` (the finufft tuning);
+    aliasing error ~2e-8 at P = 8."""
+    return 0.976 * 3.141592653589793 * p * 0.75
+
+
+def _nufft_spread_tables(offs, p: int = _NUFFT_P, device=None):
+    """Per-position NUFFT spreading tables for any-step subpixel placement.
+
+    Frame ``c`` shifts by the real canvas offset ``offs[c]``, i.e. by
+    ``2 * offs[c]`` on the 2x-oversampled fine grid, straddled by ``p``
+    integer taps weighted by the ES window. Tap ``t`` lands on the
+    parity-``(n0 + t) % 2`` coarse canvas at integer offset
+    ``(n0 + t - parity) / 2``; grouped by parity, each position has two
+    P/2-tap filters and two integer offsets. Built in float64 on the host
+    (floor and Python-sign modulo on int64), weights cast to f32 last.
+
+    Returns ``(offsets2 [2, W] int32, weights [W, 2 * P/2] f32)`` on
+    ``device`` for ``rescan_banded_fused(spread_weights=, offsets2=)``.
+    """
+    offs = np.asarray(offs, np.float64)
+    p2 = p // 2
+    fine = 2.0 * offs
+    n0 = np.floor(fine).astype(np.int64) - (p2 - 1)
+    beta = _nufft_beta(p)
+
+    def phi(z):
+        u = 1.0 - np.square(2.0 * z / p)
+        return np.where(u > 0.0, np.exp(beta * (np.sqrt(np.maximum(u, 0.0))
+                                                - 1.0)), 0.0)
+
+    offsets2 = np.empty((2, offs.size), np.int64)
+    weights = np.empty((offs.size, 2 * p2), np.float64)
+    for parity in (0, 1):
+        t0 = (parity - n0) % 2                       # first tap, parity pi
+        taps = n0[:, None] + t0[:, None] + 2 * np.arange(p2)[None, :]
+        offsets2[parity] = (n0 + t0 - parity) // 2
+        weights[:, parity * p2:(parity + 1) * p2] = phi(taps - fine[:, None])
+    return (analytic.host_table(offsets2.astype(np.int32), device),
+            analytic.host_table(weights.astype(np.float32), device))
+
+
+@functools.lru_cache(maxsize=8)
+def _nufft_deconv_inv(wc: int, p: int = _NUFFT_P) -> np.ndarray:
+    """``1 / phi_hat(pi k / wc)`` for k in [0, wc/2] (f32 host array; do
+    not mutate): the once-per-image window deconvolution, by float64
+    trapezoid quadrature of the ES window's continuous transform on 8193
+    points."""
+    beta = _nufft_beta(p)
+    z = np.linspace(-p / 2.0, p / 2.0, 8193)
+    phi = np.exp(beta * (np.sqrt(np.maximum(
+        1.0 - np.square(2.0 * z / p), 0.0)) - 1.0))
+    xi = np.pi * np.arange(wc // 2 + 1, dtype=np.float64) / wc
+    trapezoid = getattr(np, "trapezoid", None) or np.trapz  # numpy < 2
+    phi_hat = trapezoid(phi[None, :] * np.cos(xi[:, None] * z[None, :]),
+                        z, axis=1)
+    return (1.0 / phi_hat).astype(np.float32)
+
+
+def _apply_nufft_deconv(folded: torch.Tensor, wc: int,
+                        dinv: np.ndarray) -> torch.Tensor:
+    """Merge the two parity canvases ``[2, wc, H]`` of the 2x-oversampled
+    fine grid (spectrum ``E_hat(k) + exp(-i pi k / wc) O_hat(k)``, phases
+    built in float64 on the host) and divide by the window's ``phi_hat``
+    (``dinv``): the exact subpixel placement. Returns the [H, wc] canvas."""
+    ph = analytic._np_phases(np.arange(wc // 2 + 1) / (2.0 * wc),
+                             folded.device)                       # [K]
+    spec = torch.fft.rfft(folded, n=wc, dim=1)                    # [2, K, H]
+    fine = spec[0] + ph[:, None] * spec[1]
+    dinv_t = analytic.host_table(dinv, folded.device)
+    return torch.fft.irfft(fine * dinv_t[:, None], n=wc,
+                           dim=0).T.contiguous()
+
+
 def _illum_band(params, w: int, chunk: int,
                 b: int = 1) -> tuple[int, int | None] | None:
     """Static band windows ``(d_in, d_out)`` of the banded scan.
@@ -228,10 +336,13 @@ def _illum_band(params, w: int, chunk: int,
 
 def _banded_inputs(sample, params, geom, reassignment="auto"):
     """Arguments of the banded fused scan for this acquisition, and the
-    per-class fractional residues to apply to its result.
+    epilogue that turns its folded canvases into the image.
 
-    Returns ``(args, kwargs, fracs)`` for ``rescan_banded_fused(*args,
-    **kwargs, generator=...)``; raises ``NotImplementedError`` where the
+    Returns ``(args, kwargs, finish)``: ``finish(rescan_banded_fused(*args,
+    **kwargs, generator=...))`` is the ``[H/b, wc]`` canvas. Integer and
+    rational steps place through classes (``_apply_class_residues``); any
+    other subpixel step through K1's NUFFT spreading mode
+    (``_apply_nufft_deconv``). Raises ``NotImplementedError`` where the
     banded route does not apply.
     """
     if reassignment not in ("auto", "rounded", "subpixel"):
@@ -249,22 +360,17 @@ def _banded_inputs(sample, params, geom, reassignment="auto"):
             else "subpixel"
 
     if reassignment == "rounded":
-        bf_p, bf_q = None, 1           # round() is integral for any R
+        pq = (None, 1)                     # round() is integral for any R
     else:
-        pq = _rational_step(step, chunk)
-        if pq is None:
-            raise NotImplementedError(
-                f"subpixel placement step {step!r} has no class structure "
-                "(q <= 8); K1's NUFFT spreading mode is not ported yet "
-                "(ROADMAP.md open item 6)")
-        bf_p, bf_q = pq
+        pq = _rational_step(step, chunk)   # None: no classes, NUFFT mode
+    tail = _NUFFT_P // 2 - 1 if pq is None else 0   # spread rows past dob
     windowed = _illum_band(params, w, chunk, b)
     if (windowed is None or windowed[1] is None or chunk % 8
-            or (windowed[1] // b + 7) // 8 * 8 + 8 > wc):
+            or (windowed[1] // b + tail + 7) // 8 * 8 + 8 > wc):
         raise NotImplementedError(
             "this geometry has no banded route (band windows missing or "
             "misaligned); the full-frame engine K4 is not ported yet "
-            "(ROADMAP.md open item 6)")
+            "(ROADMAP.md open item 6.3)")
     d_in, d_out = windowed
 
     eff = effective_line_profile(w, params, dev)
@@ -272,22 +378,34 @@ def _banded_inputs(sample, params, geom, reassignment="auto"):
         psfs.detection_profile(h, params.sigma_det, dev))
     gx = psfs.detection_profile(w, params.sigma_det, dev)
     sample_y = fftconv.convolve_otf1d(sample, otf_y, axis=-2, n=h)
+    kwargs = dict(wc=wc, d_in=d_in, d_out=d_out, chunk=chunk, binning=b)
 
     pos = torch.arange(w, device=dev)
-    if bf_p is None:
-        offsets = torch.round(
-            (geom.rescan_factor - 1.0) * pos / b).to(torch.int32)
-        classes = None
-        fracs = [0.0]
+    if pq is None:
+        offsets2, weights = _nufft_spread_tables(
+            step * np.arange(w, dtype=np.float64), device=dev)
+        offsets = torch.zeros(w, dtype=torch.int32, device=dev)
+        kwargs.update(spread_weights=weights, offsets2=offsets2)
+        dinv = _nufft_deconv_inv(wc)
+
+        def finish(folded):
+            return _apply_nufft_deconv(folded, wc, dinv)
     else:
-        offsets = torch.div(bf_p * pos, bf_q, rounding_mode="floor").to(
-            torch.int32)
-        classes = (pos % bf_q).to(torch.int32)
-        fracs = [((bf_p * r) % bf_q) / bf_q for r in range(bf_q)]
+        bf_p, bf_q = pq
+        if bf_p is None:
+            offsets = torch.round(
+                (geom.rescan_factor - 1.0) * pos / b).to(torch.int32)
+            fracs = [0.0]
+        else:
+            offsets = torch.div(bf_p * pos, bf_q, rounding_mode="floor").to(
+                torch.int32)
+            kwargs.update(classes=(pos % bf_q).to(torch.int32), q=bf_q)
+            fracs = [((bf_p * r) % bf_q) / bf_q for r in range(bf_q)]
+
+        def finish(folded):
+            return _apply_class_residues(folded, fracs, wc)
     args = (sample_y.contiguous(), params.brightness * eff, gx, offsets)
-    kwargs = dict(wc=wc, d_in=d_in, d_out=d_out, chunk=chunk, binning=b,
-                  classes=classes, q=bf_q)
-    return args, kwargs, fracs
+    return args, kwargs, finish
 
 
 def _scan(sample, params, geom, generator, noise_mode="collapsed",
@@ -295,10 +413,9 @@ def _scan(sample, params, geom, generator, noise_mode="collapsed",
     if noise_mode not in ("collapsed", "per_step"):
         raise ValueError(f"unknown noise_mode {noise_mode!r}")
     per_step = generator is not None and noise_mode == "per_step"
-    args, kwargs, fracs = _banded_inputs(sample, params, geom, reassignment)
-    folded = rescan_banded_fused(
-        *args, **kwargs, generator=generator if per_step else None)
-    canvas = _apply_class_residues(folded, fracs, geom.canvas_shape[1])
+    args, kwargs, finish = _banded_inputs(sample, params, geom, reassignment)
+    canvas = finish(rescan_banded_fused(
+        *args, **kwargs, generator=generator if per_step else None))
     if generator is not None and not per_step:
         canvas = maybe_poisson(generator, canvas)
     return canvas

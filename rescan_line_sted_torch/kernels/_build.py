@@ -8,9 +8,10 @@ sources only and a changed source rebuilds. A failed build raises with
 nvcc's stderr; nothing falls back to a plain version.
 
 Every C entry point returns ``cudaGetLastError()``; ``check`` raises on a
-non-zero code. ``LAUNCHES`` counts the launches of each kernel: every
-wrapper adds one where it launches, so a run can show which kernels its
-main path went through.
+non-zero code. ``LAUNCHES`` counts the launches of each kernel (of K1,
+each placement mode and shared-memory layout apart): every wrapper adds
+one where it launches, so a run can show which kernels its main path went
+through.
 """
 
 from __future__ import annotations
@@ -30,8 +31,10 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"rescan_banded_fused": 0, "poisson_rows_tiered": 0,
-            "poisson_flat": 0}
+LAUNCHES = {"rescan_banded_fused": 0, "rescan_banded_fused_spread": 0,
+            "rescan_banded_fused_wide": 0,
+            "rescan_banded_fused_spread_wide": 0,
+            "poisson_rows_tiered": 0, "poisson_flat": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,8 +44,8 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "rls_poisson_rows_tiered": [_P, _P, _I, _I, _U, _U, _P],
     "rls_poisson_flat": [_P, _P, _LL, _U, _U, _P],
-    "rls_rescan_banded_fused": [_P] * 8 + [_I] * 9 + [_U, _U, _P],
-    "rls_rescan_banded_fused_smem": [_I] * 4 + [ctypes.POINTER(_LL)] * 2,
+    "rls_rescan_banded_fused": [_P] * 9 + [_I] * 10 + [_U, _U, _P,
+                                                    ctypes.POINTER(_I)],
 }
 
 _lib = None

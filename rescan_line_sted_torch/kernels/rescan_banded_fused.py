@@ -1,8 +1,7 @@
 """Banded fused rescan scan: CUDA kernel K1 and its plain version.
 
-Port of ``rescan_line_sted_tpu/kernels/rescan_banded_fused.py`` (integer
-and class placement; the NUFFT spreading mode is queued in ROADMAP.md).
-Per chunk of C scan positions the scan
+Port of ``rescan_line_sted_tpu/kernels/rescan_banded_fused.py``, all its
+placement modes. Per chunk of C scan positions the scan
 
 1. takes the chunk's ``D_in``-row window of the extended y-convolved
    sample (``sample_ext[r] = sample_y^T[(r - s_in) % W]``),
@@ -12,10 +11,14 @@ Per chunk of C scan positions the scan
    bins ``b`` adjacent lanes,
 3. optionally draws per-frame shot noise (K2a inside the kernel,
    ``torch.poisson`` in the plain version), and
-4. adds every frame window into its class canvas at its integer offset.
-   Frame windows are unwrapped camera coordinates: a window that crosses
-   the camera's periodic boundary splits at row ``m0`` of its chunk into
-   two placements ``W/b`` apart (``sa_lo`` / ``sa_hi``).
+4. places every frame window. Integer and class placement adds it into
+   its class canvas at its integer offset. NUFFT spreading placement
+   (``spread_weights`` / ``offsets2``) convolves it per parity with its
+   position's 4 window taps (``dob + 3`` rows) and adds the result into
+   that parity's canvas at the parity's integer offset. Frame windows are
+   unwrapped camera coordinates: a window that crosses the camera's
+   periodic boundary splits at row ``m0`` of its chunk into two placements
+   ``W/b`` apart (``sa_lo`` / ``sa_hi``), before spreading.
 
 The tables and placement scalars are built here in plain torch (with
 floor division and Python-sign modulo, as the JAX wrapper does), and the
@@ -32,7 +35,7 @@ from rescan_line_sted_torch.kernels import _build, fftconv
 from rescan_line_sted_torch.kernels.poisson import poisson_reference
 
 
-def _check(h, w, *, wc, d_in, d_out, chunk, binning):
+def _check(h, w, *, wc, d_in, d_out, chunk, binning, n_spread=0):
     """The JAX wrapper's argument guards (minus its TPU sub-row rule)."""
     b = binning
     if d_out is None:
@@ -44,16 +47,32 @@ def _check(h, w, *, wc, d_in, d_out, chunk, binning):
                          "sample wraps the circular boundary at most once)")
     if chunk % b or d_out % b or ((d_out - chunk) // 2) % b:
         raise ValueError("binning must align the frame window")
-    if ((d_out // b) + 7) // 8 * 8 + 8 > wc:
+    if ((d_out // b) + max(n_spread - 1, 0) + 7) // 8 * 8 + 8 > wc:
         raise ValueError("frame window wider than canvas")
 
 
+def _spread_args(w, classes, q, spread_weights, offsets2):
+    """``(n_spread, q)`` of a call: NUFFT spreading forces two parity
+    canvases and excludes class placement, as the JAX wrapper does."""
+    if spread_weights is None:
+        return 0, q
+    if offsets2 is None or classes is not None or q != 1:
+        raise ValueError("NUFFT spreading takes offsets2 and excludes "
+                         "class placement")
+    n_spread = spread_weights.shape[-1] // 2
+    if spread_weights.shape != (w, 2 * n_spread) or offsets2.shape != (2, w):
+        raise ValueError("spread_weights must be [W, 2 * P/2] and offsets2 "
+                         "[2, W]")
+    return n_spread, 2
+
+
 def _tables(sample_y, eff_scaled, gx, int_offsets, classes, *, wc, d_in,
-            d_out, chunk, binning, q):
+            d_out, chunk, binning, q, offsets2=None):
     """Conv table factors, extended sample and placement scalars: the
     detection window ``g0w [D_out, D_in]`` and illumination window
     ``ill_w [C, D_in]`` whose product, row-binned, is the conv table
-    (module doc)."""
+    (module doc). ``sa_lo`` / ``sa_hi`` are ``[W]`` canvas starts, or
+    ``[2, W]`` per parity when ``offsets2`` is given."""
     h, w = sample_y.shape
     if int_offsets.shape != (w,) or (classes is not None
                                      and classes.shape != (w,)):
@@ -64,7 +83,6 @@ def _tables(sample_y, eff_scaled, gx, int_offsets, classes, *, wc, d_in,
             raise ValueError(f"classes must lie in [0, {q})")
     b = binning
     wb = w // b
-    dob = d_out // b
     dev = sample_y.device
     n_chunks = w // chunk
     s_in = (d_in - chunk) // 2
@@ -84,7 +102,8 @@ def _tables(sample_y, eff_scaled, gx, int_offsets, classes, *, wc, d_in,
     k0 = torch.div(gstart, wb, rounding_mode="floor")
     m0 = (wb * (k0 + 1) - gstart).to(torch.int32)
     icp = torch.arange(w, device=dev) // chunk
-    sa_lo = torch.remainder(gstart[icp] + int_offsets.to(dev, torch.int64)
+    offs = int_offsets if offsets2 is None else offsets2
+    sa_lo = torch.remainder(gstart[icp] + offs.to(dev, torch.int64)
                             - wb * k0[icp], wc)
     sa_hi = torch.remainder(sa_lo - wb, wc)
     cls = (torch.zeros(w, dtype=torch.int32, device=dev) if classes is None
@@ -98,23 +117,30 @@ def rescan_banded_fused_reference(
     int_offsets: torch.Tensor, *, wc: int, d_in: int, d_out: int,
     chunk: int, binning: int = 1, classes: torch.Tensor | None = None,
     q: int = 1, generator: torch.Generator | None = None,
+    spread_weights: torch.Tensor | None = None,
+    offsets2: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain torch version of K1: one batched matmul per chunk,
     ``torch.poisson`` when ``generator`` is given, ``index_add_``
-    placement. Same arguments and result as ``rescan_banded_fused``."""
+    placement (after per-parity spreading in NUFFT mode). Same arguments
+    and result as ``rescan_banded_fused``."""
     h, w = sample_y.shape
+    n_spread, q = _spread_args(w, classes, q, spread_weights, offsets2)
     _check(h, w, wc=wc, d_in=d_in, d_out=d_out, chunk=chunk,
-           binning=binning)
+           binning=binning, n_spread=n_spread)
     b = binning
     hb, dob = h // b, d_out // b
     g0w, ill_w, sample_ext, sa_lo, sa_hi, m0, cls = _tables(
         sample_y, eff_scaled, gx, int_offsets, classes, wc=wc, d_in=d_in,
-        d_out=d_out, chunk=chunk, binning=b, q=q)
+        d_out=d_out, chunk=chunk, binning=b, q=q, offsets2=offsets2)
     table = (g0w[None] * ill_w[:, None, :]).reshape(
         chunk * dob, b, d_in).sum(1)                             # [C*dob, Di]
-    r = torch.arange(dob, device=sample_y.device)
-    out = torch.zeros(q * wc, hb, dtype=torch.float32,
-                      device=sample_y.device)
+    dev = sample_y.device
+    r = torch.arange(dob, device=dev)
+    out = torch.zeros(q * wc, hb, dtype=torch.float32, device=dev)
+    if n_spread:
+        wts = spread_weights.to(dev, torch.float32).reshape(w, 2, n_spread)
+        rs = torch.arange(dob + n_spread - 1, device=dev)
     for ic in range(w // chunk):
         p0 = ic * chunk
         cam = table @ sample_ext[p0:p0 + d_in]                   # [C*dob, H]
@@ -123,10 +149,26 @@ def rescan_banded_fused_reference(
         if generator is not None:
             cam = poisson_reference(cam, generator)
         pos = slice(p0, p0 + chunk)
-        start = torch.where(r[None, :] < m0[ic], sa_lo[pos, None],
-                            sa_hi[pos, None])
-        target = cls[pos, None].long() * wc + (start + r[None, :]) % wc
-        out.index_add_(0, target.reshape(-1), cam)
+        if not n_spread:
+            start = torch.where(r[None, :] < m0[ic], sa_lo[pos, None],
+                                sa_hi[pos, None])
+            target = cls[pos, None].long() * wc + (start + r[None, :]) % wc
+            out.index_add_(0, target.reshape(-1), cam)
+            continue
+        # split at m0 BEFORE spreading, then spread each part per parity:
+        # row r' of parity pi is sum_u w[pos, pi, u] * part[r' - u]
+        cam = cam.reshape(chunk, dob, hb)
+        hi = (r >= m0[ic])[None, :, None]
+        for part, sa in ((torch.where(hi, 0.0, cam), sa_lo),
+                         (torch.where(hi, cam, 0.0), sa_hi)):
+            for pi in range(2):
+                spread = torch.zeros(chunk, dob + n_spread - 1, hb,
+                                     device=dev)
+                for u in range(n_spread):
+                    spread[:, u:u + dob] += wts[pos, pi, u, None, None] * part
+                target = pi * wc + (sa[pi, pos, None] + rs[None, :]) % wc
+                out.index_add_(0, target.reshape(-1),
+                               spread.reshape(-1, hb))
     return out.reshape(q, wc, hb)
 
 
@@ -135,6 +177,8 @@ def rescan_banded_fused(
     int_offsets: torch.Tensor, *, wc: int, d_in: int, d_out: int,
     chunk: int, binning: int = 1, classes: torch.Tensor | None = None,
     q: int = 1, generator: torch.Generator | None = None,
+    spread_weights: torch.Tensor | None = None,
+    offsets2: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Banded fused rescan scan over all W column positions (module doc).
 
@@ -146,49 +190,59 @@ def rescan_banded_fused(
     ``imaging.rescan._illum_band``. ``generator`` draws per-camera-frame
     shot noise; None = noise-free.
 
+    NUFFT spreading placement (``imaging.rescan._nufft_spread_tables``):
+    ``spread_weights`` [W, 2 * P/2] per-position window taps split by
+    parity of the 2x-oversampled fine grid, and ``offsets2`` [2, W] int32
+    per-parity integer offsets. Then ``q`` is 2 (the parity canvases),
+    ``classes`` must be None and ``int_offsets`` is ignored.
+
     Returns folded class canvases ``[q, wc, H/b]`` (canvas-column-major).
-    A CUDA ``sample_y`` launches kernel K1; a CPU one runs
-    ``rescan_banded_fused_reference``.
+    A CUDA ``sample_y`` launches kernel K1 (``LAUNCHES`` counts each
+    placement mode and shared-memory layout apart: ``_spread`` for NUFFT
+    placement, ``_wide`` for windows whose resident factors exceed the
+    card's shared memory); a CPU one runs ``rescan_banded_fused_reference``.
     """
     if not sample_y.is_cuda:
         return rescan_banded_fused_reference(
             sample_y, eff_scaled, gx, int_offsets, wc=wc, d_in=d_in,
             d_out=d_out, chunk=chunk, binning=binning, classes=classes, q=q,
-            generator=generator)
+            generator=generator, spread_weights=spread_weights,
+            offsets2=offsets2)
     h, w = sample_y.shape
+    n_spread, q = _spread_args(w, classes, q, spread_weights, offsets2)
     _check(h, w, wc=wc, d_in=d_in, d_out=d_out, chunk=chunk,
-           binning=binning)
+           binning=binning, n_spread=n_spread)
     b = binning
     hb, dob = h // b, d_out // b
-    need, limit = ctypes.c_longlong(), ctypes.c_longlong()
-    _build.check(_build.lib().rls_rescan_banded_fused_smem(
-        sample_y.device.index, d_in, dob, chunk, ctypes.byref(need),
-        ctypes.byref(limit)), "rescan_banded_fused")
-    if need.value > limit.value:
-        raise NotImplementedError(
-            f"band windows d_in={d_in}, d_out={d_out} at chunk {chunk} need "
-            f"{need.value} bytes of shared memory per block, the card allows "
-            f"{limit.value}: K1 with the detection factor streamed in slices "
-            "is not ported yet (ROADMAP.md queue 2, item 2)")
     g0w, ill_w, sample_ext, sa_lo, sa_hi, m0, cls = _tables(
         sample_y, eff_scaled, gx, int_offsets, classes, wc=wc, d_in=d_in,
-        d_out=d_out, chunk=chunk, binning=b, q=q)
+        d_out=d_out, chunk=chunk, binning=b, q=q, offsets2=offsets2)
     # binned detection factor, d-major [D_in, dob]
     g_t = g0w.reshape(dob, b, d_in).sum(1).T.contiguous()
     ill_w = ill_w.contiguous()
+    taps = [spread_weights.contiguous()] if n_spread else []
     _build.require_cuda_f32("rescan_banded_fused", g_t, ill_w, sample_ext,
-                            sa_lo, sa_hi, m0, cls)
+                            sa_lo, sa_hi, m0, cls, *taps)
     out = torch.empty((q, wc, hb), dtype=torch.float32,
                       device=sample_y.device)
     s0 = s1 = 0
     if generator is not None:
         s0, s1 = _build.seeds_from(generator)
+    variant = ctypes.c_int(-1)
     code = _build.lib().rls_rescan_banded_fused(
         g_t.data_ptr(), ill_w.data_ptr(), sample_ext.data_ptr(),
         sa_lo.data_ptr(), sa_hi.data_ptr(), m0.data_ptr(), cls.data_ptr(),
-        out.data_ptr(), h, w, chunk, d_in, dob, b, q, wc,
-        int(generator is not None), s0, s1,
-        _build.stream_handle(sample_y.device))
+        taps[0].data_ptr() if taps else None, out.data_ptr(), h, w, chunk,
+        d_in, dob, b, q, wc, n_spread, int(generator is not None), s0, s1,
+        _build.stream_handle(sample_y.device), ctypes.byref(variant))
     _build.check(code, "rescan_banded_fused")
-    _build.LAUNCHES["rescan_banded_fused"] += 1
+    if variant.value < 0:
+        raise NotImplementedError(
+            f"band windows d_in={d_in}, d_out={d_out} at chunk {chunk} "
+            "exceed the card's shared memory per block even with the "
+            "detection factor kept as its Toeplitz generator; the full-frame "
+            "engine K4 is not ported yet (ROADMAP.md open item 6.3)")
+    name = "rescan_banded_fused" + ("_spread" if n_spread else "") + (
+        "_wide" if variant.value == 1 else "")
+    _build.LAUNCHES[name] += 1
     return out

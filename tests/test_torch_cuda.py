@@ -95,18 +95,41 @@ def test_rows_tiered_draw_for_draw(cuda, lam_val):
     assert float(diff.max()) <= 1 and int((diff > 0).sum()) <= 4
 
 
-def test_banded_kernel_refuses_wide_windows(cuda):
-    """Band windows whose resident factors exceed the card's shared
-    memory per block raise NotImplementedError naming the ROADMAP item;
-    the plain version still takes them."""
-    w = 512
-    args = (torch.rand((64, w), device=cuda), _profile(w, 12.0, cuda),
-            _profile(w, 12.0, cuda),
-            torch.zeros(w, dtype=torch.int32, device=cuda))
-    kw = dict(wc=w + 64, d_in=320, d_out=320, chunk=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        rescan_banded_fused(*args, **kw)
-    assert rescan_banded_fused_reference(*args, **kw).shape == (1, w + 64, 64)
+def test_banded_kernel_wide_windows_match_plain(cuda):
+    """Band windows whose resident factors exceed the card's shared memory
+    per block run K1 with G kept as its Toeplitz generator (the wide
+    layout), integer and spreading placement, against the plain version."""
+    w, d = 512, 320
+    g = torch.Generator().manual_seed(6)
+    args = (torch.rand((64, w), generator=g).to(cuda),
+            _profile(w, 12.0, cuda), _profile(w, 12.0, cuda),
+            torch.arange(w, device=cuda).int() // 2)
+    for b in (1, 2):
+        kw = dict(wc=w // b + 64, d_in=d, d_out=d, chunk=32, binning=b)
+        want = rescan_banded_fused_reference(*args, **kw)
+        before = _build.LAUNCHES["rescan_banded_fused_wide"]
+        got = rescan_banded_fused(*args, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["rescan_banded_fused_wide"] == before + 1
+        assert got.shape == want.shape and _rel(got, want) <= 1e-5
+    kw = dict(wc=w + 96, d_in=d, d_out=d, chunk=32,
+              **_spread(w, 0.29, 1, cuda))
+    want = rescan_banded_fused_reference(*args, **kw)
+    got = rescan_banded_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["rescan_banded_fused_spread_wide"] >= 1
+    assert got.shape == want.shape == (2, w + 96, 64)
+    assert _rel(got, want) <= 1e-5
+
+
+def _spread(w, step, b, device):
+    """NUFFT spreading kwargs for a placement step of ``step`` binned
+    pixels per position."""
+    from rescan_line_sted_torch.imaging.rescan import _nufft_spread_tables
+
+    offsets2, weights = _nufft_spread_tables(
+        step * np.arange(w, dtype=np.float64), device=device)
+    return dict(spread_weights=weights, offsets2=offsets2, binning=b)
 
 
 def _profile(w, sigma, device):
@@ -171,7 +194,38 @@ def test_banded_kernel_noise(cuda):
     assert abs(tot - ref) <= 5 * np.sqrt(ref)
 
 
-@pytest.mark.parametrize("rf,b", [(2.0, 1), (1.5, 1), (3.0, 2)])
+@pytest.mark.parametrize("step,b,chunk,wc", [
+    (np.pi / 16, 1, 8, None), (0.6180339887, 1, 16, None),
+    (np.pi / 16, 2, 8, None), (3 / 16, 1, 32, None),
+    (1.45, 1, 32, 64)])          # a pass's rows span the whole canvas
+def test_banded_kernel_spread_matches_plain(cuda, step, b, chunk, wc):
+    """K1's NUFFT spreading mode against its plain version, noise-free,
+    on frames that straddle 512-row passes and the camera wrap."""
+    args, kw = _case(1, b, 1.0 + step * b, chunk, cuda)
+    kw.pop("classes")
+    kw.pop("q")
+    kw.update(_spread(64, step, b, cuda))
+    kw["wc"] = wc or max(kw["wc"], kw["d_out"] // b + 24)
+    want = rescan_banded_fused_reference(*args, **kw)
+    before = _build.LAUNCHES["rescan_banded_fused_spread"]
+    got = rescan_banded_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["rescan_banded_fused_spread"] == before + 1
+    assert got.shape == want.shape == (2, kw["wc"], 64 // b)
+    assert _rel(got, want) <= 1e-5
+    s, e, gx, offs = args
+    noisy = [rescan_banded_fused(50.0 * s, 40.0 * e, gx, offs, **kw,
+                                 generator=torch.Generator().manual_seed(k))
+             for k in (4, 4, 5)]
+    assert torch.equal(noisy[0], noisy[1])
+    assert not torch.equal(noisy[0], noisy[2])
+    ref = float(rescan_banded_fused_reference(50.0 * s, 40.0 * e, gx, offs,
+                                              **kw).double().sum())
+    assert abs(float(noisy[0].double().sum()) - ref) <= 5 * np.sqrt(ref)
+
+
+@pytest.mark.parametrize("rf,b", [(2.0, 1), (1.5, 1), (3.0, 2),
+                                  (1.0 + np.pi / 16, 1), (1.0 + np.pi / 8, 2)])
 def test_slice_on_card_matches_cpu(cuda, rf, b):
     params = T.RescanParams.create(sigma_exc=2.0, sigma_det=2.0,
                                    stripe_period=8.0, depletion=4.0,
@@ -180,11 +234,14 @@ def test_slice_on_card_matches_cpu(cuda, rf, b):
                             chunk=16)
     s = torch.rand((64, 256), generator=torch.Generator().manual_seed(7))
     for method in ("scan", "analytic"):
-        want = T.rescanned_line_sted_image(s, params, geom,
-                                           method=method).image
-        got = T.rescanned_line_sted_image(s.to(cuda), params, geom,
-                                          method=method).image
-        assert got.is_cuda and _rel(got, want) <= 1e-5
+        for boundary in ("circular", "padded", "apodized"):
+            want = T.rescanned_line_sted_image(
+                s, params, geom, method=method, boundary=boundary,
+                device="cpu").image
+            got = T.rescanned_line_sted_image(
+                s.numpy(), params, geom, method=method,
+                boundary=boundary).image
+            assert got.is_cuda and _rel(got, want) <= 1e-5
     before = dict(_build.LAUNCHES)
     img = T.rescanned_line_sted_image(
         s.to(cuda), params, geom, torch.Generator().manual_seed(1),
@@ -192,6 +249,7 @@ def test_slice_on_card_matches_cpu(cuda, rf, b):
     img2 = T.rescanned_line_sted_image(
         s.to(cuda), params, geom, torch.Generator().manual_seed(1)).image
     assert torch.isfinite(img).all() and torch.isfinite(img2).all()
-    assert _build.LAUNCHES["rescan_banded_fused"] == \
-        before["rescan_banded_fused"] + 1
+    k1 = "rescan_banded_fused" + ("" if (rf - 1.0) / b * 8 % 1 == 0
+                                  else "_spread")
+    assert _build.LAUNCHES[k1] == before[k1] + 1
     assert _build.LAUNCHES["poisson_flat"] == before["poisson_flat"] + 1

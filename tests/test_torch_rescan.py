@@ -21,6 +21,7 @@ import torch
 import rescan_line_sted_torch as T
 import rescan_line_sted_tpu as J
 from rescan_line_sted_torch.convert import geometry_from_jax, params_from_jax
+from rescan_line_sted_torch.data import siemens_star
 from rescan_line_sted_torch.imaging import rescan as trescan
 from rescan_line_sted_torch.kernels import _build
 from rescan_line_sted_tpu.imaging import rescan as jrescan
@@ -57,7 +58,8 @@ def _rel(got, want):
 
 
 def _port(sample, p, g, **kw):
-    return T.rescanned_line_sted_image(torch.from_numpy(sample), p, g, **kw)
+    return T.rescanned_line_sted_image(torch.from_numpy(sample), p, g,
+                                       device="cpu", **kw)
 
 
 @pytest.mark.parametrize("rf,b", [(2.0, 1), (1.5, 1), (3.0, 2), (1.25, 2)])
@@ -151,11 +153,13 @@ def test_noise_statistics_integer_placement(noise_mode):
     variance (sum of means / n_seeds) within 25%."""
     _, (tp, tg) = _both(2.0)
     s = torch.from_numpy(_sample(4))
-    clean = T.rescanned_line_sted_image(s, tp, tg, method="scan").image
+    clean = T.rescanned_line_sted_image(s, tp, tg, method="scan",
+                                         device="cpu").image
     n = 6
     runs = torch.stack([T.rescanned_line_sted_image(
         s, tp, tg, torch.Generator().manual_seed(k), method="scan",
-        noise_mode=noise_mode).image for k in range(n)]).double()
+        noise_mode=noise_mode, device="cpu").image
+        for k in range(n)]).double()
     assert torch.equal(runs, runs.round()) and (runs >= 0).all()
     total = float(clean.double().sum())
     assert abs(float(runs.mean(0).sum()) - total) <= 5 * np.sqrt(total / n)
@@ -169,11 +173,13 @@ def test_per_step_subpixel_statistics():
     to the noise-free one (its error shrinks like 1/sqrt(n))."""
     _, (tp, tg) = _both(1.5)
     s = torch.from_numpy(_sample(5))
-    clean = T.rescanned_line_sted_image(s, tp, tg, method="scan").image
+    clean = T.rescanned_line_sted_image(s, tp, tg, method="scan",
+                                         device="cpu").image
     total = float(clean.double().sum())
     runs = [T.rescanned_line_sted_image(
         s, tp, tg, torch.Generator().manual_seed(k), method="scan",
-        noise_mode="per_step").image.double() for k in range(8)]
+        noise_mode="per_step", device="cpu").image.double()
+        for k in range(8)]
     for r in runs:
         assert abs(float(r.sum()) - total) <= 5 * np.sqrt(total)
     err2 = float(((runs[0] - clean) ** 2).sum())
@@ -181,24 +187,31 @@ def test_per_step_subpixel_statistics():
     assert 0.06 <= err8 / err2 <= 0.25          # expected 1/8
 
 
-@pytest.mark.parametrize("case", ["irrational", "padded", "apodized",
-                                  "custom_model", "no_band"])
+@pytest.mark.parametrize("case", ["custom_model", "no_band"])
 def test_unported_configurations_raise(case):
     _, (tp, tg) = _both(2.0)
     s = torch.from_numpy(_sample())
-    kw = dict(method="scan")
-    if case == "irrational":
-        tg = dataclasses.replace(tg, rescan_factor=1.0 + float(np.pi) / 16)
-    elif case in ("padded", "apodized"):
-        kw["boundary"] = case
-    elif case == "custom_model":
+    if case == "custom_model":
         tp = dataclasses.replace(tp, model=J.physics.models.
                                  EnvelopedStripeModel())
     else:
         tg = T.RescanGeometry(T.Grid(H, 128), rescan_factor=2.0, chunk=16)
         s = s[:, :128].contiguous()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.rescanned_line_sted_image(s, tp, tg, **kw)
+        T.rescanned_line_sted_image(s, tp, tg, method="scan", device="cpu")
+
+
+def test_no_card_without_device_raises(monkeypatch):
+    """The entry point runs on the card by default and never falls back to
+    the CPU quietly: with no card visible and no ``device`` it raises and
+    says how to ask for the CPU."""
+    _, (tp, tg) = _both(2.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        T.rescanned_line_sted_image(_sample(), tp, tg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        siemens_star((16, 16))
+    assert siemens_star((16, 16), device="cpu").device.type == "cpu"
 
 
 def test_unknown_arguments_raise():
@@ -208,9 +221,9 @@ def test_unknown_arguments_raise():
                dict(method="scan", noise_mode="nope"),
                dict(method="scan", reassignment="nope")):
         with pytest.raises(ValueError):
-            T.rescanned_line_sted_image(s, tp, tg, **kw)
+            T.rescanned_line_sted_image(s, tp, tg, device="cpu", **kw)
     with pytest.raises(ValueError, match="grid"):
-        T.rescanned_line_sted_image(s[:, :128], tp, tg)
+        T.rescanned_line_sted_image(s[:, :128], tp, tg, device="cpu")
 
 
 def test_sample_taken_as_float32():
@@ -219,7 +232,8 @@ def test_sample_taken_as_float32():
     s = _sample(8)
     want = _port(s, tp, tg, method="scan").image
     for other in (s.astype(np.float64), torch.from_numpy(s).double()):
-        got = T.rescanned_line_sted_image(other, tp, tg, method="scan").image
+        got = T.rescanned_line_sted_image(other, tp, tg, method="scan",
+                                          device="cpu").image
         assert got.dtype == torch.float32 and torch.equal(got, want)
 
 
