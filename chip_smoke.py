@@ -30,9 +30,33 @@ sm_90a), then:
    and padded scan vs padded analytic within 1e-5 (relative L2); K2c and
    its plain version on the flagship's noise-free canvas (totals,
    dispersion);
-5. times every K1 mode, K2b and K2c against their plain versions (and
-   ``torch.poisson``) and each path's per-step image with CUDA events
-   (median of 7 after warm-up), with each kernel's bound on this card.
+5. holds kernel K3 (descanned line scan) against its plain version,
+   noise-free (max relative error <= 1e-5), at 512^2 and 2048^2 with the
+   line settings (siemens star, depletion 8) and at 512^2 with an
+   undersized ``slit_support`` (mean rows), and K3's noise-free 2048^2
+   image against the analytic one; noisy K3 at 256^2 over 24 draws: every
+   total within 5 sigma, seed-mean and per-pixel variance / mean as the
+   JAX suite holds the TPU kernel;
+6. drives ``line_sted_image`` and ``point_sted_image`` on each path, the
+   counters reset before and read after each: line 2048^2 (per-step on the
+   default banded K2b route and with ``use_pallas=True`` on K3, collapsed,
+   analytic), line 512^2 (both per-step routes), line 128^2 (default route:
+   K3), point 512^2 (per-step, banded K2b), point 96^2 (per-step,
+   full-frame K2b: below 256 columns the banded route needs
+   ``chunk + 2 S_exc`` rounded up to 8 under the width, so 128^2 at chunk
+   64 is banded, as in the JAX package) and point 2048^2 (collapsed,
+   analytic); every noisy
+   total within 5 sigma of its mean; noise-free scan against analytic
+   (zeroed x-margins) and padded scan against padded analytic within 1e-5
+   (relative L2) for each modality, and each K2b route with its draws
+   replaced by the identity against the analytic image;
+7. times every K1 mode, K2b and K2c against their plain versions (and
+   ``torch.poisson``), K3 against its plain version, K2b on each caller's
+   own frames, K2a's draws against ``torch.poisson`` on the same count, and
+   each path's per-step image with CUDA events (median of 7 after
+   warm-up), with each kernel's bound on this card; and the device time of
+   one image of each descanned path and of the flagship under
+   ``torch.profiler`` (the host's share is the rest).
 
 Prints one JSON line with the kernels, then the card, then the result line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -54,6 +78,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LINE_KW = dict(sigma_exc=3.0, sigma_det=3.0, stripe_period=12.0,
                slit_halfwidth=4.0, brightness=1.0)
+POINT_KW = dict(sigma_exc=3.0, sigma_det=3.0, sigma_dep=3.0,
+                pinhole_radius=4.0, brightness=1.0)       # bench.py:77-80
 N_DRAWS = 1 << 20
 RATES = (0.0, -0.1, 5e-4, 0.05, 0.3, 0.7, 1.2, 5.0, 30.0, 1e3)
 REPEATS = 7
@@ -464,9 +490,11 @@ def rel_l2(got, want) -> float:
     return float((got - want).double().norm() / want.double().norm())
 
 
-def scan_vs_analytic(name, sample, params, geom, **kw) -> float:
-    """Noise-free scan against the analytic canvas (relative L2)."""
-    from rescan_line_sted_torch import rescanned_line_sted_image as image
+def scan_vs_analytic(name, sample, params, geom, image=None, **kw) -> float:
+    """Noise-free scan against the analytic image (relative L2), through
+    ``image`` (default: ``rescanned_line_sted_image``)."""
+    if image is None:
+        from rescan_line_sted_torch import rescanned_line_sted_image as image
 
     scan = image(sample, params, geom, method="scan", **kw).image
     ana = image(sample, params, geom, **kw).image
@@ -656,6 +684,420 @@ def phase_times(dev) -> dict:
     return t
 
 
+# ---- descanned line- and point-STED: K3 and K2b's callers ----------------
+
+K3_SUPPORT = 18     # the line engine's window at slit_halfwidth 4: 2 * 4 + 10
+# the JAX suite's hardware noise test of the TPU kernel
+# (tests/test_fused_noise.py:26-28, 48-72)
+NOISE_KW = dict(sigma_exc=2.0, sigma_det=2.5, stripe_period=9.0,
+                depletion=4.0, slit_halfwidth=3.0, brightness=100.0)
+
+
+def line_setup(size, chunk=32):
+    from rescan_line_sted_torch import Grid, LineSTEDGeometry, LineSTEDParams
+
+    return (LineSTEDParams.create(depletion=8.0, **LINE_KW),
+            LineSTEDGeometry(Grid(size, size), chunk=chunk))
+
+
+def point_setup(size, chunk=64):
+    from rescan_line_sted_torch import (
+        Grid, PointSTEDGeometry, PointSTEDParams)
+
+    return (PointSTEDParams.create(depletion=8.0, **POINT_KW),
+            PointSTEDGeometry(Grid(size, size), chunk=chunk))
+
+
+def k3_inputs(params, sample):
+    """K3's arguments as the line engine builds them: the y-convolved
+    sample, the brightness-scaled line, gx and the slit."""
+    from rescan_line_sted_torch.imaging.line_sted import (
+        effective_line_profile)
+    from rescan_line_sted_torch.kernels import fftconv
+    from rescan_line_sted_torch.physics import psf
+
+    h, w = sample.shape
+    dev = sample.device
+    otf_y = fftconv.profile_to_otf1d(
+        psf.detection_profile(h, params.sigma_det, dev))
+    sample_y = fftconv.convolve_otf1d(sample, otf_y, axis=-2, n=h)
+    return (sample_y.contiguous(),
+            params.brightness * effective_line_profile(w, params, dev),
+            psf.detection_profile(w, params.sigma_det, dev),
+            psf.slit_profile(w, params.slit_halfwidth, dev))
+
+
+def k3_bound(args, slit_support) -> tuple[float, str, int]:
+    """Least time (ms) of one K3 call and what bounds it: the slit rows'
+    correlations, n_rows * H * W^2 FMA at the fp32 peak, against the sample
+    read and the image written once. Returns the row count too."""
+    from rescan_line_sted_torch.kernels.line_fused import _rows
+
+    h, w = args[0].shape
+    n = _rows(args[3], w, slit_support)[1].size
+    return (*roofline(2.0 * n * h * w * w, 4 * (2 * h * w + 3 * w)), n)
+
+
+def phase_k3(dev) -> dict:
+    """K3 against its plain version, noise-free; its 2048^2 image against
+    the analytic one; its draws' statistics. Returns the worst errors."""
+    from rescan_line_sted_torch import line_sted_image
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.kernels.line_fused import (
+        _rows, line_sted_fused, line_sted_fused_reference)
+
+    worst = {"abs": 0.0, "rel": 0.0}
+    for size, support in ((512, K3_SUPPORT), (SIZE, K3_SUPPORT), (512, 4)):
+        params, geom = line_setup(size)
+        star = siemens_star((size, size), device=dev)
+        args = k3_inputs(params, star)
+        got = line_sted_fused(*args, slit_support=support)
+        want = line_sted_fused_reference(*args, slit_support=support)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        n_mean = int((_rows(args[3], size, support)[2] != 0).sum())
+        log(f"K3 vs plain {size}^2 slit_support={support} "
+            f"({k3_bound(args, support)[2]} rows, {n_mean} of them mean): "
+            f"max abs err {err:.3e}, max rel err {rel:.3e}")
+        check(got.shape == want.shape and rel <= 1e-5,
+              f"K3 vs plain at {size}^2, slit_support {support}: rel {rel}")
+        worst = {"abs": max(worst["abs"], err), "rel": max(worst["rel"], rel)}
+        if size == SIZE:
+            ana = line_sted_image(star, params, geom).image
+            rel = rel_l2(got, ana)
+            log(f"K3 {size}^2 noise-free vs analytic rel err {rel:.3e}")
+            check(rel <= 1e-5, f"K3 vs analytic at {size}^2: {rel}")
+
+    from rescan_line_sted_torch import LineSTEDParams
+
+    params = LineSTEDParams.create(**NOISE_KW)
+    sample = 5.0 * torch.rand((256, 256),
+                              generator=torch.Generator().manual_seed(7))
+    args = k3_inputs(params, sample.to(dev))
+    support = int(2 * NOISE_KW["slit_halfwidth"]) + 10
+    mean = line_sted_fused(*args, slit_support=support)
+    draws = torch.stack([line_sted_fused(
+        *args, torch.Generator().manual_seed(100 + k), slit_support=support)
+        for k in range(24)]).double()
+    check(torch.equal(draws, draws.round()) and (draws >= 0).all(),
+          "K3 noisy images must hold non-negative integer counts")
+    mu = float(mean.double().sum())
+    z = (draws.sum((1, 2)) - mu) / math.sqrt(mu)
+    sel = mean > 20.0
+    rel = float((draws.mean(0)[sel] - mean[sel]).abs().mean()
+                / mean[sel].mean())
+    ratio = float((draws.var(0)[sel] / mean[sel]).mean())
+    log(f"K3 noisy 256^2 over 24 draws: total z "
+        f"{json.dumps([round(float(v), 2) for v in z])}; seed-mean rel err "
+        f"{rel:.4f}, variance / mean {ratio:.4f} over {int(sel.sum())} "
+        "pixels with mean > 20")
+    check(float(z.abs().max()) <= 5, "K3 noisy totals beyond 5 sigma")
+    check(rel < 0.03 and 0.93 < ratio < 1.07,
+          f"K3 noisy moments: rel {rel}, variance / mean {ratio}")
+    return worst
+
+
+def descanned_path(name, image, sample, params, geom, routes, others=True):
+    """Drive one per-step image per route (keyword sets of ``image``) and,
+    with ``others``, a collapsed and an analytic noisy image; every total
+    within 5 sigma of its mean. Returns the path's launch counts."""
+    gen = torch.Generator().manual_seed(2025)
+
+    def run():
+        clean = image(sample, params, geom, method="scan").image
+        imgs = [image(sample, params, geom, gen, method="scan",
+                      noise_mode="per_step", **kw).image for kw in routes]
+        if others:
+            imgs += [image(sample, params, geom, gen, method="scan").image,
+                     image(sample, params, geom, gen).image]
+        return clean, imgs
+
+    (clean, imgs), launches = drive(name, run)
+    shape = geom.grid.shape
+    check(clean.shape == shape, f"{name}: image shape {tuple(clean.shape)}")
+    # a per-step image sums Poisson counts of the noise-free frames, whose
+    # slit / pinhole sums are the noise-free scan; collapsed and analytic
+    # noise draw the clamped image
+    means = [float(clean.double().sum())] * len(routes)
+    if others:
+        ana = image(sample, params, geom).image
+        means += [float(clean.clamp_min(0).double().sum()),
+                  float(ana.clamp_min(0).double().sum())]
+        for img in imgs[len(routes):]:
+            check((img >= 0).all() and torch.equal(img, img.round()),
+                  f"{name}: collapsed / analytic noise must give "
+                  "non-negative counts")
+    for img, mu in zip(imgs, means):
+        check(img.shape == shape and torch.isfinite(img).all(),
+              f"{name}: noisy image must be finite with the grid's shape")
+        t = float(img.double().sum())
+        log(f"{name}: image total {t:.1f} vs mean {mu:.1f} "
+            f"({(t - mu) / math.sqrt(mu):+.2f} sigma)")
+        check(abs(t - mu) <= 5 * math.sqrt(mu),
+              f"{name}: noisy total {t} not within 5 sigma of its mean {mu}")
+    if len(imgs) > 1:
+        check(not torch.equal(imgs[0], imgs[1]),
+              f"{name}: two noisy images must differ")
+    return launches
+
+
+def boundary_checks(name, image, sample, params, geom) -> None:
+    """Noise-free scan against analytic with zeroed x-margins, and the
+    padded and apodized scans against their analytic images."""
+    rel = scan_vs_analytic(f"{name} (zero x-margins)", zero_margins(sample),
+                           params, geom, image=image)
+    check(rel <= 1e-5, f"{name} scan vs analytic rel err {rel}")
+    for bd in ("padded", "apodized"):
+        rel = scan_vs_analytic(f"{name} {bd}", sample, params, geom,
+                               image=image, boundary=bd)
+        check(rel <= 1e-5, f"{name} {bd} scan vs analytic rel err {rel}")
+
+
+def phase_descanned(dev) -> dict:
+    """Every path through ``line_sted_image`` and ``point_sted_image``;
+    returns each path's launch counts."""
+    from rescan_line_sted_torch import line_sted_image, point_sted_image
+    from rescan_line_sted_torch.data import siemens_star
+
+    paths = {}
+    star = siemens_star((SIZE, SIZE), device=dev)
+    params, geom = line_setup(SIZE)
+    paths["line_2048"] = descanned_path(
+        "line_2048", line_sted_image, star, params, geom,
+        [{}, {"use_pallas": True}])
+    boundary_checks("line_2048", line_sted_image, star, params, geom)
+    for size in (512, 128):
+        params, geom = line_setup(size)
+        routes = [{}, {"use_pallas": True}] if size == 512 else [{}, {}]
+        paths[f"line_{size}"] = descanned_path(
+            f"line_{size}", line_sted_image,
+            siemens_star((size, size), device=dev), params, geom, routes,
+            others=False)
+    for size in (512, 96):              # banded, full-frame (rows crossed)
+        params, geom = point_setup(size)
+        paths[f"point_{size}"] = descanned_path(
+            f"point_{size}", point_sted_image,
+            siemens_star((size, size), device=dev), params, geom, [{}, {}],
+            others=False)
+    params, geom = point_setup(SIZE)
+    paths["point_2048"] = descanned_path(
+        "point_2048", point_sted_image, star, params, geom, [])
+    boundary_checks("point_2048", point_sted_image, star, params, geom)
+
+    want = {  # path: {kernel: least launches}
+        "line_2048": {"poisson_rows_tiered": SIZE // 32, "line_sted_fused": 1,
+                      "poisson_flat": 2},
+        "line_512": {"poisson_rows_tiered": 512 // 32, "line_sted_fused": 1},
+        "line_128": {"line_sted_fused": 2},
+        "point_512": {"poisson_rows_tiered": 2 * 64},
+        "point_96": {"poisson_rows_tiered": 2 * 96 * 96 // 64},
+        "point_2048": {"poisson_flat": 2}}
+    for name, kernels in want.items():
+        for kernel, least in kernels.items():
+            check(paths[name].get(kernel, 0) >= least,
+                  f"{name} must launch {kernel} at least {least} times: "
+                  f"{paths[name]}")
+    check("poisson_rows_tiered" not in paths["line_128"],
+          "line_128's default route is K3, not K2b")
+    check(paths["point_96"].get("poisson_rows_tiered") == 2 * 96 * 96 // 64,
+          "point_96 must take the full-frame route (one K2b per chunk)")
+    return paths
+
+
+def phase_route_parity(dev) -> None:
+    """The per-step K2b routes with the draw replaced by the identity (the
+    clamped noise-free frames), held to the analytic image (relative L2 <=
+    1e-5): line 2048^2 banded, point 512^2 banded, point 96^2 full-frame.
+    (Noise-free K3 is held to the analytic image in ``phase_k3``.)"""
+    from rescan_line_sted_torch import line_sted_image, point_sted_image
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.imaging import line_sted, point_sted
+
+    cases = (("line_2048", line_sted, line_sted_image, line_setup(SIZE)),
+             ("point_512", point_sted, point_sted_image, point_setup(512)),
+             ("point_96", point_sted, point_sted_image, point_setup(96)))
+    for name, module, image, (params, geom) in cases:
+        star = siemens_star(geom.grid.shape, device=dev)
+        orig = module.poisson_rows_tiered
+        module.poisson_rows_tiered = lambda lam, generator: lam.clamp_min(0)
+        try:
+            got = image(star, params, geom, torch.Generator().manual_seed(0),
+                        method="scan", noise_mode="per_step").image
+        finally:
+            module.poisson_rows_tiered = orig
+        rel = rel_l2(got, image(star, params, geom).image)
+        log(f"{name} per-step route, draws replaced by the identity, vs "
+            f"analytic: rel err {rel:.3e}")
+        check(rel <= 1e-5, f"{name} noise-free per-step route vs analytic "
+              f"rel err {rel}")
+
+
+def caller_frames(module, run) -> torch.Tensor:
+    """A copy of the first frames ``module``'s engine hands K2b in
+    ``run()``."""
+    seen = []
+    orig = module.poisson_rows_tiered
+
+    def keep(lam, generator):
+        if not seen:
+            seen.append(lam.clone())
+        return orig(lam, generator)
+
+    module.poisson_rows_tiered = keep
+    try:
+        run()
+    finally:
+        module.poisson_rows_tiered = orig
+    return seen[0]
+
+
+def k1_frames(args, kw) -> torch.Tensor:
+    """Every camera frame K1 samples in one image (K2a's rates), [W / C,
+    C * dob, H]: the conv table times each chunk's sample window."""
+    from rescan_line_sted_torch.kernels.rescan_banded_fused import _tables
+
+    sample_y = args[0]
+    h, w = sample_y.shape
+    chunk, d_in = kw["chunk"], kw["d_in"]
+    g0w, ill_w, sample_ext, *_ = _tables(
+        *args, kw.get("classes"),
+        **{k: kw[k] for k in ("wc", "d_in", "d_out", "chunk", "binning")},
+        q=kw.get("q", 1))
+    check(kw.get("binning", 1) == 1, "K2a's frames: the flagship has b = 1")
+    table = (g0w[None] * ill_w[:, None, :]).reshape(-1, d_in)
+    win = sample_ext.unfold(0, d_in, chunk)[: w // chunk]   # [n, H, d_in]
+    return table @ win.transpose(1, 2)
+
+
+def sampler_times(lam, cpu_gen, dev_gen, kernel=None) -> dict:
+    """A sampler's CUDA-event times on rates ``lam``: the kernel (if
+    given), the plain version and ``torch.poisson``, with the bound of
+    reading and writing every element once. A call shorter than the host's
+    launch work times the host, so each also gets its device time under
+    the profiler (``*_device_ms``)."""
+    from rescan_line_sted_torch.kernels.poisson import poisson_reference
+
+    clamped = lam.clamp_min(0)
+    bound, by = roofline(0.0, 2 * 4 * lam.numel())
+    calls = {"plain": lambda: poisson_reference(lam, dev_gen),
+             "library": lambda: torch.poisson(clamped, dev_gen)}
+    if kernel is not None:
+        calls["kernel"] = lambda: kernel(lam, cpu_gen)
+    t = {"shape": list(lam.shape), "bound_ms": bound, "bound_by": by}
+    for name, fn in calls.items():
+        key = "" if name == "kernel" else name + "_"
+        t[key + "ms"] = cuda_ms(fn)
+        t[key + "device_ms"] = device_busy(fn)[0]
+    return t
+
+
+def device_busy(fn) -> tuple[float, list]:
+    """Device time (ms) of the kernels and copies of one ``fn()`` under
+    ``torch.profiler`` (after a warm-up call), and its five largest entries
+    as [ms, name, count]; 0.0 where the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(([e.self_device_time_total / 1e3, e.key, e.count]
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    return sum(r[0] for r in rows), rows[:5]
+
+
+def phase_times_descanned(dev, k1_times) -> dict:
+    """CUDA-event times (ms): each descanned path's per-step image, K3
+    noisy and noise-free against its plain version and bound, K2b on each
+    caller's first frames, K2a's draws (K1 noisy - noise-free) against
+    ``torch.poisson`` on the flagship's frames."""
+    from rescan_line_sted_torch import (
+        line_sted_image, point_sted_image, rescanned_line_sted_image)
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.imaging import line_sted, point_sted
+    from rescan_line_sted_torch.kernels.line_fused import (
+        line_sted_fused, line_sted_fused_reference)
+    from rescan_line_sted_torch.kernels.poisson import poisson_rows_tiered
+
+    cpu_gen = torch.Generator().manual_seed(3)
+    dev_gen = torch.Generator(dev).manual_seed(3)
+    stars = {n: siemens_star((n, n), device=dev)
+             for n in (SIZE, 512, 128, 96)}
+
+    def per_step(image, size, setup, **kw):
+        params, geom = setup(size)
+        return lambda: image(stars[size], params, geom, cpu_gen,
+                             method="scan", noise_mode="per_step", **kw)
+
+    runs = {
+        "line_2048": (per_step(line_sted_image, SIZE, line_setup), SIZE),
+        "line_2048_k3": (per_step(line_sted_image, SIZE, line_setup,
+                                  use_pallas=True), SIZE),
+        "line_512": (per_step(line_sted_image, 512, line_setup), 512),
+        "line_512_k3": (per_step(line_sted_image, 512, line_setup,
+                                 use_pallas=True), 512),
+        "line_128": (per_step(line_sted_image, 128, line_setup), 128),
+        "point_512": (per_step(point_sted_image, 512, point_setup), 512 ** 2),
+        "point_96": (per_step(point_sted_image, 96, point_setup), 96 ** 2),
+    }
+    e2e, busy = {}, {}
+    for name, (fn, steps) in runs.items():
+        ms = cuda_ms(fn)
+        e2e[name] = ms
+        log(f"time e2e per-step {name} {ms:.4f} ms, "
+            f"{steps / (ms * 1e-3):.1f} steps/s")
+    # the host's share: device busy time of one image against its time
+    params, geom = flagship()
+    runs["flagship"] = (lambda: rescanned_line_sted_image(
+        stars[SIZE], params, geom, cpu_gen, method="scan",
+        noise_mode="per_step"), SIZE)
+    for name, (fn, _) in runs.items():
+        ms, top = device_busy(fn)
+        busy[name] = {"device_ms": ms, "top": top}
+        log(f"profile {name}: device busy {ms:.3f} ms"
+            + (f", idle {1.0 - ms / e2e[name]:.1%} of the timed image"
+               if name in e2e else "")
+            + f"; largest: {json.dumps([[round(t, 3), k[:60], n] for t, k, n in top])}")
+
+    args = k3_inputs(line_setup(SIZE)[0], stars[SIZE])
+    bound, by, _ = k3_bound(args, K3_SUPPORT)
+    k3 = {"ms": cuda_ms(lambda: line_sted_fused(*args, cpu_gen,
+                                                 slit_support=K3_SUPPORT)),
+          "plain_ms": cuda_ms(lambda: line_sted_fused_reference(
+              *args, dev_gen, slit_support=K3_SUPPORT)),
+          "noise_free_ms": cuda_ms(lambda: line_sted_fused(
+              *args, slit_support=K3_SUPPORT)),
+          "noise_free_plain_ms": cuda_ms(lambda: line_sted_fused_reference(
+              *args, slit_support=K3_SUPPORT)),
+          "bound_ms": bound, "bound_by": by}
+    k3["device_ms"] = device_busy(lambda: line_sted_fused(
+        *args, cpu_gen, slit_support=K3_SUPPORT))[0]
+    log(f"time line_sted_fused {json.dumps(k3)}")
+
+    k2b = {
+        "line_2048": caller_frames(line_sted, runs["line_2048"][0]),
+        "point_512": caller_frames(point_sted, runs["point_512"][0])}
+    k2b = {name: sampler_times(f, cpu_gen, dev_gen, poisson_rows_tiered)
+           for name, f in k2b.items()}
+    for name, v in k2b.items():
+        log(f"time poisson_rows_tiered on {name}'s frames {json.dumps(v)}")
+
+    frames = k1_frames(*k1_inputs(K1_MODES["rescan_banded_fused"][1], dev))
+    k2a = sampler_times(frames, cpu_gen, dev_gen)
+    k2a["elements"] = frames.numel()
+    k2a["ms"] = (k1_times["ms"] - k1_times["noise_free_ms"])
+    log(f"time K2a in K1 (noisy - noise-free) vs torch.poisson on the "
+        f"flagship's frames {json.dumps(k2a)}")
+    del frames
+    return {"e2e": e2e, "line_sted_fused": k3, "poisson_rows_tiered": k2b,
+            "k2a": k2a, "busy": busy}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -679,7 +1121,11 @@ def main() -> int:
     sampler_err = phase_sampler(dev)
     k1_err = phase_k1(dev)
     paths = phase_e2e(dev)
+    k3_err = phase_k3(dev)
+    paths.update(phase_descanned(dev))
+    phase_route_parity(dev)
     times = phase_times(dev)
+    desc = phase_times_descanned(dev, times["rescan_banded_fused"])
     log(f"after timing: {clocks()}")
     log(f"smoke run took {time.time() - t0:.1f} s after the card was named")
 
@@ -705,16 +1151,36 @@ def main() -> int:
          "max_abs_err": sampler_err["poisson_flat"],
          "err_kind": "max |mean(kernel) - mean(plain)| over rates",
          **times["poisson_flat"]})
-    log(json.dumps({"standalone": [{
-        "name": "poisson_rows_tiered", "route": "cuda",
-        "source": "rescan_line_sted_torch/csrc/poisson.cu",
-        "replaces": "rescan_line_sted_tpu/kernels/poisson_pallas.py:344",
-        "launches": 0,
-        "max_abs_err": sampler_err["k2b_draw_for_draw"],
-        "err_kind": "counts against the host reference on the same "
-                    "Philox stream, rates below the bright tier",
-        **times["poisson_rows_tiered"]}]}))
-    log(json.dumps({"e2e_per_step_ms": times["e2e"]}))
+    def launched(kernel):
+        return {p: n[kernel] for p, n in paths.items() if n.get(kernel)}
+
+    k3_paths = launched("line_sted_fused")
+    kernels.append(
+        {"name": "line_sted_fused", "route": "cuda",
+         "source": "rescan_line_sted_torch/csrc/line_fused.cu",
+         "replaces": "rescan_line_sted_tpu/kernels/line_fused.py:80",
+         "path": "line_2048 (use_pallas=True)", "paths": k3_paths,
+         "launches": sum(k3_paths.values()),
+         "max_abs_err": k3_err["abs"], "max_rel_err": k3_err["rel"],
+         "err_kind": "noise-free, against the plain version",
+         **desc["line_sted_fused"], "library_ms": None})
+    k2b_paths = launched("poisson_rows_tiered")
+    kernels.append(
+        {"name": "poisson_rows_tiered", "route": "cuda",
+         "source": "rescan_line_sted_torch/csrc/poisson.cu",
+         "replaces": "rescan_line_sted_tpu/kernels/poisson_pallas.py:344",
+         "path": "line_2048 (banded frames)", "paths": k2b_paths,
+         "launches": sum(k2b_paths.values()),
+         "max_abs_err": sampler_err["k2b_draw_for_draw"],
+         "err_kind": "counts against the host reference on the same "
+                     "Philox stream, rates below the bright tier",
+         **desc["poisson_rows_tiered"]["line_2048"],
+         "callers": desc["poisson_rows_tiered"],
+         "flagship_canvas": times["poisson_rows_tiered"]})
+    log(json.dumps({"k2a_in_k1": desc["k2a"]}))
+    log(json.dumps({"device_busy_ms": {k: v["device_ms"]
+                                       for k, v in desc["busy"].items()}}))
+    log(json.dumps({"e2e_per_step_ms": {**times["e2e"], **desc["e2e"]}}))
     log(json.dumps({"kernels": kernels}))
     log(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the rescanned line-STED simulation engine.
+"""PyTorch + CUDA port of the line-STED simulation engine: descanned point-
+and line-STED and rescanned line-STED.
 
 The JAX package ``rescan_line_sted_tpu`` beside this one is the reference.
 This package imports torch and numpy only. Its hot path runs hand-written
@@ -16,13 +17,19 @@ torch.backends.cudnn.allow_tf32 = False
 
 from rescan_line_sted_torch.config import (  # noqa: E402
     Grid,
+    LineSTEDGeometry,
     LineSTEDParams,
+    PointSTEDGeometry,
+    PointSTEDParams,
     RescanGeometry,
     RescanParams,
 )
-from rescan_line_sted_torch.imaging.rescan import (  # noqa: E402
+from rescan_line_sted_torch.imaging import (  # noqa: E402
+    line_sted_image,
+    point_sted_image,
     rescanned_line_sted_image,
 )
 
-__all__ = ["Grid", "LineSTEDParams", "RescanGeometry", "RescanParams",
-           "rescanned_line_sted_image"]
+__all__ = ["Grid", "LineSTEDGeometry", "LineSTEDParams", "PointSTEDGeometry",
+           "PointSTEDParams", "RescanGeometry", "RescanParams",
+           "line_sted_image", "point_sted_image", "rescanned_line_sted_image"]

@@ -3,7 +3,7 @@
 * **Geometry** (frozen dataclasses): grid size, scan chunking, rescan
   factor, detector binning -- the facts that fix tensor shapes.
 * **Params** (frozen dataclasses of Python floats): PSF widths, depletion
-  saturation ``s``, brightness, slit size. Each value is rounded to float32
+  saturation ``s``, brightness, slit or pinhole size. Each value is rounded to float32
   on creation, as the JAX package stores them as f32 scalars, so both
   packages compute from the same numbers. The static ``*_support`` fields
   bound the PSF supports; the banded scan windows are built from them.
@@ -29,6 +29,34 @@ class Grid:
     @property
     def shape(self) -> tuple[int, int]:
         return (self.height, self.width)
+
+
+@dataclasses.dataclass(frozen=True)
+class PointSTEDGeometry:
+    """Static geometry of a 2D point-scanning STED acquisition: the scan
+    visits every pixel, ``height * width`` positions, ``chunk`` at a time
+    (``chunk`` must divide ``height * width``)."""
+
+    grid: Grid
+    chunk: int = 64
+
+    @property
+    def num_steps(self) -> int:
+        return self.grid.height * self.grid.width
+
+
+@dataclasses.dataclass(frozen=True)
+class LineSTEDGeometry:
+    """Static geometry of a descanned line-STED acquisition: the line runs
+    along y and is scanned along x, ``width`` positions with one image
+    column each (``chunk`` must divide ``width``)."""
+
+    grid: Grid
+    chunk: int = 32
+
+    @property
+    def num_steps(self) -> int:
+        return self.grid.width
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +110,48 @@ def _support(sigma, pad: int = 5) -> int:
 def _aperture_support(radius, pad: int = 2) -> int:
     """Static half-width (px) bounding a hard aperture (slit half-width)."""
     return int(float(radius)) + pad
+
+
+@dataclasses.dataclass(frozen=True)
+class PointSTEDParams:
+    """Physics of a point-STED acquisition.
+
+    * ``sigma_exc`` / ``sigma_det``  Gaussian excitation / detection PSF
+                         widths (px).
+    * ``sigma_dep``      donut scale: peak intensity ring at
+                         ``r = sigma_dep * sqrt(2)``.
+    * ``depletion``      saturation factor ``s``: surviving emission is
+                         ``exp(-s * dep)``.
+    * ``pinhole_radius`` descanned pinhole radius (px).
+    * ``brightness``     expected detected photons scale per scan step.
+    * ``model``          illumination model; ``None`` = Gaussian excitation
+                         + ``u e^{1-u}`` donut (``physics/models.py``).
+    * ``exc_support`` / ``det_support`` / ``pin_support``  half-widths (px)
+                         bounding the excitation and detection PSFs and the
+                         pinhole; ``create`` fills them.
+    """
+
+    sigma_exc: float
+    sigma_det: float
+    sigma_dep: float
+    depletion: float
+    pinhole_radius: float
+    brightness: float
+    model: object = None
+    exc_support: int | None = None
+    det_support: int | None = None
+    pin_support: int | None = None
+
+    @classmethod
+    def create(cls, sigma_exc=3.0, sigma_det=3.0, sigma_dep=3.0,
+               depletion=0.0, pinhole_radius=4.0, brightness=100.0,
+               model=None):
+        return cls(_f(sigma_exc), _f(sigma_det), _f(sigma_dep),
+                   _f(depletion), _f(pinhole_radius), _f(brightness),
+                   model=model,
+                   exc_support=_support(sigma_exc),
+                   det_support=_support(sigma_det),
+                   pin_support=_aperture_support(pinhole_radius))
 
 
 @dataclasses.dataclass(frozen=True)

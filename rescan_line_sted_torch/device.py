@@ -18,3 +18,18 @@ def resolve(device=None) -> torch.device:
                 "port's plain PyTorch versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def as_sample(sample, grid_shape, device=None) -> torch.Tensor:
+    """``sample`` (a tensor or array) as float32 on ``device``, as the JAX
+    package takes it: None means the card a CUDA sample lies on, else the
+    CUDA card (``resolve``). Raises ``ValueError`` unless its shape is
+    ``grid_shape``."""
+    if device is None and isinstance(sample, torch.Tensor) and sample.is_cuda:
+        device = sample.device
+    sample = torch.as_tensor(sample, dtype=torch.float32,
+                             device=resolve(device))
+    if tuple(sample.shape) != tuple(grid_shape):
+        raise ValueError(f"sample shape {tuple(sample.shape)} does not match "
+                         f"the grid {tuple(grid_shape)}")
+    return sample

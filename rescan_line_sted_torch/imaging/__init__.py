@@ -1,5 +1,7 @@
-"""Imaging engines (rescanned line-STED so far)."""
+"""Imaging engines: descanned point- and line-STED, rescanned line-STED."""
 
+from rescan_line_sted_torch.imaging.line_sted import line_sted_image
+from rescan_line_sted_torch.imaging.point_sted import point_sted_image
 from rescan_line_sted_torch.imaging.rescan import rescanned_line_sted_image
 
-__all__ = ["rescanned_line_sted_image"]
+__all__ = ["line_sted_image", "point_sted_image", "rescanned_line_sted_image"]

@@ -1,6 +1,11 @@
-"""Closed-form rescanned line-STED canvas (port of the rescan part of
-``rescan_line_sted_tpu.imaging.analytic``; the point and descanned-line
-system kernels are queued in ROADMAP.md open item 8).
+"""Closed-form system kernels and the rescanned canvas (port of
+``rescan_line_sted_tpu.imaging.analytic``; ``rescan_system_kernel`` and
+``upsample_x`` are queued in ROADMAP.md open item 8).
+
+Descanned point- and line-STED collapse to ONE circular correlation of
+the sample with a system kernel: ``img = brightness * corr(sample, K)``
+with ``K = eff . (pinhole (*) det)`` (point) or ``K(vy, vx) = e(vx) .
+flip(det (*)_x slit)(vy, vx)`` (line, ``e`` the 1D effective line).
 
 Reassigning camera column x of scan position x0 to canvas column
 ``u = R*x0 + (x - x0)`` gives ``canvas(y, u) = sum_a sample(., a)
@@ -17,9 +22,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rescan_line_sted_torch.imaging.shifts import flip_centered
 from rescan_line_sted_torch.kernels import fftconv
 from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.physics import psf as psfs
+
+
+def point_system_kernel(shape, params, device=None) -> torch.Tensor:
+    """Centered system kernel of descanned point-STED, [H, W]:
+    ``K = psf_eff . (pinhole (*) psf_det)``."""
+    eff = models.effective_point_psf(shape, params, device)
+    det = psfs.detection_psf(shape, params.sigma_det, device)
+    pin = psfs.pinhole_mask(shape, params.pinhole_radius, device)
+    return eff * fftconv.fft_convolve(pin, det)
+
+
+def line_system_kernel(shape, params, device=None) -> torch.Tensor:
+    """Centered system kernel of descanned line-STED, [H, W]: ``K(vy, vx)
+    = e_eff(vx) . flip(det (*)_x slit)(vy, vx)``."""
+    h, w = shape
+    eff = models.effective_line_profile(w, params, device)
+    det = psfs.detection_psf(shape, params.sigma_det, device)
+    slit = psfs.slit_profile(w, params.slit_halfwidth, device)
+    d = torch.fft.irfft(torch.fft.rfft(det, dim=-1)
+                        * torch.fft.rfft(torch.fft.ifftshift(slit)),
+                        n=w, dim=-1)
+    return eff[None, :] * flip_centered(d)
 
 
 def _np_phases(theta: np.ndarray, device=None) -> torch.Tensor:

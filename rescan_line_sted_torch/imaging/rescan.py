@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from rescan_line_sted_torch.config import RescanGeometry, RescanParams
-from rescan_line_sted_torch.device import resolve
+from rescan_line_sted_torch.device import as_sample
 from rescan_line_sted_torch.imaging import analytic
 from rescan_line_sted_torch.imaging import boundary as boundaries
 from rescan_line_sted_torch.imaging.line_sted import effective_line_profile
@@ -95,13 +95,7 @@ def rescanned_line_sted_image(
         raise NotImplementedError(
             "row-sharded samples are not ported yet (ROADMAP.md open "
             "item 12: parallel/ on torch.distributed)")
-    if device is None and isinstance(sample, torch.Tensor) and sample.is_cuda:
-        device = sample.device
-    sample = torch.as_tensor(sample, dtype=torch.float32,
-                             device=resolve(device))
-    if tuple(sample.shape) != geom.grid.shape:
-        raise ValueError(f"sample shape {tuple(sample.shape)} does not match "
-                         f"the grid {geom.grid.shape}")
+    sample = as_sample(sample, geom.grid.shape, device)
     if boundary not in ("circular", "padded", "apodized"):
         raise ValueError(f"unknown boundary {boundary!r}")
     if margin is None and boundary != "circular":

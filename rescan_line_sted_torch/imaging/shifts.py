@@ -1,5 +1,5 @@
-"""Gather-based circular shifts of centered profiles to scan positions
-(port of ``rescan_line_sted_tpu.imaging.shifts``).
+"""Gather-based circular shifts of centered profiles and PSFs to scan
+positions (port of ``rescan_line_sted_tpu.imaging.shifts``).
 
 A centered array has its peak at ``n // 2``; shifting it "to position p"
 places the peak at index p, wrapping circularly:
@@ -18,6 +18,18 @@ def shifted_profiles(profile: torch.Tensor,
     idx = (torch.arange(w, device=profile.device)[None, :]
            - positions[:, None] + w // 2) % w
     return profile[idx]
+
+
+def shifted_images(psf: torch.Tensor,
+                   positions_yx: torch.Tensor) -> torch.Tensor:
+    """Shift a centered 2D PSF [H, W] to each (y, x) position: out
+    [C, H, W]."""
+    h, w = psf.shape
+    iy = (torch.arange(h, device=psf.device)[None, :]
+          - positions_yx[:, 0:1] + h // 2) % h                   # [C, H]
+    ix = (torch.arange(w, device=psf.device)[None, :]
+          - positions_yx[:, 1:2] + w // 2) % w                   # [C, W]
+    return psf[iy[:, :, None], ix[:, None, :]]
 
 
 def flip_centered(arr: torch.Tensor) -> torch.Tensor:

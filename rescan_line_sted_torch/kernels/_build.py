@@ -7,8 +7,8 @@ _build/`` (listed in ``.gitignore``), so a checkout builds from its own
 sources only and a changed source rebuilds. A failed build raises with
 nvcc's stderr; nothing falls back to a plain version.
 
-Every C entry point returns ``cudaGetLastError()``; ``check`` raises on a
-non-zero code. ``LAUNCHES`` counts the launches of each kernel (of K1,
+Every C entry point that launches returns ``cudaGetLastError()``;
+``check`` raises on a non-zero code. ``LAUNCHES`` counts the launches of each kernel (of K1,
 each placement mode and shared-memory layout apart): every wrapper adds
 one where it launches, so a run can show which kernels its main path went
 through.
@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"rescan_banded_fused": 0, "rescan_banded_fused_spread": 0,
             "rescan_banded_fused_wide": 0,
             "rescan_banded_fused_spread_wide": 0,
-            "poisson_rows_tiered": 0, "poisson_flat": 0}
+            "poisson_rows_tiered": 0, "poisson_flat": 0, "line_sted_fused": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +46,8 @@ _SIGNATURES = {
     "rls_poisson_flat": [_P, _P, _LL, _U, _U, _P],
     "rls_rescan_banded_fused": [_P] * 9 + [_I] * 10 + [_U, _U, _P,
                                                     ctypes.POINTER(_I)],
+    "rls_line_sted_fused": [_P] * 6 + [_I] * 5 + [_U, _U, _P],
+    "rls_line_sted_fused_smem": [_I],   # returns bytes, not an error code
 }
 
 _lib = None

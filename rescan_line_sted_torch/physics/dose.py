@@ -1,9 +1,10 @@
 """Photodose accounting (port of ``rescan_line_sted_tpu.physics.dose``).
 
-For circular line scans that visit every column the accumulated dose is
-spatially uniform: every pixel receives ``sum_x(exc_profile)`` excitation
-and ``s * sum_x(stripe_profile)`` depletion, and emits
-``sum_x(eff_profile)`` photons per unit sample brightness.
+For circular scans that visit every position the accumulated dose is
+spatially uniform: under a line scan every pixel receives
+``sum_x(exc_profile)`` excitation and ``s * sum_x(stripe_profile)``
+depletion, and emits ``sum_x(eff_profile)`` photons per unit sample
+brightness; under a point scan the same sums run over the 2D PSFs.
 """
 
 from __future__ import annotations
@@ -35,12 +36,7 @@ class DoseReport:
         return self.emission_per_unit_sample / self.total_dose
 
 
-def line_sted_dose(params, geom, device=None) -> DoseReport:
-    """Dose ledger of a line scan over all ``geom.grid.width`` columns."""
-    w = geom.grid.width
-    m = models.line_model(params)
-    exc = m.excitation(w, params, device)
-    dep = m.depletion(w, params, device)
+def _report(exc, dep, params, geom, device) -> DoseReport:
     eff = psfs.effective_psf(exc, dep, params.depletion)
     return DoseReport(
         excitation_dose=exc.sum(),
@@ -48,3 +44,21 @@ def line_sted_dose(params, geom, device=None) -> DoseReport:
         emission_per_unit_sample=eff.sum(),
         num_steps=torch.full((), float(geom.num_steps), device=device),
     )
+
+
+def line_sted_dose(params, geom, device=None) -> DoseReport:
+    """Dose ledger of a line scan over all ``geom.grid.width`` columns."""
+    w = geom.grid.width
+    m = models.line_model(params)
+    return _report(m.excitation(w, params, device),
+                   m.depletion(w, params, device), params, geom, device)
+
+
+def point_sted_dose(params, geom, device=None) -> DoseReport:
+    """Dose ledger of a point scan over all ``height * width`` pixels: every
+    pixel receives ``sum(exc_psf)`` excitation and ``s * sum(dep_psf)``
+    depletion."""
+    shape = geom.grid.shape
+    m = models.point_model(params)
+    return _report(m.excitation(shape, params, device),
+                   m.depletion(shape, params, device), params, geom, device)

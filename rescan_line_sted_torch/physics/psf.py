@@ -1,9 +1,10 @@
-"""PSF synthesis and the saturable-depletion nonlinearity (1D line profiles).
+"""PSF synthesis and the saturable-depletion nonlinearity.
 
-Port of ``rescan_line_sted_tpu.physics.psf``, restricted to what the
-rescanned line-STED path builds. Conventions are the JAX package's:
+Port of ``rescan_line_sted_tpu.physics.psf``. Conventions are the JAX
+package's:
 
-* a centered profile has its peak at index ``n // 2``;
+* a centered profile (or 2D PSF) has its peak at index ``n // 2`` (on
+  every axis);
 * illumination profiles are peak-normalized, detection profiles are
   sum-normalized;
 * distances are in simulation pixels; everything is float32.
@@ -27,9 +28,50 @@ def _centered_coords(n: int, device=None) -> torch.Tensor:
     return torch.arange(n, dtype=torch.float32, device=device) - (n // 2)
 
 
-def _gaussian(x: torch.Tensor, sigma) -> torch.Tensor:
+def _two_sigma_sq(sigma) -> float:
     s = np.float32(sigma)
-    return torch.exp(-x.square() / _f32(np.float32(2.0) * s * s))
+    return _f32(np.float32(2.0) * s * s)
+
+
+def _gaussian(x: torch.Tensor, sigma) -> torch.Tensor:
+    return torch.exp(-x.square() / _two_sigma_sq(sigma))
+
+
+def radius_sq(shape: tuple[int, int], device=None) -> torch.Tensor:
+    """Squared distance from the grid center, [H, W]."""
+    y = _centered_coords(shape[0], device)[:, None]
+    x = _centered_coords(shape[1], device)[None, :]
+    return y * y + x * x
+
+
+def gaussian_psf(shape: tuple[int, int], sigma, device=None) -> torch.Tensor:
+    """Peak-normalized 2D Gaussian intensity PSF, centered."""
+    return torch.exp(-radius_sq(shape, device) / _two_sigma_sq(sigma))
+
+
+def donut_psf(shape: tuple[int, int], sigma, device=None) -> torch.Tensor:
+    """Peak-normalized depletion donut ``u e^{1-u}``, ``u = r^2 / (2
+    sigma^2)``: zero at the center, 1 on the ring ``r = sigma sqrt(2)``."""
+    u = radius_sq(shape, device) / _two_sigma_sq(sigma)
+    return u * torch.exp(1.0 - u)
+
+
+def detection_psf(shape: tuple[int, int], sigma, device=None) -> torch.Tensor:
+    """Sum-normalized Gaussian detection PSF, centered, [H, W]."""
+    g = gaussian_psf(shape, sigma, device)
+    return g / g.sum()
+
+
+def pinhole_mask(shape: tuple[int, int], radius, device=None) -> torch.Tensor:
+    """Centered descanned-pinhole integration mask (1 inside, 0 outside)."""
+    r = np.float32(radius)
+    return (radius_sq(shape, device) <= _f32(r * r)).to(torch.float32)
+
+
+def slit_profile(width: int, halfwidth, device=None) -> torch.Tensor:
+    """Centered descanned-slit integration profile along x, [W]."""
+    x = _centered_coords(width, device)
+    return (x.abs() <= _f32(halfwidth)).to(torch.float32)
 
 
 def line_excitation_profile(width: int, sigma, device=None) -> torch.Tensor:

@@ -253,3 +253,122 @@ def test_slice_on_card_matches_cpu(cuda, rf, b):
                                   else "_spread")
     assert _build.LAUNCHES[k1] == before[k1] + 1
     assert _build.LAUNCHES["poisson_flat"] == before["poisson_flat"] + 1
+
+
+def _line_inputs(h, w, hw, device, seed=8):
+    from rescan_line_sted_torch.imaging.line_sted import (
+        effective_line_profile)
+    from rescan_line_sted_torch.physics import psf
+
+    p = T.LineSTEDParams.create(sigma_exc=3.0, sigma_det=3.0, depletion=8.0,
+                                slit_halfwidth=hw, brightness=40.0)
+    ramp = torch.linspace(0.2, 2.0, w)[None, :]      # asymmetric along x
+    s = torch.rand((h, w), generator=torch.Generator().manual_seed(seed))
+    return ((s * ramp).to(device),
+            40.0 * effective_line_profile(w, p, device),
+            psf.detection_profile(w, p.sigma_det, device),
+            psf.slit_profile(w, p.slit_halfwidth, device))
+
+
+@pytest.mark.parametrize("h,w,hw,slit_support", [
+    (256, 512, 4.0, 18), (64, 100, 4.0, 4), (70, 300, 10.0, 12),
+    (40, 2048, 4.0, 18)])
+def test_line_fused_matches_plain(cuda, h, w, hw, slit_support):
+    """K3 against its plain version, noise-free: the default window, an
+    undersized one (mean rows), a width off the 16-column grid over two
+    position tiles with a ragged lane tile, and the 2048-wide frame."""
+    from rescan_line_sted_torch.kernels.line_fused import (
+        line_sted_fused, line_sted_fused_reference)
+
+    args = _line_inputs(h, w, hw, cuda)
+    want = line_sted_fused_reference(*args, slit_support=slit_support)
+    before = _build.LAUNCHES["line_sted_fused"]
+    got = line_sted_fused(*args, slit_support=slit_support)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["line_sted_fused"] == before + 1
+    assert got.shape == (h, w) and _rel(got, want) <= 1e-5
+
+
+def test_line_fused_noise(cuda):
+    """K3's per-frame draws at 256^2: the seed-mean matches the noise-free
+    image and the per-pixel variance its mean (Poisson), as the JAX
+    suite's hardware test holds the TPU kernel; same seed, same image."""
+    from rescan_line_sted_torch.kernels.line_fused import line_sted_fused
+
+    s, eff, gx, slit = _line_inputs(256, 256, 4.0, cuda)
+    s = 5.0 * s
+    mean = line_sted_fused(s, eff, gx, slit, slit_support=18)
+    draws = torch.stack([line_sted_fused(
+        s, eff, gx, slit, torch.Generator().manual_seed(k), slit_support=18)
+        for k in range(24)]).double()
+    assert torch.equal(draws, draws.round()) and (draws >= 0).all()
+    sel = mean > 20.0
+    rel = (draws.mean(0)[sel] - mean[sel]).abs().mean() / mean[sel].mean()
+    ratio = (draws.var(0)[sel] / mean[sel]).mean()
+    assert rel < 0.03 and 0.93 < float(ratio) < 1.07
+    again = line_sted_fused(s, eff, gx, slit,
+                            torch.Generator().manual_seed(0), slit_support=18)
+    assert torch.equal(again.double(), draws[0])
+    assert not torch.equal(draws[0], draws[1])
+
+
+def test_line_fused_limits(cuda):
+    """The wrapper's shared-memory formula is the kernel's; a frame wider
+    than K3 takes, or a sample K3 cannot read, raises."""
+    from rescan_line_sted_torch.kernels import line_fused
+
+    for w in (1, 15, 16, 100, 2048, 2560, line_fused.max_width()):
+        assert _build.lib().rls_line_sted_fused_smem(w) == \
+            line_fused.smem_bytes(w)
+    w = line_fused.max_width() + 1
+    args = _line_inputs(8, w, 4.0, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        line_fused.line_sted_fused(*args)
+    s, eff, gx, slit = _line_inputs(8, 64, 4.0, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        line_fused.line_sted_fused(s.double(), eff, gx, slit)
+
+
+def _point(h, w, chunk):
+    return (T.PointSTEDParams.create(sigma_exc=3.0, sigma_det=3.0,
+                                     sigma_dep=3.0, depletion=8.0,
+                                     pinhole_radius=4.0, brightness=20.0),
+            T.PointSTEDGeometry(T.Grid(h, w), chunk=chunk))
+
+
+def _line(h, w, chunk=32):
+    return (T.LineSTEDParams.create(sigma_exc=3.0, sigma_det=3.0,
+                                    depletion=8.0, slit_halfwidth=4.0,
+                                    brightness=20.0),
+            T.LineSTEDGeometry(T.Grid(h, w), chunk=chunk))
+
+
+@pytest.mark.parametrize("case,kernel", [
+    ("line_128", "line_sted_fused"), ("line_512", "poisson_rows_tiered"),
+    ("line_512_fused", "line_sted_fused"),
+    ("point_256", "poisson_rows_tiered"), ("point_64", "poisson_rows_tiered")])
+def test_descanned_routes_on_card(cuda, case, kernel):
+    """Each per-step route launches its kernel (and only it); noise-free,
+    every method and boundary on the card matches the CPU."""
+    image = T.point_sted_image if case.startswith("point") else \
+        T.line_sted_image
+    n = int(case.split("_")[1])
+    params, geom = _point(n, n, 64) if case.startswith("point") else \
+        _line(n, n)
+    kw = dict(use_pallas=True) if case.endswith("fused") else {}
+    s = torch.rand((n, n), generator=torch.Generator().manual_seed(3))
+    _build.reset_launches()
+    img = image(s, params, geom, torch.Generator().manual_seed(1),
+                method="scan", noise_mode="per_step", **kw).image
+    torch.cuda.synchronize()
+    assert {k for k, v in _build.LAUNCHES.items() if v} == {kernel}
+    clean = image(s, params, geom, method="scan", **kw).image
+    tot, ref = float(img.double().sum()), float(clean.double().sum())
+    assert img.is_cuda and abs(tot - ref) <= 5 * np.sqrt(ref)
+    for method in ("scan", "analytic"):
+        for boundary in ("circular", "padded", "apodized"):
+            want = image(s, params, geom, method=method, boundary=boundary,
+                         device="cpu").image
+            got = image(s.numpy(), params, geom, method=method,
+                        boundary=boundary, **kw).image
+            assert got.is_cuda and _rel(got, want) <= 1e-5

@@ -253,13 +253,27 @@ def test_convert_round_trip():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         params_from_jax(jp.replace(model=J.physics.models.
                                    EnvelopedStripeModel()))
+    # the descanned modalities' geometries and point params round-trip
+    assert geometry_from_jax(J.LineSTEDGeometry(J.Grid(H, W), chunk=16)) \
+        == T.LineSTEDGeometry(T.Grid(H, W), chunk=16)
+    assert geometry_from_jax(J.PointSTEDGeometry(J.Grid(H, W), chunk=8)) \
+        == T.PointSTEDGeometry(T.Grid(H, W), chunk=8)
+    kw = dict(sigma_exc=1.6, sigma_dep=2.1, pinhole_radius=3.5,
+              depletion=5.0, brightness=12.5)
+    assert params_from_jax(J.PointSTEDParams.create(**kw)) == \
+        T.PointSTEDParams.create(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        params_from_jax(J.PointSTEDParams.create(
+            model=J.physics.models.PupilDonutModel()))
     with pytest.raises(NotImplementedError):
-        geometry_from_jax(J.LineSTEDGeometry(J.Grid(H, W)))
+        geometry_from_jax(J.RescanPointGeometry(J.Grid(H, W)))
 
 
 def test_import_leaves_jax_out():
     code = ("import sys, rescan_line_sted_torch, rescan_line_sted_torch."
-            "convert, rescan_line_sted_torch.data; "
+            "convert, rescan_line_sted_torch.data, rescan_line_sted_torch."
+            "imaging.line_sted, rescan_line_sted_torch.imaging.point_sted, "
+            "rescan_line_sted_torch.kernels.line_fused; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'rescan_line_sted_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
