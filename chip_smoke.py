@@ -30,14 +30,19 @@ sm_90a), then:
    and padded scan vs padded analytic within 1e-5 (relative L2); K2c and
    its plain version on the flagship's noise-free canvas (totals,
    dispersion);
-5. holds kernel K3 (descanned line scan) against its plain version,
+5. times every K1 mode, K2b and K2c against their plain versions (and
+   ``torch.poisson``) and each rescan path's per-step image with CUDA
+   events (median of 7 after warm-up), with each kernel's bound on this
+   card, before any descanned phase runs;
+6. holds kernel K3 (descanned line scan) against its plain version,
    noise-free (max relative error <= 1e-5), at 512^2 and 2048^2 with the
-   line settings (siemens star, depletion 8) and at 512^2 with an
-   undersized ``slit_support`` (mean rows), and K3's noise-free 2048^2
-   image against the analytic one; noisy K3 at 256^2 over 24 draws: every
+   line settings (siemens star, depletion 8), at 512^2 with an undersized
+   ``slit_support`` (mean rows) and with eff and gx rolled so that K3's
+   tap run wraps past the last offset, and K3's noise-free 2048^2 image
+   against the analytic one; noisy K3 at 256^2 over 24 draws: every
    total within 5 sigma, seed-mean and per-pixel variance / mean as the
    JAX suite holds the TPU kernel;
-6. drives ``line_sted_image`` and ``point_sted_image`` on each path, the
+7. drives ``line_sted_image`` and ``point_sted_image`` on each path, the
    counters reset before and read after each: line 2048^2 (per-step on the
    default banded K2b route and with ``use_pallas=True`` on K3, collapsed,
    analytic), line 512^2 (both per-step routes), line 128^2 (default route:
@@ -50,13 +55,12 @@ sm_90a), then:
    (zeroed x-margins) and padded scan against padded analytic within 1e-5
    (relative L2) for each modality, and each K2b route with its draws
    replaced by the identity against the analytic image;
-7. times every K1 mode, K2b and K2c against their plain versions (and
-   ``torch.poisson``), K3 against its plain version, K2b on each caller's
-   own frames, K2a's draws against ``torch.poisson`` on the same count, and
-   each path's per-step image with CUDA events (median of 7 after
-   warm-up), with each kernel's bound on this card; and the device time of
-   one image of each descanned path and of the flagship under
-   ``torch.profiler`` (the host's share is the rest).
+8. times K3 against its plain version and its bound (counted on this
+   run's taps and rates), K2b on each caller's own frames, K2a's draws
+   against ``torch.poisson`` on the same count, and each descanned path's
+   per-step image with CUDA events; and the device time of one image of
+   each descanned path and of the flagship under ``torch.profiler`` (the
+   host's share is the rest).
 
 Prints one JSON line with the kernels, then the card, then the result line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -727,15 +731,35 @@ def k3_inputs(params, sample):
             psf.slit_profile(w, params.slit_halfwidth, dev))
 
 
-def k3_bound(args, slit_support) -> tuple[float, str, int]:
-    """Least time (ms) of one K3 call and what bounds it: the slit rows'
-    correlations, n_rows * H * W^2 FMA at the fp32 peak, against the sample
-    read and the image written once. Returns the row count too."""
-    from rescan_line_sted_torch.kernels.line_fused import _rows
+PHILOX_OPS = 40   # a Philox-4x32-10 block: 10 rounds of two 32 x 32 -> 64-bit
+                  # multiplies, two operations each
 
-    h, w = args[0].shape
-    n = _rows(args[3], w, slit_support)[1].size
-    return (*roofline(2.0 * n * h * w * w, 4 * (2 * h * w + 3 * w)), n)
+
+def k3_bound(args, slit_support, noisy=True) -> tuple[float, str, dict]:
+    """Least time (ms) of one K3 call and what bounds it. Operations, at
+    the fp32 peak: an FMA (2) per nonzero tap of each computed row at every
+    position and lane and, for a noisy call, the Philox blocks its draws
+    take on these rates (6 per element below 10: Knuth's 24 uniforms; 5 at
+    10 or above: PTRS; none at 0), PHILOX_OPS each. Bytes: the sample read
+    and the image written once. Returns the counts too."""
+    from rescan_line_sted_torch.kernels.line_fused import (
+        _rows, _span, _taps, line_sted_fused_reference)
+
+    s, eff, gx, slit = args
+    h, w = s.shape
+    i0, ws, _ = _rows(slit, w, slit_support)
+    taps = _taps(eff, gx, i0, ws.size)
+    blocks = 0
+    for k in np.flatnonzero(ws) if noisy else []:
+        row = torch.zeros_like(slit)         # frame row i0 + k alone, weight 1
+        row[i0 + k] = 1.0
+        lam = line_sted_fused_reference(s, eff, gx, row, slit_support=w)
+        blocks += int((6 * ((lam > 0) & (lam < 10)) + 5 * (lam >= 10)).sum())
+    n = {"rows": int(ws.size), "run": _span(taps)[1],
+         "taps": int(taps.sum()), "fma": int(taps.sum()) * h * w,
+         "philox_blocks": blocks}
+    return (*roofline(2.0 * n["fma"] + PHILOX_OPS * blocks,
+                      4 * (2 * h * w + 3 * w)), n)
 
 
 def phase_k3(dev) -> dict:
@@ -744,24 +768,32 @@ def phase_k3(dev) -> dict:
     from rescan_line_sted_torch import line_sted_image
     from rescan_line_sted_torch.data import siemens_star
     from rescan_line_sted_torch.kernels.line_fused import (
-        _rows, line_sted_fused, line_sted_fused_reference)
+        _rows, _span, _taps, line_sted_fused, line_sted_fused_reference)
 
     worst = {"abs": 0.0, "rel": 0.0}
-    for size, support in ((512, K3_SUPPORT), (SIZE, K3_SUPPORT), (512, 4)):
+    # (size, slit_support, roll of eff and gx: 250 makes the tap run wrap)
+    for size, support, shift in ((512, K3_SUPPORT, 0), (SIZE, K3_SUPPORT, 0),
+                                 (512, 4, 0), (512, K3_SUPPORT, 250)):
         params, geom = line_setup(size)
         star = siemens_star((size, size), device=dev)
-        args = k3_inputs(params, star)
+        s, eff, gx, slit = k3_inputs(params, star)
+        args = s, eff.roll(shift), gx.roll(shift), slit
         got = line_sted_fused(*args, slit_support=support)
         want = line_sted_fused_reference(*args, slit_support=support)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
-        n_mean = int((_rows(args[3], size, support)[2] != 0).sum())
-        log(f"K3 vs plain {size}^2 slit_support={support} "
-            f"({k3_bound(args, support)[2]} rows, {n_mean} of them mean): "
-            f"max abs err {err:.3e}, max rel err {rel:.3e}")
+        i0, ws, wm = _rows(slit, size, support)
+        j0, run = _span(_taps(*args[1:3], i0, ws.size))
+        log(f"K3 vs plain {size}^2 slit_support={support} roll={shift} "
+            f"({ws.size} rows, {int((wm != 0).sum())} of them mean; taps "
+            f"{j0}..{j0 + run - 1} mod {size}): max abs err {err:.3e}, "
+            f"max rel err {rel:.3e}")
         check(got.shape == want.shape and rel <= 1e-5,
-              f"K3 vs plain at {size}^2, slit_support {support}: rel {rel}")
+              f"K3 vs plain at {size}^2, slit_support {support}, roll "
+              f"{shift}: rel {rel}")
+        check(shift == 0 or j0 + run > size,
+              f"the rolled K3 case must wrap its tap run: {j0}, {run}")
         worst = {"abs": max(worst["abs"], err), "rel": max(worst["rel"], rel)}
         if size == SIZE:
             ana = line_sted_image(star, params, geom).image
@@ -1065,7 +1097,7 @@ def phase_times_descanned(dev, k1_times) -> dict:
             + f"; largest: {json.dumps([[round(t, 3), k[:60], n] for t, k, n in top])}")
 
     args = k3_inputs(line_setup(SIZE)[0], stars[SIZE])
-    bound, by, _ = k3_bound(args, K3_SUPPORT)
+    bound, by, counts = k3_bound(args, K3_SUPPORT)
     k3 = {"ms": cuda_ms(lambda: line_sted_fused(*args, cpu_gen,
                                                  slit_support=K3_SUPPORT)),
           "plain_ms": cuda_ms(lambda: line_sted_fused_reference(
@@ -1074,7 +1106,9 @@ def phase_times_descanned(dev, k1_times) -> dict:
               *args, slit_support=K3_SUPPORT)),
           "noise_free_plain_ms": cuda_ms(lambda: line_sted_fused_reference(
               *args, slit_support=K3_SUPPORT)),
-          "bound_ms": bound, "bound_by": by}
+          "bound_ms": bound, "bound_by": by,
+          "noise_free_bound_ms": k3_bound(args, K3_SUPPORT, noisy=False)[0],
+          **counts}
     k3["device_ms"] = device_busy(lambda: line_sted_fused(
         *args, cpu_gen, slit_support=K3_SUPPORT))[0]
     log(f"time line_sted_fused {json.dumps(k3)}")
@@ -1121,10 +1155,10 @@ def main() -> int:
     sampler_err = phase_sampler(dev)
     k1_err = phase_k1(dev)
     paths = phase_e2e(dev)
+    times = phase_times(dev)          # rescan timings before the new phases
     k3_err = phase_k3(dev)
     paths.update(phase_descanned(dev))
     phase_route_parity(dev)
-    times = phase_times(dev)
     desc = phase_times_descanned(dev, times["rescan_banded_fused"])
     log(f"after timing: {clocks()}")
     log(f"smoke run took {time.time() - t0:.1f} s after the card was named")

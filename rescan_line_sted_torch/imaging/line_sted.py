@@ -17,9 +17,9 @@ positions give one image column each through a descanned slit. Methods:
      its sampled window and ``use_pallas`` is True, or when ``_line_band``
      gives no band windows; the JAX gate ``vmem_ok`` modelled the TPU's
      VMEM and (8, 128) tiling, and K3's own limit replaces it (the width
-     must fit its shared memory, ``line_fused.max_width()``), so
-     ``use_pallas=True`` takes K3 at 2048^2 where the TPU took the banded
-     route;
+     must leave room for its resident profiles in shared memory,
+     ``line_fused.MAX_WIDTH``), so ``use_pallas=True`` takes K3 at 2048^2
+     where the TPU took the banded route;
   2. otherwise the banded route: per chunk a ``D_in``-column sample window
      times the chunk-invariant table gives only the ``D_out`` camera rows
      the slit can read, as frames [C, D_out, H], sampled by K2b
@@ -149,7 +149,7 @@ def _scan(sample, params, geom, generator, noise_mode="collapsed",
         slit_support = min(w, int(2 * hw) + 10)
         slit_fits = slit_support >= 2 * hw + 2 or slit_support >= w
     band = _line_band(params, w, chunk)
-    if (slit_fits and w <= line_fused.max_width() and use_pallas is not False
+    if (slit_fits and w <= line_fused.MAX_WIDTH and use_pallas is not False
             and (use_pallas is True or band is None)):
         return line_fused.line_sted_fused(sample_y.contiguous(), bright * eff,
                                           gx, slit, generator, slit_support)

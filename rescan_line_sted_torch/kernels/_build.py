@@ -46,8 +46,8 @@ _SIGNATURES = {
     "rls_poisson_flat": [_P, _P, _LL, _U, _U, _P],
     "rls_rescan_banded_fused": [_P] * 9 + [_I] * 10 + [_U, _U, _P,
                                                     ctypes.POINTER(_I)],
-    "rls_line_sted_fused": [_P] * 6 + [_I] * 5 + [_U, _U, _P],
-    "rls_line_sted_fused_smem": [_I],   # returns bytes, not an error code
+    "rls_line_sted_fused": [_P] * 6 + [_I] * 7 + [_U, _U, _P,
+                                                  ctypes.POINTER(_I)],
 }
 
 _lib = None

@@ -12,22 +12,29 @@ first and last nonzero values (``_rows``); the rest are multiplied by 0.
 
 The frame row ``r`` of position ``pos`` is a circular correlation of the
 sample along x with ``K_r(d) = gx(r - d) eff(d)``, the same for every
-position: the plain version runs it as one matrix product per chunk of
-positions, kernel K3 (``csrc/line_fused.cu``) in registers from ``gx`` and
-``eff`` kept in shared memory. K3 takes any width whose sample rows fit in
-a block's shared memory (``max_width``); it never forms the [W, W]
-circulant the TPU kernel kept resident.
+position. The plain version runs it over every offset, as one matrix
+product per chunk of positions. Kernel K3 (``csrc/line_fused.cu``) forms
+``K_r`` from ``gx`` and ``eff`` kept in shared memory and sweeps only the
+shortest circular run of offsets holding every nonzero tap (``_taps``,
+``_span``): the profiles underflow to 0 in float32 a few dozen columns
+from their centres, so that run is 63 offsets at the line settings
+(depletion 8), whatever the width. It never forms the [W, W] circulant
+the TPU kernel kept resident. Its shared memory holds ``gx``, ``eff``
+and the sample over the run: the line engine takes K3 up to
+``MAX_WIDTH`` columns, and the C entry raises where a block's shared
+memory is too small.
 
 The TPU kernel multiplied every frame row by its slit weight, 0 outside
 the slit, so a row that overflowed to infinity there gave NaN; here rows
-outside the slit's span are not computed. A non-finite sample value still
-reaches every output of its lane, as on the TPU. Parity holds on finite
-inputs.
+outside the slit's span are not computed, and K3 reads a sample value
+only through the taps of its run: a non-finite value reaches only the
+outputs whose run covers it (the plain version, like the TPU, spreads it
+over every output of its lane). Parity holds on finite inputs.
 """
 
 from __future__ import annotations
 
-import functools
+import ctypes
 
 import numpy as np
 import torch
@@ -35,28 +42,12 @@ import torch
 from rescan_line_sted_torch.kernels import _build
 from rescan_line_sted_torch.kernels.poisson import poisson_reference
 
-# csrc/line_fused.cu's tile: 8 lanes x 256 positions per CTA; its shared
-# memory (line_smem_bytes) holds K_r, the staged sample rows, gx and eff
-_LANES, _POSITIONS = 8, 256
-SMEM_PER_BLOCK = 232_448   # H100: the most shared memory a block may opt into
+# The widest frame the line engine hands K3: its resident gx and eff take
+# 2 W floats (128 KB here) of a Hopper block's 227 KB of shared memory,
+# leaving the rest for the sample over the tap run. Wider frames take the
+# engine's other routes, as frames beyond the TPU's VMEM did.
+MAX_WIDTH = 16384
 _CHUNK = 256               # positions per matrix product of the plain version
-
-
-def smem_bytes(w: int) -> int:
-    """Dynamic shared memory K3 takes at width ``w`` (mirrors
-    ``line_smem_bytes`` in ``csrc/line_fused.cu``)."""
-    wp = -(-w // 16) * 16
-    t = _POSITIONS + wp
-    return 4 * (wp + _LANES * t + _LANES * (-(-t // 16)) + 2 * w)
-
-
-@functools.lru_cache(maxsize=1)
-def max_width() -> int:
-    """The widest frame K3 takes (its sample rows fill shared memory)."""
-    w = 1
-    while smem_bytes(w + 1) <= SMEM_PER_BLOCK:
-        w += 1
-    return w
 
 
 def _rows(slit: torch.Tensor, w: int, slit_support: int):
@@ -75,6 +66,29 @@ def _rows(slit: torch.Tensor, w: int, slit_support: int):
     inside = (i >= lo) & (i < lo + win)
     return (int(nz[0]), np.where(inside, s[i], 0.0).astype(np.float32),
             np.where(inside, 0.0, s[i]).astype(np.float32))
+
+
+def _taps(eff: torch.Tensor, gx: torch.Tensor, i0: int, n: int) -> np.ndarray:
+    """Which taps of the computed rows are nonzero, [n, W] bool: row ``i0
+    + k`` weighs the sample at centred offset ``j`` by ``gx[(i0 + k - j +
+    W//2) mod W] * eff[j]``, the float32 product K3 forms."""
+    w = eff.shape[0]
+    e = eff.detach().to("cpu", torch.float32).numpy()
+    g = gx.detach().to("cpu", torch.float32).numpy()
+    c = (i0 + np.arange(n) + w // 2) % w
+    return g[(c[:, None] - np.arange(w)[None, :]) % w] * e[None, :] != 0
+
+
+def _span(taps: np.ndarray) -> tuple[int, int]:
+    """``(j0, n)``: the shortest circular run of offsets ``j0 .. j0 + n -
+    1`` (mod W) that holds every nonzero tap of ``taps`` [rows, W]."""
+    w = taps.shape[-1]
+    nz = np.flatnonzero(taps.any(0))
+    if nz.size in (0, w):
+        return 0, int(nz.size)
+    gaps = np.diff(np.r_[nz, nz[0] + w])     # to the next nonzero offset
+    i = int(np.argmax(gaps))
+    return int(nz[(i + 1) % nz.size]), int(w - gaps[i] + 1)
 
 
 def _check(sample_y, eff_scaled, gx, slit):
@@ -133,21 +147,17 @@ def line_sted_fused(sample_y: torch.Tensor, eff_scaled: torch.Tensor,
     noise-free. Returns the descanned image [H, W].
 
     A CUDA ``sample_y`` launches kernel K3 (``LAUNCHES["line_sted_fused"]``)
-    or raises (a width above ``max_width()``, a build or CUDA error); a CPU
-    one runs ``line_sted_fused_reference``.
+    or raises (profiles and tap run beyond a block's shared memory, a
+    build or CUDA error); a CPU one runs ``line_sted_fused_reference``.
     """
     if not sample_y.is_cuda:
         return line_sted_fused_reference(sample_y, eff_scaled, gx, slit,
                                          generator, slit_support)
     _check(sample_y, eff_scaled, gx, slit)
     h, w = sample_y.shape
-    if w > max_width():
-        raise ValueError(
-            f"line_sted_fused: width {w} needs {smem_bytes(w)} bytes of "
-            f"shared memory per block, above the {SMEM_PER_BLOCK} a block "
-            f"may have (K3 takes widths up to {max_width()})")
     dev = sample_y.device
     i0, ws, wm = _rows(slit, w, slit_support)
+    j0, n_taps = _span(_taps(eff_scaled, gx, i0, ws.size))
     s = sample_y.contiguous()
     eff = eff_scaled.contiguous()
     gx = gx.contiguous()
@@ -157,10 +167,16 @@ def line_sted_fused(sample_y: torch.Tensor, eff_scaled: torch.Tensor,
     s0 = s1 = 0
     if generator is not None:
         s0, s1 = _build.seeds_from(generator)
+    smem = (ctypes.c_int * 2)()
     code = _build.lib().rls_line_sted_fused(
         s.data_ptr(), eff.data_ptr(), gx.data_ptr(), ws_t.data_ptr(),
-        wm_t.data_ptr(), out.data_ptr(), h, w, i0, ws.size,
-        int(generator is not None), s0, s1, _build.stream_handle(dev))
+        wm_t.data_ptr(), out.data_ptr(), h, w, i0, ws.size, j0, n_taps,
+        int(generator is not None), s0, s1, _build.stream_handle(dev), smem)
     _build.check(code, "line_sted_fused")
+    if smem[0] > smem[1]:
+        raise ValueError(
+            f"line_sted_fused: width {w} with a run of {n_taps} taps needs "
+            f"{smem[0]} bytes of shared memory per block, above the "
+            f"{smem[1]} this card allows")
     _build.LAUNCHES["line_sted_fused"] += 1
     return out

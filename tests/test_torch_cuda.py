@@ -270,17 +270,20 @@ def _line_inputs(h, w, hw, device, seed=8):
             psf.slit_profile(w, p.slit_halfwidth, device))
 
 
-@pytest.mark.parametrize("h,w,hw,slit_support", [
-    (256, 512, 4.0, 18), (64, 100, 4.0, 4), (70, 300, 10.0, 12),
-    (40, 2048, 4.0, 18)])
-def test_line_fused_matches_plain(cuda, h, w, hw, slit_support):
+@pytest.mark.parametrize("h,w,hw,slit_support,shift", [
+    (256, 512, 4.0, 18, 0), (64, 100, 4.0, 4, 0), (70, 300, 10.0, 12, 0),
+    (40, 2048, 4.0, 18, 0), (48, 512, 4.0, 18, 250), (24, 40, 4.0, 18, 0)])
+def test_line_fused_matches_plain(cuda, h, w, hw, slit_support, shift):
     """K3 against its plain version, noise-free: the default window, an
     undersized one (mean rows), a width off the 16-column grid over two
-    position tiles with a ragged lane tile, and the 2048-wide frame."""
+    position tiles with a ragged lane tile, the 2048-wide frame, a tap run
+    that wraps past the last offset (eff and gx rolled off centre) and one
+    that spans the whole frame."""
     from rescan_line_sted_torch.kernels.line_fused import (
         line_sted_fused, line_sted_fused_reference)
 
-    args = _line_inputs(h, w, hw, cuda)
+    s, eff, gx, slit = _line_inputs(h, w, hw, cuda)
+    args = s, eff.roll(shift), gx.roll(shift), slit
     want = line_sted_fused_reference(*args, slit_support=slit_support)
     before = _build.LAUNCHES["line_sted_fused"]
     got = line_sted_fused(*args, slit_support=slit_support)
@@ -313,15 +316,16 @@ def test_line_fused_noise(cuda):
 
 
 def test_line_fused_limits(cuda):
-    """The wrapper's shared-memory formula is the kernel's; a frame wider
-    than K3 takes, or a sample K3 cannot read, raises."""
+    """K3 takes the widest frame the line engine hands it; a frame whose
+    profiles overflow a block's shared memory, or a sample K3 cannot read,
+    raises."""
     from rescan_line_sted_torch.kernels import line_fused
 
-    for w in (1, 15, 16, 100, 2048, 2560, line_fused.max_width()):
-        assert _build.lib().rls_line_sted_fused_smem(w) == \
-            line_fused.smem_bytes(w)
-    w = line_fused.max_width() + 1
-    args = _line_inputs(8, w, 4.0, cuda)
+    args = _line_inputs(8, line_fused.MAX_WIDTH, 4.0, cuda)
+    want = line_fused.line_sted_fused_reference(*args, slit_support=18)
+    assert _rel(line_fused.line_sted_fused(*args, slit_support=18),
+                want) <= 1e-5
+    args = _line_inputs(8, 32768, 4.0, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         line_fused.line_sted_fused(*args)
     s, eff, gx, slit = _line_inputs(8, 64, 4.0, cuda)

@@ -137,8 +137,58 @@ def test_k3_rows():
     i0, ws, wm = tfused._rows(slit, 64, 18)
     assert i0 == 28 and ws.tolist() == [1.0] * 9 and not wm.any()
     assert tfused._rows(torch.zeros(64), 64, 18)[1].size == 0
-    assert tfused.max_width() >= 2560
-    assert tfused.smem_bytes(tfused.max_width() + 1) > tfused.SMEM_PER_BLOCK
+
+
+def _shortest_run(mask):
+    """Brute force: the shortest circular run (start, length) holding
+    every True of ``mask``."""
+    w = mask.size
+    if not mask.any():
+        return 0, 0
+    for n in range(1, w + 1):
+        for j0 in range(w):
+            if mask[(j0 + np.arange(n)) % w].sum() == mask.sum():
+                return j0, n
+
+
+@pytest.mark.parametrize("nz", [[], [5], [0, 9], [2, 3, 7], list(range(10)),
+                                [0, 1, 2, 8, 9], [1, 4, 6, 8]])
+def test_k3_tap_span(nz):
+    """K3's tap run is the shortest circular run over the nonzero taps,
+    wrapping past the last offset where that is shorter."""
+    mask = np.zeros(10, bool)
+    mask[nz] = True
+    taps = np.stack([mask, np.zeros(10, bool)])
+    got = tfused._span(taps)
+    assert got[1] == _shortest_run(mask)[1]
+    assert mask[(got[0] + np.arange(got[1])) % 10].sum() == mask.sum()
+
+
+@pytest.mark.parametrize("w,shift,run", [(128, 0, "short"),
+                                         (128, 60, "wraps"),
+                                         (40, 0, "whole")])
+def test_k3_tap_run_sum_matches_plain(w, shift, run):
+    """K3's noise-free arithmetic in numpy (each computed row summed over
+    its tap run only) equals the plain version summing every offset: the
+    run is short at 128 columns, wraps past the last offset with eff and
+    gx rolled off centre, and is the whole frame at 40 columns."""
+    s, eff, gx, slit = _fused_inputs(24, w, 4.0)
+    eff, gx = np.roll(eff, shift), np.roll(gx, shift)
+    i0, ws, wm = tfused._rows(_t(slit), w, 18)
+    taps = tfused._taps(_t(eff), _t(gx), i0, ws.size)
+    j0, n = tfused._span(taps)
+    assert {"short": 0 < n and j0 + n <= w, "wraps": n < w < j0 + n,
+            "whole": n == w}[run]
+    j = (j0 + np.arange(n)) % w
+    c = (i0 + np.arange(ws.size) + w // 2) % w
+    k = gx[(c[:, None] - j[None, :]) % w] * eff[j][None, :]      # [rows, n]
+    cols = (np.arange(w)[:, None] - w // 2 + j[None, :]) % w    # [pos, n]
+    got = np.einsum("ypn,kn,k->yp", s[:, cols].astype(np.float64), k,
+                    ws + wm)
+    want = tfused.line_sted_fused_reference(_t(s), _t(eff), _t(gx), _t(slit),
+                                            slit_support=18)
+    assert not taps[:, (j0 + np.arange(n, w)) % w].any()
+    assert _rel(got, want) <= 1e-5
 
 
 @pytest.mark.parametrize("method", ["analytic", "scan"])
@@ -193,7 +243,7 @@ def test_per_step_routes_match_jax_collapsed(route, monkeypatch):
     monkeypatch.setattr(tline, "maybe_poisson",
                         lambda g, m: _identity(calls["k2c"])(m, g))
     if route == "full_frame_k2b":
-        monkeypatch.setattr(tfused, "max_width", lambda: w - 1)
+        monkeypatch.setattr(tfused, "MAX_WIDTH", w - 1)
     got = T.line_sted_image(s, tp, tg, torch.Generator().manual_seed(0),
                             method="scan", noise_mode="per_step",
                             use_pallas=use_pallas, slit_support=slit_support,
