@@ -60,7 +60,25 @@ sm_90a), then:
    against ``torch.poisson`` on the same count, and each descanned path's
    per-step image with CUDA events; and the device time of one image of
    each descanned path and of the flagship under ``torch.profiler`` (the
-   host's share is the rest).
+   host's share is the rest);
+9. holds kernel K4 (the full-frame rescan scan) against its plain
+   version, noise-free (max relative error <= 1e-5), on the nobands_2048
+   cell, at 512^2 with b = 2, with eff and gx rolled so that their tap runs
+   wrap, and with a full-width run (a flat excitation at 256^2), and its
+   draws at 256^2 over 16 seeds; and K5 (the scatter-add) against its
+   plain version with duplicate offsets and frames wider than the canvas;
+10. drives the rescan scan without band windows, counters reset before
+   and read after each path: nobands_2048 (2048^2, R = 2, the stripe
+   model flagged as not Gaussian: K4; noise-free held to K1's banded image
+   of the same physics within 1e-5 relative L2), at 512^2 the subpixel
+   per-step route (K2b on W-major frames), the ``use_pallas=False``
+   scatter (K5) and collapsed noise with ``use_pallas=True`` (K4) and
+   None (FFT phase accumulation), and rescan_128 (the default model: K4
+   by default); each route with its draws replaced by the identity
+   against the analytic image; then times K4 against its plain version
+   and ``k4_bound``, K5 against its plain version and ``index_add_``, K2b
+   on the hybrid's frames, and each new path's image (CUDA events and one
+   profiler image).
 
 Prints one JSON line with the kernels, then the card, then the result line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -69,6 +87,7 @@ Without CUDA it exits with code 1 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -1132,6 +1151,410 @@ def phase_times_descanned(dev, k1_times) -> dict:
             "k2a": k2a, "busy": busy}
 
 
+# ---- the rescan scan without band windows: K4, K5, K2b's rescan caller --
+
+SCAN_SIZE = 512                               # bench.py's SCAN_SIZE
+
+
+def stripe_no_bands():
+    """A copy of the default stripe model without ``gaussian_excitation``:
+    the same physics, with the band windows declined."""
+    from rescan_line_sted_torch.physics.models import GaussianStripeModel
+
+    class StripeNoBands(GaussianStripeModel):
+        gaussian_excitation = False
+
+    return StripeNoBands()
+
+
+class WideExcModel:
+    """A flat excitation and no depletion (no ``gaussian_excitation``):
+    K4's run spans the whole frame."""
+
+    def excitation(self, width, params, device=None):
+        return torch.ones(width, device=device)
+
+    def depletion(self, width, params, device=None):
+        return torch.zeros(width, device=device)
+
+
+def nobands(size, rescan_factor=2.0, binning=1, model=None):
+    """The flagship's physics at ``size``, its stripe model flagged as not
+    Gaussian (no band windows); ``model=False`` keeps the default model."""
+    params, geom = flagship(size, rescan_factor, binning)
+    if model is not False:
+        params = dataclasses.replace(params, model=model or stripe_no_bands())
+    return params, geom
+
+
+def k4_inputs(params, geom, sample):
+    """K4's arguments as ``_full_frame_scan`` builds them."""
+    from rescan_line_sted_torch.imaging.line_sted import (
+        effective_line_profile)
+    from rescan_line_sted_torch.kernels import fftconv
+    from rescan_line_sted_torch.physics import psf
+
+    h, w = geom.grid.shape
+    dev = sample.device
+    b = geom.binning
+    otf_y = fftconv.profile_to_otf1d(
+        psf.detection_profile(h, params.sigma_det, dev))
+    pos = torch.arange(w, device=dev)
+    offsets = torch.round((float(geom.rescan_factor) - 1.0) * pos / b).int()
+    return (fftconv.convolve_otf1d(sample, otf_y, axis=-2, n=h).contiguous(),
+            params.brightness * effective_line_profile(w, params, dev),
+            psf.detection_profile(w, params.sigma_det, dev), offsets,
+            geom.canvas_shape[1], b)
+
+
+def k4_bound(args, noisy=True) -> tuple[float, str, dict]:
+    """Least time (ms) of one K4 call and what bounds it. Operations, at
+    the fp32 peak: an FMA (2) per pair of nonzero eff and gx taps at every
+    position and sample row and, for a noisy call, the Philox blocks its
+    draws take on this run's binned rates: a quarter block per element of
+    rate in (0, 10) (one single-draw uniform, four to a block), 5 blocks
+    at 10 or above (PTRS), none at 0; PHILOX_OPS each. Bytes: the sample
+    read and the canvas written once. Returns the counts too."""
+    from rescan_line_sted_torch.kernels.rescan_fused import _run, _window
+
+    s, eff, gx, offsets, wc, b = args
+    h, w = s.shape
+    (e0, ne), (g0, ng) = _run(eff), _run(gx)
+    n = {"eff_run": ne, "gx_run": ng,
+         "eff_taps": int((eff != 0).sum()), "gx_taps": int((gx != 0).sum())}
+    n["fma"] = n["eff_taps"] * n["gx_taps"] * h * w
+    low = high = 0
+    if noisy:                           # this run's binned rates (plain math)
+        l, hb = ne + ng - 1, h // b
+        lb = min(w // b, -(-(l + b - 1) // b))
+        i = torch.arange(ne, device=s.device)
+        k = torch.arange(l, device=s.device)[None, :] - i[:, None]
+        band = torch.where((k >= 0) & (k < ng),
+                           gx[(g0 + k.clamp(0, ng - 1)) % w], 0.0)
+        effr = eff[(e0 + i) % w]
+        for p0 in range(0, w, 64):
+            pos = torch.arange(p0, min(p0 + 64, w), device=s.device)
+            cols = (pos[:, None] + e0 + i[None, :] + w - w // 2) % w
+            run = ((s[:, cols] * effr) @ band).reshape(
+                hb, b, pos.numel(), l).sum(1)
+            _, xl = _window(pos, w, b, e0, g0, l)
+            fr = torch.zeros((hb, pos.numel(), lb), device=s.device)
+            fr.scatter_add_(2, xl[None].expand_as(run), run)
+            low += int(((fr > 0) & (fr < 10)).sum())
+            high += int((fr >= 10).sum())
+    n["drawn_low"], n["drawn_high"] = low, high
+    n["philox_blocks"] = low / 4 + 5 * high
+    return (*roofline(2.0 * n["fma"] + PHILOX_OPS * n["philox_blocks"],
+                      4 * (h * w + (h // b) * wc)), n)
+
+
+def phase_k4(dev) -> dict:
+    """K4 against its plain version, noise-free (max relative <= 1e-5):
+    the 2048^2 cell, b = 2, eff and gx rolled so that their runs wrap, and
+    a full-width run (WideExcModel at 256^2); its draws at 256^2 over
+    SEEDS seeds. Returns the worst errors."""
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.kernels.rescan_fused import (
+        _run, rescan_fused, rescan_fused_reference)
+
+    worst = {"abs": 0.0, "rel": 0.0}
+    cases = (("nobands_2048", nobands(SIZE), 0),
+             ("512^2 R=3 b=2", nobands(512, 3.0, 2), 0),
+             ("512^2 rolled 250", nobands(512), 250),
+             ("256^2 WideExcModel", nobands(256, model=WideExcModel()), 0))
+    for name, (params, geom), shift in cases:
+        star = siemens_star(geom.grid.shape, device=dev)
+        s, eff, gx, offs, wc, b = k4_inputs(params, geom, star)
+        args = (s, eff.roll(shift), gx.roll(shift), offs, wc, b)
+        got = rescan_fused(*args)
+        want = rescan_fused_reference(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        (e0, ne), (g0, ng) = _run(args[1]), _run(args[2])
+        log(f"K4 vs plain {name}: eff run {e0}+{ne}, gx run {g0}+{ng} mod "
+            f"{s.shape[1]}: max abs err {err:.3e}, max rel err {rel:.3e}")
+        check(got.shape == want.shape and rel <= 1e-5,
+              f"K4 vs plain at {name}: rel err {rel}")
+        check(shift == 0 or e0 + ne > s.shape[1],
+              f"the rolled K4 case must wrap its eff run: {e0}, {ne}")
+        check(isinstance(params.model, WideExcModel) == (ne == s.shape[1]),
+              f"{name}: a full-width run only for the flat excitation")
+        worst = {"abs": max(worst["abs"], err), "rel": max(worst["rel"], rel)}
+
+    params, geom = nobands(256)
+    params = dataclasses.replace(params, brightness=20.0)
+    sample = 5.0 * torch.rand((256, 256),
+                              generator=torch.Generator().manual_seed(7))
+    args = k4_inputs(params, geom, sample.to(dev))
+    mean = rescan_fused(*args)
+    draws = torch.stack([rescan_fused(
+        *args, generator=torch.Generator().manual_seed(100 + k))
+        for k in range(SEEDS)]).double()
+    check(torch.equal(draws, draws.round()) and (draws >= 0).all(),
+          "K4 noisy canvases must hold non-negative integer counts")
+    mu = float(mean.double().sum())
+    z = (draws.sum((1, 2)) - mu) / math.sqrt(mu)
+    sel = mean > 20.0
+    rel = float((draws.mean(0)[sel] - mean[sel]).abs().mean()
+                / mean[sel].mean())
+    ratio = float((draws.var(0)[sel] / mean[sel]).mean())
+    log(f"K4 noisy 256^2 over {SEEDS} draws: total z "
+        f"{json.dumps([round(float(v), 2) for v in z])}; seed-mean rel err "
+        f"{rel:.4f}, variance / mean {ratio:.4f} over {int(sel.sum())} "
+        "canvas pixels with mean > 20")
+    check(float(z.abs().max()) <= 5, "K4 noisy totals beyond 5 sigma")
+    check(rel < 0.03 and 0.9 < ratio < 1.1,
+          f"K4 noisy moments: rel {rel}, variance / mean {ratio}")
+    again = rescan_fused(*args, generator=torch.Generator().manual_seed(100))
+    check(torch.equal(again.double(), draws[0]),
+          "K4: the same seed must give the same canvas")
+    return worst
+
+
+def k5_inputs(dev, n=32, h=SCAN_SIZE, w=SCAN_SIZE, wc=2 * SCAN_SIZE,
+              seed=0):
+    """A scatter call of the 512^2 rescan route's shape (a chunk of 32
+    frames into the [512, 1024] canvas), duplicates included."""
+    g = torch.Generator().manual_seed(seed)
+    offsets = torch.randint(-wc, 2 * wc, (n,), generator=g)
+    offsets[1::4] = offsets[::4]                   # duplicates
+    return (torch.rand((h, wc), generator=g).to(dev),
+            torch.rand((n, h, w), generator=g).to(dev), offsets.to(dev))
+
+
+def phase_k5(dev) -> dict:
+    """K5 against its plain version: the 512^2 route's shape with
+    duplicate offsets, frames as wide as the canvas, and frames wider
+    than the canvas (heavy wrap). Returns the worst errors."""
+    from rescan_line_sted_torch.kernels.rescan_accumulate import (
+        rescan_accumulate, rescan_accumulate_reference)
+
+    worst = {"abs": 0.0, "rel": 0.0}
+    for n, h, w, wc in ((32, SCAN_SIZE, SCAN_SIZE, 2 * SCAN_SIZE),
+                        (32, 256, 256, 256), (16, 128, 1000, 300)):
+        args = k5_inputs(dev, n, h, w, wc, seed=n + w)
+        got = rescan_accumulate(*args)
+        want = rescan_accumulate_reference(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        log(f"K5 vs plain: {n} frames [{h}, {w}] into [{h}, {wc}]: max abs "
+            f"err {err:.3e}, max rel err {rel:.3e}")
+        check(got.shape == want.shape and rel <= 1e-5,
+              f"K5 vs plain at {(n, h, w, wc)}: rel err {rel}")
+        check(torch.equal(got, rescan_accumulate(*args)),
+              "K5 must be deterministic")
+        worst = {"abs": max(worst["abs"], err), "rel": max(worst["rel"], rel)}
+    return worst
+
+
+# path: (size, R, b, model, per-step keyword sets, kernels that must run)
+NOBAND_PATHS = {
+    "nobands_2048": (SIZE, 2.0, 1, None, [{}, {}],
+                     {"rescan_fused": 4, "poisson_flat": 2}),
+    "nobands_512_subpixel": (SCAN_SIZE, 1.5, 1, None, [{}, {}],
+                             {"poisson_rows_tiered": 2 * SCAN_SIZE // 32}),
+    "nobands_512_scatter": (SCAN_SIZE, 2.0, 1, None,
+                            [{"use_pallas": False}] * 2,
+                            {"rescan_accumulate": 2 * SCAN_SIZE // 32,
+                             "poisson_flat": 2 * SCAN_SIZE // 32}),
+    "rescan_128": (128, 2.0, 1, False, [{}, {}], {"rescan_fused": 2}),
+}
+
+
+def phase_nobands(dev) -> dict:
+    """Every route without band windows through
+    ``rescanned_line_sted_image``, the launch counters reset before and
+    read after each path: nobands_2048 (K4; noise-free held to K1's banded
+    image of the same physics), the 512^2 subpixel (K2b hybrid) and
+    ``use_pallas=False`` scatter (K5) routes, collapsed noise with
+    ``use_pallas=True`` (K4) and None (phase accumulation) at 512^2, and
+    rescan_128 (the default model: K4 by default). Each route with its
+    draws replaced by the identity (K4: noise-free) against the analytic
+    image on a star with zeroed x-margins. Returns each path's launches."""
+    from rescan_line_sted_torch import rescanned_line_sted_image as image
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.imaging import rescan
+
+    paths = {}
+    for name, (size, rf, b, model, routes, least) in NOBAND_PATHS.items():
+        params, geom = nobands(size, rf, b, model)
+        check(rescan._illum_band(params, size, 32, b) is None,
+              f"{name} must have no band windows")
+        star = siemens_star((size, size), device=dev)
+        others = name == "nobands_2048"
+        # the noise-free image of a large grid through K4 (use_pallas=True)
+        kw = {"use_pallas": True} if size == SIZE else {}
+        gen = torch.Generator().manual_seed(2026)
+
+        def run():
+            clean = image(star, params, geom, method="scan", **kw).image
+            imgs = [image(star, params, geom, gen, method="scan",
+                          noise_mode="per_step", **r).image for r in routes]
+            if others:
+                imgs += [image(star, params, geom, gen, method="scan",
+                               use_pallas=True).image,
+                         image(star, params, geom, gen).image]
+            return clean, imgs
+
+        (clean, imgs), paths[name] = drive(name, run)
+        total = float(clean.double().sum())
+        means = [total] * len(routes)
+        if others:
+            means += [float(clean.clamp_min(0).double().sum()),
+                      float(image(star, params, geom).image.clamp_min(0)
+                            .double().sum())]
+        for img, mu in zip(imgs, means):
+            t = float(img.double().sum())
+            log(f"{name}: image total {t:.1f} vs mean {mu:.1f} "
+                f"({(t - mu) / math.sqrt(mu):+.2f} sigma)")
+            check(img.shape == geom.canvas_shape and torch.isfinite(img).all()
+                  and abs(t - mu) <= 5 * math.sqrt(mu),
+                  f"{name}: noisy total {t} vs its mean {mu}")
+        check(not torch.equal(imgs[0], imgs[1]),
+              f"{name}: two noisy images must differ")
+        for kernel, n in least.items():
+            check(paths[name].get(kernel, 0) >= n,
+                  f"{name} must launch {kernel} at least {n} times: "
+                  f"{paths[name]}")
+        if name == "nobands_2048":
+            k1 = image(star, *flagship(SIZE, 2.0), method="scan").image
+            rel = rel_l2(clean, k1)
+            log(f"nobands_2048 (K4) noise-free vs K1's banded image of the "
+                f"same physics: rel err {rel:.3e}")
+            check(rel <= 1e-5, f"K4 image vs K1 image: rel err {rel}")
+
+    def collapsed():
+        params, geom = nobands(SCAN_SIZE)
+        star = siemens_star((SCAN_SIZE, SCAN_SIZE), device=dev)
+        gen = torch.Generator().manual_seed(5)
+        return [image(star, params, geom, gen, method="scan",
+                      use_pallas=up).image for up in (True, None)]
+
+    imgs, paths["nobands_512_collapsed"] = drive("nobands_512_collapsed",
+                                                 collapsed)
+    check(paths["nobands_512_collapsed"] == {"rescan_fused": 1,
+                                             "poisson_flat": 2},
+          f"collapsed: K4 once (use_pallas=True), K2c twice: {paths}")
+    for img in imgs:
+        check((img >= 0).all() and torch.equal(img, img.round()),
+              "collapsed noise must give non-negative counts")
+    route_parity(dev)
+    return paths
+
+
+def route_parity(dev) -> None:
+    """Each route without band windows, its draws replaced by the identity
+    (K4 and the collapsed routes: noise-free), against the analytic image
+    on a star with zeroed x-margins: relative L2 <= 1e-5."""
+    from rescan_line_sted_torch import rescanned_line_sted_image as image
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.imaging import rescan
+
+    def identity(lam, generator=None):
+        return lam.clamp_min(0)
+
+    cases = (("nobands_2048 K4", SIZE, 2.0, None, dict(use_pallas=True)),
+             ("rescan_128 K4", 128, 2.0, False, dict(use_pallas=True)),
+             ("512^2 phase accumulation", SCAN_SIZE, 2.0, None, {}),
+             ("512^2 subpixel K2b", SCAN_SIZE, 1.5, None, dict(
+                 noise_mode="per_step")),
+             ("512^2 scatter K5", SCAN_SIZE, 2.0, None, dict(
+                 noise_mode="per_step", use_pallas=False)),
+             ("512^2 subpixel K2c", SCAN_SIZE, 1.5, None, dict(
+                 noise_mode="per_step", use_pallas=False)))
+    orig = rescan.poisson_rows_tiered, rescan.maybe_poisson
+    for name, size, rf, model, kw in cases:
+        params, geom = nobands(size, rf, 1, model)
+        star = zero_margins(siemens_star((size, size), device=dev),
+                            min(64, size // 8))
+        gen = torch.Generator().manual_seed(0) if "noise_mode" in kw else None
+        rescan.poisson_rows_tiered = identity
+        rescan.maybe_poisson = lambda g, m: m if g is None else identity(m)
+        try:
+            got = image(star, params, geom, gen, method="scan", **kw).image
+        finally:
+            rescan.poisson_rows_tiered, rescan.maybe_poisson = orig
+        rel = rel_l2(got, image(star, params, geom).image)
+        log(f"{name}: draws replaced by the identity, vs analytic: rel err "
+            f"{rel:.3e}")
+        check(rel <= 1e-5, f"{name} vs analytic rel err {rel}")
+
+
+def phase_times_nobands(dev) -> dict:
+    """CUDA-event times (ms): K4 noisy and noise-free against its plain
+    version and ``k4_bound`` on the 2048^2 cell, K5 against its plain
+    version and ``index_add_``, K2b on the rescan hybrid's frames, each
+    new path's per-step image, and one profiler image per path."""
+    from rescan_line_sted_torch import rescanned_line_sted_image as image
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.imaging import rescan
+    from rescan_line_sted_torch.kernels.poisson import poisson_rows_tiered
+    from rescan_line_sted_torch.kernels.rescan_accumulate import (
+        _cols, rescan_accumulate, rescan_accumulate_reference)
+    from rescan_line_sted_torch.kernels.rescan_fused import (
+        rescan_fused, rescan_fused_reference)
+
+    cpu_gen = torch.Generator().manual_seed(4)
+    dev_gen = torch.Generator(dev).manual_seed(4)
+    stars = {n: siemens_star((n, n), device=dev)
+             for n in (SIZE, SCAN_SIZE, 128)}
+    runs = {}
+    for name, (size, rf, b, model, routes, _) in NOBAND_PATHS.items():
+        params, geom = nobands(size, rf, b, model)
+        runs[name] = (lambda p=params, g=geom, s=stars[size], kw=routes[0]:
+                      image(s, p, g, cpu_gen, method="scan",
+                            noise_mode="per_step", **kw), size)
+    e2e, busy = {}, {}
+    for name, (fn, steps) in runs.items():
+        e2e[name] = cuda_ms(fn)
+        log(f"time e2e per-step {name} {e2e[name]:.4f} ms, "
+            f"{steps / (e2e[name] * 1e-3):.1f} steps/s")
+        ms, top = device_busy(fn)
+        busy[name] = {"device_ms": ms, "top": top}
+        log(f"profile {name}: device busy {ms:.3f} ms, idle "
+            f"{1.0 - ms / e2e[name]:.1%} of the timed image; largest: "
+            f"{json.dumps([[round(t, 3), k[:60], n] for t, k, n in top])}")
+
+    args = k4_inputs(*nobands(SIZE), stars[SIZE])
+    bound, by, counts = k4_bound(args)
+    k4 = {"ms": cuda_ms(lambda: rescan_fused(*args, generator=cpu_gen)),
+          "plain_ms": cuda_ms(lambda: rescan_fused_reference(
+              *args, generator=dev_gen)),
+          "noise_free_ms": cuda_ms(lambda: rescan_fused(*args)),
+          "noise_free_plain_ms": cuda_ms(lambda: rescan_fused_reference(
+              *args)),
+          "bound_ms": bound, "bound_by": by,
+          "noise_free_bound_ms": k4_bound(args, noisy=False)[0], **counts}
+    k4["device_ms"] = device_busy(
+        lambda: rescan_fused(*args, generator=cpu_gen))[0]
+    log(f"time rescan_fused {json.dumps(k4)}")
+
+    canvas, frames, offsets = k5_inputs(dev)
+    n, h, w = frames.shape
+    cols = _cols(offsets, w, canvas.shape[1]).reshape(-1)
+    src = frames.permute(1, 0, 2).reshape(h, n * w).contiguous()
+    target = canvas.clone()
+    k5 = {"ms": cuda_ms(lambda: rescan_accumulate(canvas, frames, offsets)),
+          "plain_ms": cuda_ms(lambda: rescan_accumulate_reference(
+              canvas, frames, offsets)),
+          "library_ms": cuda_ms(lambda: target.index_add_(1, cols, src)),
+          "shape": [n, h, w, canvas.shape[1]]}
+    k5["bound_ms"], k5["bound_by"] = roofline(
+        float(n * h * w), 4 * (n * h * w + 2 * canvas.numel()))
+    k5["device_ms"] = device_busy(
+        lambda: rescan_accumulate(canvas, frames, offsets))[0]
+    log(f"time rescan_accumulate {json.dumps(k5)}")
+
+    hybrid = caller_frames(rescan, runs["nobands_512_subpixel"][0])
+    k2b = sampler_times(hybrid, cpu_gen, dev_gen, poisson_rows_tiered)
+    log(f"time poisson_rows_tiered on nobands_512_subpixel's frames "
+        f"{json.dumps(k2b)}")
+    return {"e2e": e2e, "busy": busy, "rescan_fused": k4,
+            "rescan_accumulate": k5, "k2b": k2b}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1160,6 +1583,10 @@ def main() -> int:
     paths.update(phase_descanned(dev))
     phase_route_parity(dev)
     desc = phase_times_descanned(dev, times["rescan_banded_fused"])
+    k4_err = phase_k4(dev)
+    k5_err = phase_k5(dev)
+    paths.update(phase_nobands(dev))
+    nob = phase_times_nobands(dev)
     log(f"after timing: {clocks()}")
     log(f"smoke run took {time.time() - t0:.1f} s after the card was named")
 
@@ -1209,12 +1636,31 @@ def main() -> int:
          "err_kind": "counts against the host reference on the same "
                      "Philox stream, rates below the bright tier",
          **desc["poisson_rows_tiered"]["line_2048"],
-         "callers": desc["poisson_rows_tiered"],
+         "callers": {**desc["poisson_rows_tiered"],
+                     "nobands_512_subpixel": nob["k2b"]},
          "flagship_canvas": times["poisson_rows_tiered"]})
+    for name, replaces, path, err in (
+            ("rescan_fused",
+             "rescan_line_sted_tpu/kernels/rescan_fused.py:102",
+             "nobands_2048", k4_err),
+            ("rescan_accumulate",
+             "rescan_line_sted_tpu/kernels/rescan_accumulate.py:104",
+             "nobands_512_scatter", k5_err)):
+        on = launched(name)
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": f"rescan_line_sted_torch/csrc/{name}.cu",
+             "replaces": replaces, "path": path, "paths": on,
+             "launches": sum(on.values()), "max_abs_err": err["abs"],
+             "max_rel_err": err["rel"],
+             "err_kind": "noise-free, against the plain version",
+             "library_ms": None, **nob[name]})
     log(json.dumps({"k2a_in_k1": desc["k2a"]}))
+    busy = {**desc["busy"], **nob["busy"]}
     log(json.dumps({"device_busy_ms": {k: v["device_ms"]
-                                       for k, v in desc["busy"].items()}}))
-    log(json.dumps({"e2e_per_step_ms": {**times["e2e"], **desc["e2e"]}}))
+                                       for k, v in busy.items()}}))
+    log(json.dumps({"e2e_per_step_ms": {**times["e2e"], **desc["e2e"],
+                                        **nob["e2e"]}}))
     log(json.dumps({"kernels": kernels}))
     log(name_power)
     print(json.dumps({"ok": True, "device": {

@@ -105,17 +105,15 @@ static __device__ __noinline__ float sample_poisson_at(float lam,
   return sample_poisson(lam, u);
 }
 
-// Tiered draws for N elements per lane, in place: element i of this lane
-// has global index index0 + i and single-draw uniform u[i] (single_draw;
-// the Bernoulli and inversion tiers use it, and callers may draw it for
-// four elements at once). ONE tier serves all 32 x N rates of the warp: it
-// comes from their max, so EVERY lane of the warp must call this; lanes
-// without elements pass rates of 0.
-template <int N>
-static __device__ __forceinline__ void poisson_tiered(float (&lam)[N],
-                                                      const float (&u)[N],
-                                                      unsigned long long index0,
-                                                      uint2 key) {
+// K2a's tier ladder for N elements per lane, in place: element i of this
+// lane has global index index_of(i) and single-draw uniform uniform_of(i)
+// (single_draw of that index; asked only where the tier needs it). ONE
+// tier serves all 32 x N rates of the warp: it comes from their max, so
+// EVERY lane of the warp must call this; lanes without elements pass
+// rates of 0.
+template <int N, typename Uniform, typename Index>
+static __device__ __forceinline__ void tiered(float (&lam)[N], Uniform uniform_of,
+                                              Index index_of, uint2 key) {
   uint32_t mxb = 0u;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -129,25 +127,43 @@ static __device__ __forceinline__ void poisson_tiered(float (&lam)[N],
 #pragma unroll
     for (int i = 0; i < N; ++i) lam[i] = 0.0f;
   } else if (mxb > 0x7f800000u || mx >= kCut) {
-    for (int i = 0; i < N; ++i) lam[i] = sample_poisson_at(lam[i], index0 + i, key);
+    for (int i = 0; i < N; ++i) lam[i] = sample_poisson_at(lam[i], index_of(i), key);
   } else if (mx < 1e-3f) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) lam[i] = u[i] < lam[i] ? 1.0f : 0.0f;
+    for (int i = 0; i < N; ++i) lam[i] = uniform_of(i) < lam[i] ? 1.0f : 0.0f;
   } else if (mx < 0.1f) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) lam[i] = inversion<3>(u[i], lam[i]);
+    for (int i = 0; i < N; ++i) lam[i] = inversion<3>(uniform_of(i), lam[i]);
   } else if (mx < 0.33f) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) lam[i] = inversion<4>(u[i], lam[i]);
+    for (int i = 0; i < N; ++i) lam[i] = inversion<4>(uniform_of(i), lam[i]);
   } else if (mx < 0.85f) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) lam[i] = inversion<6>(u[i], lam[i]);
+    for (int i = 0; i < N; ++i) lam[i] = inversion<6>(uniform_of(i), lam[i]);
   } else if (mx < 1.5f) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) lam[i] = inversion<8>(u[i], lam[i]);
+    for (int i = 0; i < N; ++i) lam[i] = inversion<8>(uniform_of(i), lam[i]);
   } else {
-    for (int i = 0; i < N; ++i) lam[i] = inversion<24>(u[i], lam[i]);
+    for (int i = 0; i < N; ++i) lam[i] = inversion<24>(uniform_of(i), lam[i]);
   }
+}
+
+// The ladder for N elements of consecutive indices index0 + i whose
+// uniforms u the caller drew (it may draw four from one Philox block).
+template <int N>
+static __device__ __forceinline__ void poisson_tiered(float (&lam)[N],
+                                                      const float (&u)[N],
+                                                      unsigned long long index0,
+                                                      uint2 key) {
+  tiered(lam, [&](int i) { return u[i]; }, [&](int i) { return index0 + i; }, key);
+}
+
+// The ladder for N elements of any indices index_of(i), each drawing its
+// uniform from the single-draw stream.
+template <int N, typename Index>
+static __device__ __forceinline__ void poisson_tiered_at(float (&lam)[N], Index index_of,
+                                                         uint2 key) {
+  tiered(lam, [&](int i) { return single_draw(index_of(i), key); }, index_of, key);
 }
 
 }  // namespace rls

@@ -99,7 +99,7 @@ def line_sted_image(
             slit_support=slit_support, device=sample.device)
         return dataclasses.replace(
             res, dose=line_sted_dose(params, geom, sample.device))
-    models.line_model(params)           # raises on an unported model
+    models.line_model(params)           # raises on a JAX package model
     if method == "analytic":
         k = analytic.line_system_kernel(geom.grid.shape, params,
                                         sample.device)

@@ -82,7 +82,7 @@ def point_sted_image(
             noise_mode=noise_mode, device=sample.device)
         return dataclasses.replace(
             res, dose=point_sted_dose(params, geom, sample.device))
-    models.point_model(params)          # raises on an unported model
+    models.point_model(params)          # raises on a JAX package model
     if method == "analytic":
         k = analytic.point_system_kernel(geom.grid.shape, params,
                                          sample.device)

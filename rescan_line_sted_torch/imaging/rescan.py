@@ -11,18 +11,42 @@ Methods:
 
 * ``"analytic"``: the closed-form canvas mean
   (``analytic.rescan_canvas_mean``) and one Poisson draw (K2c on the card).
-* ``"scan"``: the per-scan-position process on the banded route: the
-  y-convolution is hoisted out of the loop, then ONE call of the banded
-  fused scan (kernel K1 on the card) convolves, samples (``noise_mode=
-  "per_step"``) and places every frame. ``reassignment="rounded"`` snaps
-  each offset to the nearest binned canvas pixel; ``"subpixel"`` places a
-  rational step ``(R-1)/b = p/q`` (q <= 8, q | chunk) exactly through q
-  class canvases whose fractional residues are applied once per image as
-  spectral shifts, and any other step (irrational, or q > 8) through K1's
-  NUFFT spreading mode: each frame is spread by 8 exponential-of-semicircle
-  taps onto the two parity canvases of a 2x-oversampled grid, merged and
-  deconvolved once per image; ``"auto"`` picks subpixel exactly when
-  offsets are fractional.
+* ``"scan"``: the per-scan-position process. Where band windows exist
+  (``_illum_band``) it runs on the banded route: the y-convolution is
+  hoisted out of the loop, then ONE call of the banded fused scan (kernel
+  K1 on the card) convolves, samples (``noise_mode="per_step"``) and
+  places every frame. ``reassignment="rounded"`` snaps each offset to the
+  nearest binned canvas pixel; ``"subpixel"`` places a rational step
+  ``(R-1)/b = p/q`` (q <= 8, q | chunk) exactly through q class canvases
+  whose fractional residues are applied once per image as spectral shifts,
+  and any other step (irrational, or q > 8) through K1's NUFFT spreading
+  mode: each frame is spread by 8 exponential-of-semicircle taps onto the
+  two parity canvases of a 2x-oversampled grid, merged and deconvolved once
+  per image; ``"auto"`` picks subpixel exactly when offsets are fractional.
+
+Without band windows (a model whose excitation is not the Gaussian
+envelope, a frame no wider than the windows, a binning that misaligns
+them) the scan takes the JAX package's TPU routes (``_full_frame_scan``),
+whatever the device (a CUDA sample launches the kernels, a CPU one runs
+their plain versions):
+
+==========  =========  ============  ====================================
+placement   noise      use_pallas    route
+==========  =========  ============  ====================================
+rounded     per-step   None / True   K4 (``rescan_fused``), draws inside
+rounded     collapsed  True          K4 noise-free, then K2c
+rounded     per-step   False         frames, K2c per frame, K5 scatter
+subpixel    per-step   None / True   W-major frames, K2b, FFT placement
+subpixel    per-step   False         frames, K2c per frame, FFT placement
+any other   collapsed  (any)         FFT phase accumulation, then K2c
+==========  =========  ============  ====================================
+
+The frames of the non-K4 routes are the dense product ``emitted @
+circulant(gx)``; FFT placement adds each frame's rfft (zero-padded to the
+canvas) times its position's phase ramp ``exp(-2i pi k off / wc)`` (built
+in float64 on the host) and inverts once per image. The JAX gates
+``noisy_vmem_ok`` and ``fused_fits`` modelled the TPU's VMEM and 8-aligned
+placement; K4's own shared-memory limit replaces them.
 
 Subpixel placement spreads a camera pixel band-limitedly over the canvas:
 per-step subpixel canvases carry small negative excursions (sinc ringing
@@ -33,9 +57,8 @@ Boundaries: ``"circular"`` (the grid wraps), ``"padded"`` (acquire on a
 zero-padded grid and crop, ``imaging/boundary.py``) and ``"apodized"``
 (taper the sample's edges to zero).
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-open item): configurations without band windows (the full-frame kernel
-K4), custom illumination models, and row-sharded samples.
+Not ported yet: row-sharded samples (``NotImplementedError`` naming
+ROADMAP.md open item 12).
 """
 
 from __future__ import annotations
@@ -52,10 +75,16 @@ from rescan_line_sted_torch.imaging import analytic
 from rescan_line_sted_torch.imaging import boundary as boundaries
 from rescan_line_sted_torch.imaging.line_sted import effective_line_profile
 from rescan_line_sted_torch.imaging.point_sted import AcquisitionResult
+from rescan_line_sted_torch.imaging.shifts import shifted_profiles
 from rescan_line_sted_torch.kernels import fftconv
+from rescan_line_sted_torch.kernels.poisson import poisson_rows_tiered
+from rescan_line_sted_torch.kernels.rescan_accumulate import (
+    rescan_accumulate,
+)
 from rescan_line_sted_torch.kernels.rescan_banded_fused import (
     rescan_banded_fused,
 )
+from rescan_line_sted_torch.kernels.rescan_fused import rescan_fused
 from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.physics import psf as psfs
 from rescan_line_sted_torch.physics.dose import line_sted_dose
@@ -75,6 +104,7 @@ def rescanned_line_sted_image(
     boundary: str = "circular",
     margin: int | None = None,
     device=None,
+    use_pallas: bool | None = None,
 ) -> AcquisitionResult:
     """Simulate a full rescanned line-STED acquisition of ``sample`` [H, W].
 
@@ -89,7 +119,9 @@ def rescanned_line_sted_image(
     scan method (module doc). ``boundary``: "circular", "padded" (open
     boundary via pad-acquire-crop; the dose is reported for the requested
     field) or "apodized"; ``margin`` defaults to
-    ``boundary.default_margin(geom)``.
+    ``boundary.default_margin(geom)``. ``use_pallas`` selects among the
+    routes without band windows as the JAX argument does (module doc);
+    geometries with band windows always take K1.
     """
     if hasattr(sample, "device_mesh"):
         raise NotImplementedError(
@@ -107,16 +139,16 @@ def rescanned_line_sted_image(
             lambda s, g, **kw: rescanned_line_sted_image(s, params, g, **kw),
             sample, geom, margin, generator=generator, method=method,
             noise_mode=noise_mode, reassignment=reassignment,
-            device=sample.device)
+            device=sample.device, use_pallas=use_pallas)
         return dataclasses.replace(
             res, dose=line_sted_dose(params, geom, sample.device))
-    models.line_model(params)           # raises on an unported model
+    models.line_model(params)           # raises on a JAX package model
     if method == "analytic":
         image = maybe_poisson(
             generator, analytic.rescan_canvas_mean(sample, params, geom))
     elif method == "scan":
         image = _scan(sample, params, geom, generator, noise_mode,
-                      reassignment)
+                      reassignment, use_pallas)
     else:
         raise ValueError(f"unknown method {method!r}")
     return AcquisitionResult(
@@ -328,6 +360,17 @@ def _illum_band(params, w: int, chunk: int,
     return (d_in, d_out)
 
 
+def _resolve_reassignment(geom, reassignment: str) -> str:
+    """``reassignment`` with "auto" resolved: rounded exactly when every
+    offset ``(R-1) x0 / b`` is integral."""
+    if reassignment not in ("auto", "rounded", "subpixel"):
+        raise ValueError(f"unknown reassignment {reassignment!r}")
+    if reassignment == "auto":
+        step = (float(geom.rescan_factor) - 1.0) / geom.binning
+        return "rounded" if abs(step - round(step)) < 1e-9 else "subpixel"
+    return reassignment
+
+
 def _banded_inputs(sample, params, geom, reassignment="auto"):
     """Arguments of the banded fused scan for this acquisition, and the
     epilogue that turns its folded canvases into the image.
@@ -336,11 +379,10 @@ def _banded_inputs(sample, params, geom, reassignment="auto"):
     **kwargs, generator=...))`` is the ``[H/b, wc]`` canvas. Integer and
     rational steps place through classes (``_apply_class_residues``); any
     other subpixel step through K1's NUFFT spreading mode
-    (``_apply_nufft_deconv``). Raises ``NotImplementedError`` where the
-    banded route does not apply.
+    (``_apply_nufft_deconv``). Returns None where the banded route does not
+    apply (no band windows, or windows that do not fit the canvas).
     """
-    if reassignment not in ("auto", "rounded", "subpixel"):
-        raise ValueError(f"unknown reassignment {reassignment!r}")
+    reassignment = _resolve_reassignment(geom, reassignment)
     h, w = geom.grid.shape
     b = geom.binning
     chunk = geom.chunk
@@ -349,10 +391,6 @@ def _banded_inputs(sample, params, geom, reassignment="auto"):
     hc, wc = geom.canvas_shape
     dev = sample.device
     step = (float(geom.rescan_factor) - 1.0) / b
-    if reassignment == "auto":
-        reassignment = "rounded" if abs(step - round(step)) < 1e-9 \
-            else "subpixel"
-
     if reassignment == "rounded":
         pq = (None, 1)                     # round() is integral for any R
     else:
@@ -361,10 +399,7 @@ def _banded_inputs(sample, params, geom, reassignment="auto"):
     windowed = _illum_band(params, w, chunk, b)
     if (windowed is None or windowed[1] is None or chunk % 8
             or (windowed[1] // b + tail + 7) // 8 * 8 + 8 > wc):
-        raise NotImplementedError(
-            "this geometry has no banded route (band windows missing or "
-            "misaligned); the full-frame engine K4 is not ported yet "
-            "(ROADMAP.md open item 6.3)")
+        return None
     d_in, d_out = windowed
 
     eff = effective_line_profile(w, params, dev)
@@ -403,13 +438,89 @@ def _banded_inputs(sample, params, geom, reassignment="auto"):
 
 
 def _scan(sample, params, geom, generator, noise_mode="collapsed",
-          reassignment="auto"):
+          reassignment="auto", use_pallas=None):
     if noise_mode not in ("collapsed", "per_step"):
         raise ValueError(f"unknown noise_mode {noise_mode!r}")
     per_step = generator is not None and noise_mode == "per_step"
-    args, kwargs, finish = _banded_inputs(sample, params, geom, reassignment)
-    canvas = finish(rescan_banded_fused(
-        *args, **kwargs, generator=generator if per_step else None))
+    banded = _banded_inputs(sample, params, geom, reassignment)
+    if banded is not None:
+        args, kwargs, finish = banded
+        canvas = finish(rescan_banded_fused(
+            *args, **kwargs, generator=generator if per_step else None))
+    else:
+        canvas = _full_frame_scan(
+            sample, params, geom, generator if per_step else None,
+            _resolve_reassignment(geom, reassignment), use_pallas)
     if generator is not None and not per_step:
         canvas = maybe_poisson(generator, canvas)
     return canvas
+
+
+def _full_frame_scan(sample, params, geom, generator, reassignment,
+                     use_pallas):
+    """The scan without band windows (module doc's table): kernel K4 for
+    rounded placement with per-step noise or ``use_pallas=True``; else
+    per-chunk frames ``emitted @ circulant(gx)``, sampled per frame when
+    ``generator`` is given (K2b on W-major frames for subpixel placement
+    unless ``use_pallas=False``, else K2c) and placed by the K5 scatter
+    (rounded, per-step) or by FFT phase accumulation. Returns the canvas
+    ``[H/b, wc]`` (noise-free when ``generator`` is None)."""
+    h, w = geom.grid.shape
+    b, chunk = geom.binning, geom.chunk
+    if w % chunk:
+        raise ValueError("chunk must divide width")
+    hc, wc = geom.canvas_shape
+    dev = sample.device
+    per_step = generator is not None
+    subpixel = reassignment == "subpixel"
+    eff_b = params.brightness * effective_line_profile(w, params, dev)
+    gx = psfs.detection_profile(w, params.sigma_det, dev)
+    otf_y = fftconv.profile_to_otf1d(
+        psfs.detection_profile(h, params.sigma_det, dev))
+    sample_y = fftconv.convolve_otf1d(sample, otf_y, axis=-2, n=h)
+    r1 = float(geom.rescan_factor) - 1.0
+
+    def rounded(pos):                  # jnp.round: half to even, in f32
+        return torch.round(r1 * pos / b).to(torch.int32)
+
+    if not subpixel and (use_pallas is True
+                         or (per_step and use_pallas is None)):
+        offsets = rounded(torch.arange(w, device=dev))
+        return rescan_fused(sample_y.contiguous(), eff_b, gx, offsets, wc,
+                            b, generator)
+
+    gx_mat = fftconv.circulant_matrix(gx)          # cam = emitted @ gx_mat
+    w_major = per_step and subpixel and use_pallas is not False
+    scatter = per_step and not subpixel
+    if scatter:
+        canvas = torch.zeros((hc, wc), dtype=torch.float32, device=dev)
+    else:
+        offs = r1 * np.arange(w, dtype=np.float64) / b
+        if not subpixel:
+            offs = np.round(offs)
+        ph = analytic._np_phases(offs[:, None] * np.arange(wc // 2 + 1)[None]
+                                 / wc, dev)                       # [W, K]
+        spec = torch.zeros((hc, wc // 2 + 1), dtype=torch.complex64,
+                           device=dev)
+    for p0 in range(0, w, chunk):
+        pos = torch.arange(p0, p0 + chunk, device=dev)
+        ill = shifted_profiles(eff_b, pos)                       # [C, W]
+        if w_major:
+            emitted_t = ill[:, :, None] * sample_y.T[None]       # [C, W, H]
+            frames_t = poisson_rows_tiered(           # [C, W/b, H/b]
+                _rebin(gx_mat.T @ emitted_t, b).contiguous(), generator)
+            spec += torch.einsum("ckh,ck->hk",
+                                 torch.fft.rfft(frames_t, n=wc, dim=1),
+                                 ph[p0:p0 + chunk])
+            continue
+        frames = maybe_poisson(generator, _rebin(      # [C, H/b, W/b]
+            (ill[:, None, :] * sample_y[None]) @ gx_mat, b))
+        if scatter:
+            canvas = rescan_accumulate(canvas, frames, rounded(pos))
+        else:
+            spec += torch.einsum("chk,ck->hk",
+                                 torch.fft.rfft(frames, n=wc, dim=-1),
+                                 ph[p0:p0 + chunk])
+    if scatter:
+        return canvas
+    return torch.fft.irfft(spec, n=wc, dim=-1)

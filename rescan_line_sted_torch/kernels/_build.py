@@ -34,7 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"rescan_banded_fused": 0, "rescan_banded_fused_spread": 0,
             "rescan_banded_fused_wide": 0,
             "rescan_banded_fused_spread_wide": 0,
-            "poisson_rows_tiered": 0, "poisson_flat": 0, "line_sted_fused": 0}
+            "poisson_rows_tiered": 0, "poisson_flat": 0, "line_sted_fused": 0,
+            "rescan_fused": 0, "rescan_accumulate": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +49,9 @@ _SIGNATURES = {
                                                     ctypes.POINTER(_I)],
     "rls_line_sted_fused": [_P] * 6 + [_I] * 7 + [_U, _U, _P,
                                                   ctypes.POINTER(_I)],
+    "rls_rescan_fused": [_P] * 5 + [_I] * 9 + [_U, _U, _P,
+                                               ctypes.POINTER(_I)],
+    "rls_rescan_accumulate": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lib = None

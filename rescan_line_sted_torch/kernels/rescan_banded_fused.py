@@ -240,8 +240,8 @@ def rescan_banded_fused(
         raise NotImplementedError(
             f"band windows d_in={d_in}, d_out={d_out} at chunk {chunk} "
             "exceed the card's shared memory per block even with the "
-            "detection factor kept as its Toeplitz generator; the full-frame "
-            "engine K4 is not ported yet (ROADMAP.md open item 6.3)")
+            "detection factor kept as its Toeplitz generator (ROADMAP.md "
+            "open item 6.3)")
     name = "rescan_banded_fused" + ("_spread" if n_spread else "") + (
         "_wide" if variant.value == 1 else "")
     _build.LAUNCHES[name] += 1

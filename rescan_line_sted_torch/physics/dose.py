@@ -49,9 +49,8 @@ def _report(exc, dep, params, geom, device) -> DoseReport:
 def line_sted_dose(params, geom, device=None) -> DoseReport:
     """Dose ledger of a line scan over all ``geom.grid.width`` columns."""
     w = geom.grid.width
-    m = models.line_model(params)
-    return _report(m.excitation(w, params, device),
-                   m.depletion(w, params, device), params, geom, device)
+    return _report(*models.profiles(models.line_model(params), w, params,
+                                    device), params, geom, device)
 
 
 def point_sted_dose(params, geom, device=None) -> DoseReport:
@@ -59,6 +58,5 @@ def point_sted_dose(params, geom, device=None) -> DoseReport:
     pixel receives ``sum(exc_psf)`` excitation and ``s * sum(dep_psf)``
     depletion."""
     shape = geom.grid.shape
-    m = models.point_model(params)
-    return _report(m.excitation(shape, params, device),
-                   m.depletion(shape, params, device), params, geom, device)
+    return _report(*models.profiles(models.point_model(params), shape,
+                                    params, device), params, geom, device)

@@ -376,3 +376,212 @@ def test_descanned_routes_on_card(cuda, case, kernel):
             got = image(s.numpy(), params, geom, method=method,
                         boundary=boundary, **kw).image
             assert got.is_cuda and _rel(got, want) <= 1e-5
+
+
+# ---- K4 (full-frame fused rescan scan) and K5 (scatter-add) ---------------
+
+def _k4_inputs(h, w, device, run=None, roll=0, seed=9):
+    """A ramped sample, a narrow eff and gx (short tap runs) or, with
+    ``run="full"``, profiles without zeros; ``roll`` moves both off centre
+    so their runs wrap past the last index."""
+    g = torch.Generator().manual_seed(seed)
+    ramp = torch.linspace(0.2, 2.0, w)[None, :]
+    s = torch.rand((h, w), generator=g) * ramp
+    if run == "full":
+        eff = 0.5 + torch.rand(w, generator=g)
+        gx = 0.5 + torch.rand(w, generator=g)
+        gx = gx / gx.sum()
+    else:
+        eff = 40.0 * _profile(w, 3.0, "cpu")
+        gx = _profile(w, 2.0, "cpu")
+        gx = gx / gx.sum()
+    return (s.to(device), eff.roll(roll).to(device), gx.roll(roll).to(device))
+
+
+@pytest.mark.parametrize("h,w,b,rf,run,roll", [
+    (64, 256, 1, 2.0, None, 0), (64, 256, 2, 3.0, None, 0),
+    (48, 200, 2, 2.0, None, 90), (40, 96, 1, 1.5, "full", 0),
+    (24, 64, 2, 2.0, "full", 0), (30, 96, 3, 2.0, None, 0),
+    (16, 512, 1, 1.25, None, 230)])
+def test_rescan_fused_matches_plain(cuda, h, w, b, rf, run, roll):
+    """K4 against its plain version, noise-free: rounded offsets (random
+    ones too, wrapping), binning, a tap run that wraps, a full-width run,
+    ragged CTA row tiles."""
+    from rescan_line_sted_torch.kernels.rescan_fused import (
+        _run, rescan_fused, rescan_fused_reference)
+
+    s, eff, gx = _k4_inputs(h, w, cuda, run, roll)
+    wc = int(round(rf * w)) // b
+    pos = torch.arange(w, device=cuda)
+    if roll:
+        e0, ne = _run(eff)
+        assert e0 + ne > w                       # the eff run wraps
+    for offsets in (torch.round((rf - 1.0) * pos / b).int(),
+                    torch.randint(-3 * wc, 3 * wc, (w,),
+                                  generator=torch.Generator().manual_seed(1)
+                                  ).to(cuda)):
+        want = rescan_fused_reference(s, eff, gx, offsets, wc, b)
+        before = _build.LAUNCHES["rescan_fused"]
+        got = rescan_fused(s, eff, gx, offsets, wc, b)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["rescan_fused"] == before + 1
+        assert got.shape == (h // b, wc) and _rel(got, want) <= 1e-5
+
+
+def test_rescan_fused_nonfinite_and_negative(cuda):
+    """Negative samples give negative noise-free frames (as the plain
+    version) and clamp to 0 when drawn; a NaN sample reaches only canvas
+    elements the plain version also gives NaN, and no finite one differs."""
+    from rescan_line_sted_torch.kernels.rescan_fused import (
+        rescan_fused, rescan_fused_reference)
+
+    s, eff, gx = _k4_inputs(32, 128, cuda)
+    s = s - 0.6
+    offs = torch.arange(128, device=cuda).int()
+    want = rescan_fused_reference(s, eff, gx, offs, 256)
+    got = rescan_fused(s, eff, gx, offs, 256)
+    assert float(want.min()) < 0 and _rel(got, want) <= 1e-5
+    noisy = rescan_fused(s, eff, gx, offs, 256,
+                         generator=torch.Generator().manual_seed(2))
+    assert (noisy >= 0).all() and torch.equal(noisy, noisy.round())
+    s[5, 40] = float("nan")
+    want = rescan_fused_reference(s, eff, gx, offs, 256)
+    got = rescan_fused(s, eff, gx, offs, 256)
+    nan_got, nan_want = torch.isnan(got), torch.isnan(want)
+    assert nan_got.any() and not (nan_got & ~nan_want).any()
+    fin = ~nan_want
+    assert _rel(got[fin], want[fin]) <= 1e-5
+    noisy = rescan_fused(s, eff, gx, offs, 256,
+                         generator=torch.Generator().manual_seed(2))
+    assert torch.equal(torch.isnan(noisy), nan_got)
+
+
+def test_rescan_fused_draws(cuda):
+    """K4's per-frame draws at 256^2 over 16 seeds: totals within 5 sigma,
+    the seed-mean matches the noise-free canvas and the per-pixel variance
+    its mean (R = 2 places each binned pixel whole, so every canvas pixel
+    is Poisson); the same seed gives the same canvas."""
+    from rescan_line_sted_torch.kernels.rescan_fused import rescan_fused
+
+    s, eff, gx = _k4_inputs(256, 256, cuda)
+    s = 3.0 * s
+    offs = torch.arange(256, device=cuda).int()
+    mean = rescan_fused(s, eff, gx, offs, 512)
+    draws = torch.stack([rescan_fused(
+        s, eff, gx, offs, 512, generator=torch.Generator().manual_seed(k))
+        for k in range(16)]).double()
+    assert torch.equal(draws, draws.round()) and (draws >= 0).all()
+    mu = float(mean.double().sum())
+    assert float((draws.sum((1, 2)) - mu).abs().max()) <= 5 * np.sqrt(mu)
+    sel = mean > 20.0
+    rel = (draws.mean(0)[sel] - mean[sel]).abs().mean() / mean[sel].mean()
+    ratio = (draws.var(0)[sel] / mean[sel]).mean()
+    assert rel < 0.03 and 0.9 < float(ratio) < 1.1
+    again = rescan_fused(s, eff, gx, offs, 512,
+                         generator=torch.Generator().manual_seed(0))
+    assert torch.equal(again.double(), draws[0])
+    assert not torch.equal(draws[0], draws[1])
+    # scattered offsets: each position placed on its own (no canvas strip)
+    offs = torch.randperm(512, generator=torch.Generator().manual_seed(3))[
+        :256].int().to(cuda)
+    mu = float(rescan_fused(s, eff, gx, offs, 512).double().sum())
+    noisy = [rescan_fused(s, eff, gx, offs, 512,
+                          generator=torch.Generator().manual_seed(k))
+             for k in (5, 5)]
+    assert torch.equal(noisy[0], noisy[1])
+    assert torch.equal(noisy[0], noisy[0].round()) and (noisy[0] >= 0).all()
+    assert abs(float(noisy[0].double().sum()) - mu) <= 5 * np.sqrt(mu)
+
+
+def test_rescan_fused_limits(cuda):
+    """Tap runs whose convolution overflows a block's shared memory even
+    at one canvas row per block (a flat excitation 4096 columns wide)
+    raise and name the limit; a sample K4 cannot read raises too."""
+    from rescan_line_sted_torch.kernels.rescan_fused import rescan_fused
+
+    s, eff, gx = _k4_inputs(8, 4096, cuda, run="full")
+    with pytest.raises(ValueError, match="shared memory"):
+        rescan_fused(s, eff, gx, torch.arange(4096, device=cuda), 8192)
+    s, eff, gx = _k4_inputs(8, 64, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        rescan_fused(s.double(), eff, gx, torch.arange(64, device=cuda), 128)
+
+
+@pytest.mark.parametrize("n,h,w,wc", [
+    (32, 64, 128, 256), (20, 16, 64, 64), (8, 24, 100, 40), (5, 8, 300, 37)])
+def test_rescan_accumulate_matches_plain(cuda, n, h, w, wc):
+    """K5 against its plain version: duplicate offsets, offsets beyond the
+    canvas and negative ones, frames as wide as the canvas and wider (w >
+    wc: heavy wrap, where the TPU wrapper gave way to XLA)."""
+    from rescan_line_sted_torch.kernels.rescan_accumulate import (
+        rescan_accumulate, rescan_accumulate_reference)
+
+    g = torch.Generator().manual_seed(n)
+    canvas = torch.rand((h, wc), generator=g).to(cuda)
+    frames = torch.rand((n, h, w), generator=g).to(cuda)
+    offsets = torch.randint(-2 * wc, 3 * wc, (n,), generator=g)
+    offsets[1] = offsets[0]                      # a duplicate
+    offsets = offsets.to(cuda)
+    want = rescan_accumulate_reference(canvas, frames, offsets)
+    before = _build.LAUNCHES["rescan_accumulate"]
+    got = rescan_accumulate(canvas, frames, offsets)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["rescan_accumulate"] == before + 1
+    assert got.shape == (h, wc) and _rel(got, want) <= 1e-5
+    assert torch.equal(got, rescan_accumulate(canvas, frames, offsets))
+
+
+class _WideExcModel:
+    """No ``gaussian_excitation``: a flat excitation (full tap run)."""
+
+    def excitation(self, width, params, device=None):
+        return torch.ones(width, device=device)
+
+    def depletion(self, width, params, device=None):
+        return torch.zeros(width, device=device)
+
+
+# (rf, b, use_pallas, kernel): the kernel each per-step route must launch
+NO_BAND_ROUTES = [
+    (2.0, 1, None, "rescan_fused"), (3.0, 2, True, "rescan_fused"),
+    (2.0, 1, False, "rescan_accumulate"),
+    (1.5, 1, None, "poisson_rows_tiered"), (1.5, 2, False, "poisson_flat"),
+    (1.0 + np.pi / 16, 1, True, "poisson_rows_tiered")]
+
+
+@pytest.mark.parametrize("rf,b,use_pallas,kernel", NO_BAND_ROUTES)
+def test_no_band_routes_on_card(cuda, rf, b, use_pallas, kernel):
+    """Each route without band windows launches its kernels on CUDA
+    tensors and matches the CPU noise-free; collapsed noise launches K2c
+    (after K4 with use_pallas=True)."""
+    params = T.RescanParams.create(sigma_exc=2.0, sigma_det=2.0,
+                                   stripe_period=8.0, depletion=4.0,
+                                   brightness=40.0, model=_WideExcModel())
+    geom = T.RescanGeometry(T.Grid(64, 96), rescan_factor=rf, binning=b,
+                            chunk=16)
+    s = torch.rand((64, 96), generator=torch.Generator().manual_seed(4))
+    _build.reset_launches()
+    img = T.rescanned_line_sted_image(
+        s, params, geom, torch.Generator().manual_seed(1), method="scan",
+        noise_mode="per_step", use_pallas=use_pallas).image
+    torch.cuda.synchronize()
+    launched = {k for k, v in _build.LAUNCHES.items() if v}
+    want = {kernel} | ({"poisson_flat"} if kernel == "rescan_accumulate"
+                       else set())
+    assert launched == want, launched
+    for up in (use_pallas, True, False):
+        got = T.rescanned_line_sted_image(s, params, geom, method="scan",
+                                          use_pallas=up).image
+        ref = T.rescanned_line_sted_image(s, params, geom, method="scan",
+                                          use_pallas=up, device="cpu").image
+        assert got.is_cuda and _rel(got, ref) <= 1e-5
+    ref = float(T.rescanned_line_sted_image(
+        s, params, geom, method="scan", device="cpu").image.double().sum())
+    assert abs(float(img.double().sum()) - ref) <= 5 * np.sqrt(ref)
+    _build.reset_launches()
+    T.rescanned_line_sted_image(s, params, geom,
+                                torch.Generator().manual_seed(2),
+                                method="scan", use_pallas=True)
+    want = {"poisson_flat"} | ({"rescan_fused"} if (rf - 1) / b % 1 == 0
+                               else set())
+    assert {k for k, v in _build.LAUNCHES.items() if v} == want

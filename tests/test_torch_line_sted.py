@@ -24,6 +24,7 @@ import rescan_line_sted_tpu as J
 from rescan_line_sted_torch.imaging import line_sted as tline
 from rescan_line_sted_torch.kernels import fftconv as tfft
 from rescan_line_sted_torch.kernels import line_fused as tfused
+from rescan_line_sted_torch.physics import models as tmodels
 from rescan_line_sted_torch.physics import psf as tpsf
 from rescan_line_sted_tpu.imaging import analytic as janalytic
 from rescan_line_sted_tpu.imaging import line_sted as jline
@@ -297,9 +298,16 @@ def test_arguments_and_devices(monkeypatch):
     with pytest.raises(ValueError, match="chunk"):
         T.line_sted_image(s, tp, T.LineSTEDGeometry(T.Grid(24, 64), chunk=24),
                           method="scan", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="params_from_jax"):
         T.line_sted_image(s, dataclasses.replace(
             tp, model=jmodels.EnvelopedStripeModel()), tg, device="cpu")
+    # the port's own model of that class runs, as the JAX package's does
+    jp = J.LineSTEDParams.create(**KW, model=jmodels.EnvelopedStripeModel())
+    got = T.line_sted_image(s, dataclasses.replace(
+        tp, model=tmodels.EnvelopedStripeModel()), tg, device="cpu").image
+    want = J.imaging.line_sted_image(
+        jnp.asarray(s), jp, J.LineSTEDGeometry(J.Grid(24, 64), chunk=16))
+    assert _rel(got, want.image) <= 1e-5
     got = T.line_sted_image(s.astype(np.float64), tp, tg, device="cpu")
     assert got.image.dtype == torch.float32 and got.image.device.type == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

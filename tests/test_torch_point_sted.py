@@ -266,9 +266,16 @@ def test_arguments_and_devices(monkeypatch):
         T.point_sted_image(s, tp, T.PointSTEDGeometry(T.Grid(32, 32),
                                                       chunk=48),
                            method="scan", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="params_from_jax"):
         T.point_sted_image(s, dataclasses.replace(
             tp, model=jmodels.PupilDonutModel()), tg, device="cpu")
+    # the port's own model of that class runs, as the JAX package's does
+    jp = J.PointSTEDParams.create(**KW, model=jmodels.PupilDonutModel())
+    got = T.point_sted_image(s, dataclasses.replace(
+        tp, model=tmodels.PupilDonutModel()), tg, device="cpu").image
+    want = J.imaging.point_sted_image(
+        jnp.asarray(s), jp, J.PointSTEDGeometry(J.Grid(32, 32), chunk=16))
+    assert _rel(got, want.image) <= 1e-5
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         T.point_sted_image(s, tp, tg)
