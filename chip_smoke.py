@@ -78,7 +78,29 @@ sm_90a), then:
    against the analytic image; then times K4 against its plain version
    and ``k4_bound``, K5 against its plain version and ``index_add_``, K2b
    on the hybrid's frames, and each new path's image (CUDA events and one
-   profiler image).
+   profiler image);
+11. drives ``rescanned_point_sted_image`` (ISM, POINT_KW, depletion 8) on
+   each path, counters reset before and read after each: ism_2048 (2048^2,
+   R = 2, canvas [4096, 4096]: analytic, and K2c on it), ism_256
+   (``bench.py:395-410``: analytic, per-step scan with K2b once per chunk
+   of 64, 1024 chunks, collapsed scan), ism_256_b2 (b = 2), ism_128_subpixel
+   (R = 1.5) and padded / apodized at 256^2; every noisy total within 5
+   sigma; noise-free scan, each K2b route with its draws replaced by the
+   identity, and padded scan against their analytic canvases (relative L2
+   <= 1e-5), apodized scan and analytic totals; the 512^2 analytic canvas
+   (complex64 products on the card) against its complex128 closed form on
+   the host; CUDA-event image times and one profiler image per path; K2b
+   on ism_256's frames, timed and held count by count against its host
+   reference;
+12. holds each K6 microkernel (``csrc/primitives.cu``) against its plain
+   version on the inputs of its rate call, at the reps and constants of
+   ``primitives.CHECKS`` (where a kernel that ran another count of reps
+   fails), measures this card's primitive rates through
+   ``primitives.primitive_rates`` (counters reset before and read after),
+   times the sgemm rate call's products in cuBLAS, and prints the
+   composite bound (``primitives.composite_bound``) of K1 at the
+   flagship, K3 at line_2048 and K4 at nobands_2048 beside their
+   datasheet bounds, failing if a kernel runs under its composite.
 
 Prints one JSON line with the kernels, then the card, then the result line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -315,6 +337,49 @@ def k2b_draw_for_draw(dev) -> float:
               f"differ, max |u - F(k)| {gap}")
         worst = max(worst, float(diff.max()))
     return worst
+
+
+def k2b_frames_draw_for_draw(name: str, frames: torch.Tensor) -> dict:
+    """K2b against its host reference on a caller's frames (rates varying
+    over the frame, per-warp tiers), count by count under one key, on
+    every warp of 32 adjacent columns below the bright cut (a bright warp
+    draws Knuth / PTRS, which the host reference does not cover). As in
+    ``k2b_draw_for_draw``, a count may differ by one only where its
+    uniform sits within 1e-6 of a CDF value at its own rate, at most 16
+    per 2^20 elements."""
+    from scipy import stats
+
+    from rescan_line_sted_torch.kernels import _build
+    from rescan_line_sted_torch.kernels.poisson import (
+        _CUT, poisson_rows_tiered, poisson_rows_tiered_reference,
+        single_draw_uniforms)
+
+    cols = frames.shape[-1]
+    lam = frames.detach().float().cpu().clamp_min(0).reshape(-1, cols)
+    got = poisson_rows_tiered(frames.contiguous(),
+                              torch.Generator().manual_seed(41)).cpu()
+    key = _build.seeds_from(torch.Generator().manual_seed(41))
+    warp_max = torch.nn.functional.pad(lam, (0, -cols % 32)).reshape(
+        lam.shape[0], -1, 32).amax(-1)
+    bright = (warp_max >= _CUT).repeat_interleave(32, 1)[:, :cols]
+    want = poisson_rows_tiered_reference(torch.where(bright, 0.0, lam), key)
+    diff = torch.where(bright, 0.0, (got.reshape(lam.shape) - want).abs())
+    bad = torch.nonzero(diff.reshape(-1)).flatten().numpy()
+    gap = 0.0
+    if bad.size:
+        u = single_draw_uniforms(lam.numel(), key)[bad].astype(np.float64)
+        rate = lam.reshape(-1)[bad].double().numpy()
+        cdf = stats.poisson.cdf(np.arange(32)[None, :], rate[:, None])
+        gap = float(np.abs(u[:, None] - cdf).min(axis=1).max())
+    res = {"shape": list(frames.shape), "compared": int((~bright).sum()),
+           "differ": int(bad.size), "max_abs_diff": float(diff.max()),
+           "max_gap": gap}
+    log(f"K2b vs host reference on {name}'s frames, count by count: "
+        f"{json.dumps(res)}")
+    check(res["compared"] > 0 and res["max_abs_diff"] <= 1
+          and bad.size <= 16 * max(1, lam.numel() >> 20) and gap <= 1e-6,
+          f"K2b vs host reference on {name}'s frames: {res}")
+    return res
 
 
 def k2b_seed_spread(dev) -> None:
@@ -763,20 +828,24 @@ def k3_bound(args, slit_support, noisy=True) -> tuple[float, str, dict]:
     and the image written once. Returns the counts too."""
     from rescan_line_sted_torch.kernels.line_fused import (
         _rows, _span, _taps, line_sted_fused_reference)
+    from rescan_line_sted_torch.kernels.primitives import knuth_counts
 
     s, eff, gx, slit = args
     h, w = s.shape
     i0, ws, _ = _rows(slit, w, slit_support)
     taps = _taps(eff, gx, i0, ws.size)
     blocks = 0
+    sampler = dict.fromkeys(("exps", "inv_terms", "knuth_rounds"), 0)
     for k in np.flatnonzero(ws) if noisy else []:
         row = torch.zeros_like(slit)         # frame row i0 + k alone, weight 1
         row[i0 + k] = 1.0
         lam = line_sted_fused_reference(s, eff, gx, row, slit_support=w)
         blocks += int((6 * ((lam > 0) & (lam < 10)) + 5 * (lam >= 10)).sum())
+        for key, v in knuth_counts(lam).items():
+            sampler[key] += v
     n = {"rows": int(ws.size), "run": _span(taps)[1],
          "taps": int(taps.sum()), "fma": int(taps.sum()) * h * w,
-         "philox_blocks": blocks}
+         "philox_blocks": blocks, **sampler}
     return (*roofline(2.0 * n["fma"] + PHILOX_OPS * blocks,
                       4 * (2 * h * w + 3 * w)), n)
 
@@ -1052,13 +1121,16 @@ def device_busy(fn) -> tuple[float, list]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = sorted(([e.self_device_time_total / 1e3, e.key, e.count]
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+    for _ in range(3):      # a short image's trace has come back empty once
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = sorted(([e.self_device_time_total / 1e3, e.key, e.count]
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA), reverse=True)
+        if rows:
+            break
     return sum(r[0] for r in rows), rows[:5]
 
 
@@ -1215,6 +1287,7 @@ def k4_bound(args, noisy=True) -> tuple[float, str, dict]:
     rate in (0, 10) (one single-draw uniform, four to a block), 5 blocks
     at 10 or above (PTRS), none at 0; PHILOX_OPS each. Bytes: the sample
     read and the canvas written once. Returns the counts too."""
+    from rescan_line_sted_torch.kernels.primitives import tiered_counts
     from rescan_line_sted_torch.kernels.rescan_fused import _run, _window
 
     s, eff, gx, offsets, wc, b = args
@@ -1223,10 +1296,13 @@ def k4_bound(args, noisy=True) -> tuple[float, str, dict]:
     n = {"eff_run": ne, "gx_run": ng,
          "eff_taps": int((eff != 0).sum()), "gx_taps": int((gx != 0).sum())}
     n["fma"] = n["eff_taps"] * n["gx_taps"] * h * w
+    l, hb = ne + ng - 1, h // b
+    lb = min(w // b, -(-(l + b - 1) // b))
+    n["placed"] = w * lb * hb           # frame window elements placed
     low = high = 0
+    sampler = dict.fromkeys(("uniforms", "exps", "inv_terms",
+                             "knuth_rounds"), 0)
     if noisy:                           # this run's binned rates (plain math)
-        l, hb = ne + ng - 1, h // b
-        lb = min(w // b, -(-(l + b - 1) // b))
         i = torch.arange(ne, device=s.device)
         k = torch.arange(l, device=s.device)[None, :] - i[:, None]
         band = torch.where((k >= 0) & (k < ng),
@@ -1242,7 +1318,10 @@ def k4_bound(args, noisy=True) -> tuple[float, str, dict]:
             fr.scatter_add_(2, xl[None].expand_as(run), run)
             low += int(((fr > 0) & (fr < 10)).sum())
             high += int((fr >= 10).sum())
+            for key, v in tiered_counts(fr).items():
+                sampler[key] += v
     n["drawn_low"], n["drawn_high"] = low, high
+    n.update(sampler)
     n["philox_blocks"] = low / 4 + 5 * high
     return (*roofline(2.0 * n["fma"] + PHILOX_OPS * n["philox_blocks"],
                       4 * (h * w + (h // b) * wc)), n)
@@ -1555,6 +1634,380 @@ def phase_times_nobands(dev) -> dict:
             "rescan_accumulate": k5, "k2b": k2b}
 
 
+# ---- rescanned point-STED (ISM): K2b's last caller, K2c -------------------
+
+ISM_SIZE = 256                                # bench.py:395-410
+
+
+def ism_setup(size, rescan_factor=2.0, binning=1, chunk=64):
+    from rescan_line_sted_torch import (
+        Grid, PointSTEDParams, RescanPointGeometry)
+
+    return (PointSTEDParams.create(depletion=8.0, **POINT_KW),
+            RescanPointGeometry(Grid(size, size), rescan_factor=rescan_factor,
+                                binning=binning, chunk=chunk))
+
+
+def zero_frame(sample, margin):
+    """``sample`` with a zeroed frame of ``margin`` pixels on every edge:
+    both axes of ISM reassign, so scan and closed form agree only there."""
+    out = torch.zeros_like(sample)
+    out[margin:-margin, margin:-margin] = sample[margin:-margin,
+                                                 margin:-margin]
+    return out
+
+
+def ism_closed_form_c128(sample, params, geom) -> np.ndarray:
+    """The b = 1 ISM closed form in complex128 on the host (numpy), from
+    the port's float32 PSFs: the reference for the card's complex64
+    products."""
+    from rescan_line_sted_torch.physics import models, psf
+
+    h, w = geom.grid.shape
+    hc, wc = geom.canvas_shape
+    r = float(geom.rescan_factor)
+    eff = models.effective_point_psf((h, w), params).double().numpy()
+    det = psf.detection_psf((h, w), params.sigma_det).double().numpy()
+    ky, kx = np.arange(hc), np.arange(wc // 2 + 1)
+    ay, ax = np.arange(h), np.arange(w)
+
+    def ph(theta):
+        return np.exp(-2j * np.pi * theta)
+
+    s_hat = (ph(ky[None] * r * ay[:, None] / hc).T
+             @ sample.double().cpu().numpy()) @ ph(kx[None] * r * ax[:, None]
+                                                   / wc)
+    e_hat = (ph(-ky[None] * (r - 1) * (ay - h // 2)[:, None] / hc).T @ eff) \
+        @ ph(-kx[None] * (r - 1) * (ax - w // 2)[:, None] / wc)
+    d_embed = np.zeros((hc, wc))
+    d_embed[:h, :w] = det
+    d_hat = np.fft.rfft2(d_embed) * ph(-ky * (h // 2) / hc)[:, None] \
+        * ph(-kx * (w // 2) / wc)[None, :]
+    return params.brightness * np.fft.irfft2(s_hat * e_hat * d_hat,
+                                             s=(hc, wc))
+
+
+def ism_path(name, sample, params, geom, per_step=1, collapsed=False):
+    """Drive one ISM path (noise-free analytic, a noisy analytic image, and
+    with ``per_step`` / ``collapsed`` that many per-step scans and a
+    collapsed one), counters reset before and read after; every noisy
+    total within 5 sigma of its mean. Returns the launch counts."""
+    from rescan_line_sted_torch import rescanned_point_sted_image as image
+
+    gen = torch.Generator().manual_seed(2027)
+
+    def run():
+        ana = image(sample, params, geom).image
+        imgs = {"analytic": image(sample, params, geom, gen).image}
+        clean = None
+        if per_step or collapsed:
+            clean = image(sample, params, geom, method="scan").image
+        for k in range(per_step):
+            imgs[f"per_step_{k}"] = image(
+                sample, params, geom, gen, method="scan",
+                noise_mode="per_step").image
+        if collapsed:
+            imgs["collapsed"] = image(sample, params, geom, gen,
+                                      method="scan").image
+        return ana, clean, imgs
+
+    (ana, clean, imgs), launches = drive(name, run)
+    for kind, img in imgs.items():
+        # per-step draws every (non-negative) frame element and placement
+        # keeps the sum; collapsed and analytic noise draw the clamped canvas
+        mean = (clean if kind.startswith("per_step") else
+                clean.clamp_min(0) if kind == "collapsed" else
+                ana.clamp_min(0))
+        mu = float(mean.double().sum())
+        t = float(img.double().sum())
+        log(f"{name} {kind}: canvas {tuple(img.shape)} total {t:.1f} vs "
+            f"mean {mu:.1f} ({(t - mu) / math.sqrt(mu):+.2f} sigma)")
+        check(img.shape == geom.canvas_shape and torch.isfinite(img).all()
+              and abs(t - mu) <= 5 * math.sqrt(mu),
+              f"{name} {kind}: noisy total {t} vs its mean {mu}")
+    chunks = geom.num_steps // geom.chunk
+    check(launches.get("poisson_rows_tiered", 0) == per_step * chunks,
+          f"{name}: K2b once per chunk of every per-step image: {launches}")
+    check(launches.get("poisson_flat", 0) == 1 + int(collapsed),
+          f"{name}: K2c once per analytic and collapsed image: {launches}")
+    return launches
+
+
+def ism_identity_routes(dev) -> dict:
+    """Each K2b route of the ISM scan with its draws replaced by the
+    identity, and the noise-free scan, against the analytic canvas on a
+    star with a zeroed frame (relative L2 <= 1e-5); padded scan against
+    padded analytic, apodized totals. Returns the errors."""
+    from rescan_line_sted_torch import rescanned_point_sted_image as image
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.imaging import rescan_point
+
+    errs = {}
+    orig = rescan_point.poisson_rows_tiered
+    for name, (size, rf, b) in {"ism_256": (ISM_SIZE, 2.0, 1),
+                                "ism_256_b2": (ISM_SIZE, 2.0, 2),
+                                "ism_128_subpixel": (128, 1.5, 1)}.items():
+        params, geom = ism_setup(size, rf, b)
+        star = zero_frame(siemens_star((size, size), device=dev), size // 8)
+        ana = image(star, params, geom).image
+        scan = image(star, params, geom, method="scan").image
+        rescan_point.poisson_rows_tiered = lambda lam, g: lam.clamp_min(0)
+        try:
+            ident = image(star, params, geom, torch.Generator().manual_seed(0),
+                          method="scan", noise_mode="per_step").image
+        finally:
+            rescan_point.poisson_rows_tiered = orig
+        errs[name] = {"scan": rel_l2(scan, ana), "identity": rel_l2(ident,
+                                                                    ana)}
+        log(f"{name}: noise-free scan vs analytic rel err "
+            f"{errs[name]['scan']:.3e}; per-step route, draws replaced by "
+            f"the identity, vs analytic {errs[name]['identity']:.3e}")
+        check(max(errs[name].values()) <= 1e-5,
+              f"{name} scan / identity route vs analytic: {errs[name]}")
+    params, geom = ism_setup(ISM_SIZE)
+    star = siemens_star((ISM_SIZE, ISM_SIZE), device=dev)
+    scan = image(star, params, geom, method="scan", boundary="padded").image
+    errs["padded"] = rel_l2(scan, image(star, params, geom,
+                                        boundary="padded").image)
+    log(f"ism_256 padded: scan vs analytic rel err {errs['padded']:.3e}, "
+        f"canvas {tuple(scan.shape)}")
+    check(scan.shape == geom.canvas_shape and errs["padded"] <= 1e-5,
+          f"ism_256 padded scan vs analytic: {errs['padded']}")
+    # the apodized sample still reaches within the PSF of the edges, so its
+    # circular scan and closed form differ at the seam; their totals agree
+    scan = image(star, params, geom, method="scan", boundary="apodized").image
+    ana = image(star, params, geom, boundary="apodized").image
+    errs["apodized_total"] = abs(float(scan.double().sum())
+                                 / float(ana.double().sum()) - 1.0)
+    log(f"ism_256 apodized: scan vs analytic rel err {rel_l2(scan, ana):.3e}, "
+        f"totals differ by {errs['apodized_total']:.2e} (relative)")
+    check(scan.shape == geom.canvas_shape and torch.isfinite(scan).all()
+          and errs["apodized_total"] <= 1e-5,
+          f"ism_256 apodized scan total off by {errs['apodized_total']}")
+    return errs
+
+
+def phase_ism(dev) -> dict:
+    """Every ISM path through ``rescanned_point_sted_image``: the full field
+    (ism_2048, analytic, K2c), ism_256 (analytic, per-step K2b: 1024 chunks
+    of 64, collapsed), ism_256_b2, ism_128_subpixel, padded / apodized;
+    the analytic canvas at 512^2 against its complex128 closed form; the
+    identity routes; CUDA-event image times and one profiler image each."""
+    from rescan_line_sted_torch import rescanned_point_sted_image as image
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.imaging import rescan_point
+    from rescan_line_sted_torch.kernels.poisson import poisson_rows_tiered
+
+    paths = {}
+    stars = {n: siemens_star((n, n), device=dev)
+             for n in (SIZE, 512, ISM_SIZE, 128)}
+    params, geom = ism_setup(SIZE)
+    t0 = time.time()
+    image(stars[SIZE], params, geom)
+    torch.cuda.synchronize()
+    first = time.time() - t0
+    paths["ism_2048"] = ism_path("ism_2048", stars[SIZE], params, geom,
+                                 per_step=0)
+    paths["ism_256"] = ism_path("ism_256", stars[ISM_SIZE],
+                                *ism_setup(ISM_SIZE), collapsed=True)
+    paths["ism_256_b2"] = ism_path("ism_256_b2", stars[ISM_SIZE],
+                                   *ism_setup(ISM_SIZE, binning=2))
+    paths["ism_128_subpixel"] = ism_path("ism_128_subpixel", stars[128],
+                                         *ism_setup(128, 1.5))
+
+    def boundaries():
+        return [image(stars[ISM_SIZE], *ism_setup(ISM_SIZE), method=m,
+                      boundary=bd).image
+                for bd in ("padded", "apodized")
+                for m in ("analytic", "scan")]
+
+    _, paths["ism_256_boundaries"] = drive("ism_256 padded / apodized",
+                                           boundaries)
+    errs = ism_identity_routes(dev)
+    params, geom = ism_setup(512)
+    got = image(stars[512], params, geom).image.double().cpu().numpy()
+    want = ism_closed_form_c128(stars[512], params, geom)
+    errs["ism_512_c128"] = float(np.linalg.norm(got - want)
+                                 / np.linalg.norm(want))
+    log(f"ism_512 analytic (complex64 on the card) vs its complex128 closed "
+        f"form on the host: rel err {errs['ism_512_c128']:.3e}")
+    check(errs["ism_512_c128"] <= 1e-5,
+          f"ISM complex64 products off the complex128 closed form: {errs}")
+
+    gen = torch.Generator().manual_seed(6)
+    runs = {
+        "ism_2048": (lambda: image(stars[SIZE], *ism_setup(SIZE), gen),
+                     REPEATS, SIZE ** 2),
+        "ism_256": (lambda: image(stars[ISM_SIZE], *ism_setup(ISM_SIZE), gen),
+                    REPEATS, ISM_SIZE ** 2),
+        "ism_256_per_step": (lambda: image(
+            stars[ISM_SIZE], *ism_setup(ISM_SIZE), gen, method="scan",
+            noise_mode="per_step"), 3, ISM_SIZE ** 2),
+        "ism_256_b2_per_step": (lambda: image(
+            stars[ISM_SIZE], *ism_setup(ISM_SIZE, binning=2), gen,
+            method="scan", noise_mode="per_step"), 3, ISM_SIZE ** 2),
+        "ism_128_subpixel_per_step": (lambda: image(
+            stars[128], *ism_setup(128, 1.5), gen, method="scan",
+            noise_mode="per_step"), 3, 128 ** 2)}
+    e2e, busy = {}, {}
+    for name, (fn, repeats, steps) in runs.items():
+        e2e[name] = cuda_ms(fn, repeats)
+        ms, top = device_busy(fn)
+        busy[name] = {"device_ms": ms, "top": top}
+        log(f"time e2e {name} {e2e[name]:.4f} ms, "
+            f"{steps / (e2e[name] * 1e-3):.1f} steps/s; device busy "
+            f"{ms:.3f} ms, idle {1.0 - ms / e2e[name]:.1%}; largest: "
+            f"{json.dumps([[round(t, 3), k[:60], n] for t, k, n in top])}")
+    e2e["ism_2048_first_call"] = 1e3 * first
+    log(f"ism_2048 first analytic image (phase tables built, cached) "
+        f"{1e3 * first:.1f} ms")
+    frames = caller_frames(rescan_point, runs["ism_256_per_step"][0])
+    k2b = sampler_times(frames, torch.Generator().manual_seed(3),
+                        torch.Generator(dev).manual_seed(3),
+                        poisson_rows_tiered)
+    log(f"time poisson_rows_tiered on ism_256's frames {json.dumps(k2b)}")
+    k2b_draws = k2b_frames_draw_for_draw("ism_256", frames)
+    return {"paths": paths, "errs": errs, "e2e": e2e, "busy": busy,
+            "k2b": k2b, "k2b_draws": k2b_draws}
+
+
+# ---- K6: the card's primitive rates and the composite bound --------------
+
+PRIM_SOURCES = {"fma": 117, "uniform": 133, "uniform_block": 133,
+                "exp": 151, "inv_term": 167, "knuth_round": 194,
+                "place_add": 219, "sgemm": 237}
+
+
+def prim_checks(dev) -> tuple[dict, dict]:
+    """Each K6 kernel against its plain version on the inputs its rate call
+    uses (``primitives.calls``: FILL elements, PLACE_CANVASES canvases at
+    ``place_offsets``, the GEMM_SHAPE product), at the reps, constants and
+    tolerances of ``primitives.CHECKS``: there one rep more or less moves
+    the result past the tolerance, so a kernel that ran another count of
+    reps fails. Returns the errors and the plain versions' times (ms, CUDA
+    events) at these inputs and reps."""
+    from rescan_line_sted_torch.kernels import primitives as prim
+
+    errs, plain_ms = {}, {}
+    for name, call in prim.calls(dev, check=True).items():
+        reps, tol = prim.CHECKS[name]
+        want = call.plain(reps)
+        got = call.run(reps)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        errs[name] = {"abs": err, "rel": err / float(want.abs().max()),
+                      "reps": reps, "shape": list(got.shape)}
+        log(f"K6 {name} vs plain at {reps} reps on {list(got.shape)}: max "
+            f"abs err {err:.3e}, max rel err {errs[name]['rel']:.3e} "
+            f"(tolerance {tol})")
+        check(got.shape == want.shape and errs[name]["rel"] <= tol,
+              f"K6 {name} vs its plain version: {errs[name]}")
+        plain_ms[name] = cuda_ms(lambda: call.plain(reps), 3)
+    return errs, plain_ms
+
+
+def prim_bound(name, rate) -> tuple[float, str]:
+    """The datasheet bound of one rate call of a K6 kernel (``rate``: the
+    entry of ``primitive_rates``): its arithmetic steps at the fp32 peak
+    (a Philox-10 block as PHILOX_OPS, an exp as one), against its output
+    written once (place_add: the canvases read and written once, sgemm:
+    A and B read, C written)."""
+    from rescan_line_sted_torch.kernels import primitives as prim
+
+    reps = rate["reps"]
+    if name == "sgemm":
+        m, k, n = prim.GEMM_SHAPE
+        return roofline(2.0 * m * k * n * reps, 4 * (m * k + k * n + m * n))
+    if name == "place_add":
+        elems = prim.PLACE_CANVASES * prim.CANVAS_ROWS * prim.COLS
+        return roofline(float(prim.PLACE_CANVASES * reps * prim.WINDOW),
+                        4 * (2 * elems + prim.WINDOW + reps))
+    ops = {"fma": 2, "uniform": PHILOX_OPS + 2,
+           "uniform_block": PHILOX_OPS + 8, "exp": 2, "inv_term": 5,
+           "knuth_round": PHILOX_OPS / 4 + 3}[name]
+    return roofline(float(ops) * prim.FILL * reps, 4 * prim.FILL)
+
+
+def phase_primitives(dev, k1, k3, k4) -> dict:
+    """K6: every microkernel against its plain version; the rates
+    (``primitive_rates``, counters reset before and read after); reps
+    cuBLAS products against sgemm; the composite bound of K1 (flagship,
+    its frames' tiers counted per element), K3 (line_2048) and K4
+    (nobands_2048) from those rates, each held under the kernel's noisy
+    time measured in this run (``k1``, ``k3``, ``k4``: their timing dicts,
+    K3's and K4's with their counts)."""
+    from rescan_line_sted_torch.kernels import primitives as prim
+
+    errs, plain_ms = prim_checks(dev)
+    rates, launches = drive("primitives", lambda: prim.primitive_rates(dev))
+    log(f"K6 rates on {card()} ({clocks()}): " + json.dumps(
+        {k: {"rate": f"{v['rate']:.4e}", "reps": v["reps"],
+             "ms": round(v["ms"], 4)} for k, v in rates.items()}))
+    m, k, n = prim.GEMM_SHAPE
+    g = torch.Generator().manual_seed(0)
+    a = (torch.randint(0, 8, (m, k), generator=g) / 8).to(dev)
+    b = (torch.randint(0, 8, (k, n), generator=g) / 8).to(dev)
+    c = torch.empty((m, n), device=dev)
+    reps = rates["sgemm"]["reps"]
+
+    def products():
+        for _ in range(reps):
+            torch.mm(a, b, out=c)
+
+    library_ms = cuda_ms(products)
+    log(f"{reps} cuBLAS fp32 products {m}x{k}x{n} (TF32 off): "
+        f"{library_ms:.4f} ms = {reps * m * k * n / (library_ms * 1e-3):.4e} "
+        f"FMA/s, against K6 sgemm {rates['sgemm']['rate']:.4e}")
+
+    args, kw = k1_inputs(K1_MODES["rescan_banded_fused"][1], dev)
+    h, w = args[0].shape
+    dob = kw["d_out"] // kw.get("binning", 1)
+    frames = k1_frames(args, kw)
+    k1_sampler = prim.tiered_counts(frames)
+    del frames
+    # K1 takes four lanes' uniforms from one Philox block, K4 one block per
+    # element (a single draw); K3's draws are in its Knuth rounds
+    counts = {
+        "rescan_banded_fused": {
+            "conv_fma": w * dob * kw["d_in"] * h, "exps": k1_sampler["exps"],
+            "philox_blocks": k1_sampler["uniforms"] / 4,
+            "inv_terms": k1_sampler["inv_terms"],
+            "knuth_rounds": k1_sampler["knuth_rounds"],
+            "windows": w * dob * h / prim.WINDOW},
+        "line_sted_fused": {"conv_fma": k3["fma"], "exps": k3["exps"],
+                            "inv_terms": k3["inv_terms"],
+                            "knuth_rounds": k3["knuth_rounds"]},
+        "rescan_fused": {"conv_fma": k4["fma"], "exps": k4["exps"],
+                         "single_draws": k4["uniforms"],
+                         "inv_terms": k4["inv_terms"],
+                         "knuth_rounds": k4["knuth_rounds"],
+                         "windows": k4["placed"] / prim.WINDOW}}
+    measured = {"rescan_banded_fused": k1["ms"], "line_sted_fused": k3["ms"],
+                "rescan_fused": k4["ms"]}
+    bounds = {name: {**prim.composite_bound(cn, rates), "counts": cn}
+              for name, cn in counts.items()}
+    for name, bd in bounds.items():
+        log(f"composite bound {name}: {json.dumps(bd)}; the kernel ran "
+            f"{measured[name]:.4f} ms noisy, "
+            f"{measured[name] / bd['total_ms']:.2f}x the bound")
+        check(measured[name] >= bd["total_ms"],
+              f"{name} ran {measured[name]} ms, under its composite bound "
+              f"{bd['total_ms']} ms: the bound overcounts")
+    entries = {}
+    for name, rate in rates.items():
+        bound, by = prim_bound(name, rate)
+        entries[name] = {"ms": rate["ms"], "reps": rate["reps"],
+                         "rate_per_s": rate["rate"], "bound_ms": bound,
+                         "bound_by": by, "plain_ms": plain_ms[name],
+                         "plain_at": "the rate call's inputs, the check's "
+                                     "reps",
+                         "library_ms": library_ms if name == "sgemm"
+                         else None}
+    entries["sgemm"]["library_call"] = f"{reps} torch.mm, TF32 off"
+    return {"errs": errs, "rates": rates, "launches": launches,
+            "bounds": bounds, "entries": entries, "library_ms": library_ms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1587,6 +2040,10 @@ def main() -> int:
     k5_err = phase_k5(dev)
     paths.update(phase_nobands(dev))
     nob = phase_times_nobands(dev)
+    ism = phase_ism(dev)
+    paths.update(ism["paths"])
+    k6 = phase_primitives(dev, times["rescan_banded_fused"],
+                          desc["line_sted_fused"], nob["rescan_fused"])
     log(f"after timing: {clocks()}")
     log(f"smoke run took {time.time() - t0:.1f} s after the card was named")
 
@@ -1604,16 +2061,22 @@ def main() -> int:
          "err_kind": "noise-free, against the plain version",
          **times[mode], "library_ms": None}
         for mode, (replaces, _) in K1_MODES.items()]
+    kernels[0]["composite_bound_ms"] = \
+        k6["bounds"]["rescan_banded_fused"]["total_ms"]
+
+    def launched(kernel):
+        return {p: n[kernel] for p, n in paths.items() if n.get(kernel)}
+
+    k2c_paths = launched("poisson_flat")
     kernels.append(
         {"name": "poisson_flat", "route": "cuda",
          "source": "rescan_line_sted_torch/csrc/poisson.cu",
          "replaces": "rescan_line_sted_tpu/kernels/poisson_pallas.py:398",
-         "path": "flagship", "launches": paths["flagship"]["poisson_flat"],
+         "path": "flagship", "paths": k2c_paths,
+         "launches": sum(k2c_paths.values()),
          "max_abs_err": sampler_err["poisson_flat"],
          "err_kind": "max |mean(kernel) - mean(plain)| over rates",
          **times["poisson_flat"]})
-    def launched(kernel):
-        return {p: n[kernel] for p, n in paths.items() if n.get(kernel)}
 
     k3_paths = launched("line_sted_fused")
     kernels.append(
@@ -1624,7 +2087,8 @@ def main() -> int:
          "launches": sum(k3_paths.values()),
          "max_abs_err": k3_err["abs"], "max_rel_err": k3_err["rel"],
          "err_kind": "noise-free, against the plain version",
-         **desc["line_sted_fused"], "library_ms": None})
+         **desc["line_sted_fused"], "library_ms": None,
+         "composite_bound_ms": k6["bounds"]["line_sted_fused"]["total_ms"]})
     k2b_paths = launched("poisson_rows_tiered")
     kernels.append(
         {"name": "poisson_rows_tiered", "route": "cuda",
@@ -1632,12 +2096,16 @@ def main() -> int:
          "replaces": "rescan_line_sted_tpu/kernels/poisson_pallas.py:344",
          "path": "line_2048 (banded frames)", "paths": k2b_paths,
          "launches": sum(k2b_paths.values()),
-         "max_abs_err": sampler_err["k2b_draw_for_draw"],
+         "max_abs_err": max(sampler_err["k2b_draw_for_draw"],
+                            ism["k2b_draws"]["max_abs_diff"]),
          "err_kind": "counts against the host reference on the same "
-                     "Philox stream, rates below the bright tier",
+                     "Philox stream, rates below the bright tier (constant "
+                     "rates, and ism_256's frames)",
          **desc["poisson_rows_tiered"]["line_2048"],
          "callers": {**desc["poisson_rows_tiered"],
-                     "nobands_512_subpixel": nob["k2b"]},
+                     "nobands_512_subpixel": nob["k2b"],
+                     "ism_256": ism["k2b"]},
+         "ism_256_frames_against_host": ism["k2b_draws"],
          "flagship_canvas": times["poisson_rows_tiered"]})
     for name, replaces, path, err in (
             ("rescan_fused",
@@ -1655,12 +2123,36 @@ def main() -> int:
              "max_rel_err": err["rel"],
              "err_kind": "noise-free, against the plain version",
              "library_ms": None, **nob[name]})
+    kernels[-2]["composite_bound_ms"] = \
+        k6["bounds"]["rescan_fused"]["total_ms"]
+    for name, entry in k6["entries"].items():
+        kernels.append(
+            {"name": f"primitives_{name}", "route": "cuda",
+             "source": "rescan_line_sted_torch/csrc/primitives.cu",
+             "replaces": f"scripts/perf_vpu_bound.py:{PRIM_SOURCES[name]}",
+             "path": "primitive_rates",
+             "launches": k6["launches"].get(f"primitives_{name}", 0),
+             "max_abs_err": k6["errs"][name]["abs"],
+             "max_rel_err": k6["errs"][name]["rel"],
+             "err_kind": "the check's reps on the rate call's inputs, "
+                         "against the plain version",
+             **entry})
+    check(all(k["launches"] > 0 for k in kernels[-len(k6["entries"]):]),
+          f"every K6 kernel must launch in primitive_rates: {k6['launches']}")
     log(json.dumps({"k2a_in_k1": desc["k2a"]}))
     busy = {**desc["busy"], **nob["busy"]}
     log(json.dumps({"device_busy_ms": {k: v["device_ms"]
                                        for k, v in busy.items()}}))
     log(json.dumps({"e2e_per_step_ms": {**times["e2e"], **desc["e2e"],
                                         **nob["e2e"]}}))
+    log(json.dumps({"ism": {"e2e_ms": ism["e2e"], "errs": ism["errs"],
+                            "device_busy_ms": {k: v["device_ms"] for k, v
+                                               in ism["busy"].items()}}}))
+    log(json.dumps({"primitive_rates": k6["rates"],
+                    "sgemm_library_ms": k6["library_ms"],
+                    "composite_bounds": {k: {q: v[q] for q in (
+                        "conv_ms", "sampler_ms", "placement_ms", "total_ms")}
+                        for k, v in k6["bounds"].items()}}))
     log(json.dumps({"kernels": kernels}))
     log(name_power)
     print(json.dumps({"ok": True, "device": {

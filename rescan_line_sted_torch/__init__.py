@@ -1,5 +1,5 @@
 """PyTorch + CUDA port of the line-STED simulation engine: descanned point-
-and line-STED and rescanned line-STED.
+and line-STED, rescanned line-STED and rescanned point-STED (ISM).
 
 The JAX package ``rescan_line_sted_tpu`` beside this one is the reference.
 This package imports torch and numpy only. Its hot path runs hand-written
@@ -23,13 +23,16 @@ from rescan_line_sted_torch.config import (  # noqa: E402
     PointSTEDParams,
     RescanGeometry,
     RescanParams,
+    RescanPointGeometry,
 )
 from rescan_line_sted_torch.imaging import (  # noqa: E402
     line_sted_image,
     point_sted_image,
     rescanned_line_sted_image,
+    rescanned_point_sted_image,
 )
 
 __all__ = ["Grid", "LineSTEDGeometry", "LineSTEDParams", "PointSTEDGeometry",
            "PointSTEDParams", "RescanGeometry", "RescanParams",
-           "line_sted_image", "point_sted_image", "rescanned_line_sted_image"]
+           "RescanPointGeometry", "line_sted_image", "point_sted_image",
+           "rescanned_line_sted_image", "rescanned_point_sted_image"]

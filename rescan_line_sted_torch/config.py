@@ -96,6 +96,42 @@ class RescanGeometry:
         return (h, w)
 
 
+@dataclasses.dataclass(frozen=True)
+class RescanPointGeometry:
+    """Static geometry of a rescanned point-STED acquisition (2D pixel
+    reassignment, ISM).
+
+    The scan visits every pixel; the (re-binned) camera frame captured at
+    scan position ``p = (y0, x0)`` is accumulated into the canvas at
+    ``R * p`` (camera pixel ``x`` lands at ``u = R*p + (x - p)``), wrapping
+    circularly on the ``round(R*H)/b x round(R*W)/b`` canvas. ``chunk``
+    scan positions (raster order) are processed per loop step and must
+    divide ``height * width``.
+    """
+
+    grid: Grid
+    rescan_factor: float = 2.0
+    binning: int = 1
+    chunk: int = 64
+
+    def __post_init__(self):
+        if self.grid.height % self.binning or self.grid.width % self.binning:
+            raise ValueError("binning must divide the grid shape")
+        if self.rescan_factor < 1.0:
+            raise ValueError("rescan_factor must be >= 1 (canvas must hold "
+                             "a full camera frame)")
+
+    @property
+    def num_steps(self) -> int:
+        return self.grid.height * self.grid.width
+
+    @property
+    def canvas_shape(self) -> tuple[int, int]:
+        h = int(round(self.rescan_factor * self.grid.height)) // self.binning
+        w = int(round(self.rescan_factor * self.grid.width)) // self.binning
+        return (h, w)
+
+
 def _f(x) -> float:
     """A Python float holding the float32 value of ``x``."""
     return float(np.float32(x))

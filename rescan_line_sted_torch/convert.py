@@ -4,7 +4,8 @@ Reads attributes with ``getattr`` and values with ``numpy.asarray``, and
 dispatches on type names, so this module needs no ``import jax``: it
 accepts anything shaped like the JAX package's ``LineSTEDParams`` /
 ``PointSTEDParams`` (with any shipped illumination model) and
-``LineSTEDGeometry`` / ``PointSTEDGeometry`` / ``RescanGeometry``.
+``LineSTEDGeometry`` / ``PointSTEDGeometry`` / ``RescanGeometry`` /
+``RescanPointGeometry``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from rescan_line_sted_torch.config import (
     PointSTEDGeometry,
     PointSTEDParams,
     RescanGeometry,
+    RescanPointGeometry,
 )
 from rescan_line_sted_torch.physics import models
 
@@ -74,8 +76,8 @@ def params_from_jax(p):
 
 
 def geometry_from_jax(g):
-    """The port's geometry equal to the JAX geometry ``g`` (line, point or
-    rescanned line). Raises on geometries of unported modalities."""
+    """The port's geometry equal to the JAX geometry ``g`` (line, point,
+    rescanned line or rescanned point). Raises on any other geometry."""
     name = type(g).__name__
     grid = Grid(int(g.grid.height), int(g.grid.width))
     if name == "RescanGeometry" and not getattr(g, "model", None):
@@ -85,5 +87,7 @@ def geometry_from_jax(g):
         return LineSTEDGeometry(grid, chunk=int(g.chunk))
     if name == "PointSTEDGeometry":
         return PointSTEDGeometry(grid, chunk=int(g.chunk))
-    raise NotImplementedError(
-        f"{name} is not ported yet (ROADMAP.md open item 11)")
+    if name == "RescanPointGeometry":
+        return RescanPointGeometry(grid, rescan_factor=float(g.rescan_factor),
+                                   binning=int(g.binning), chunk=int(g.chunk))
+    raise NotImplementedError(f"{name} is not ported yet")

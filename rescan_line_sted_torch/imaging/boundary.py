@@ -17,7 +17,7 @@ import math
 import numpy as np
 import torch
 
-from rescan_line_sted_torch.config import Grid
+from rescan_line_sted_torch.config import Grid, RescanPointGeometry
 from rescan_line_sted_torch.imaging import analytic
 
 
@@ -68,14 +68,14 @@ def apodize_sample(sample: torch.Tensor, margin: int) -> torch.Tensor:
 
 def padded_geometry(geom, margin: int):
     """The same geometry on the padded grid, its chunk lowered until it
-    divides the padded scan-step count."""
-    h = geom.grid.height + 2 * margin
-    w = geom.grid.width + 2 * margin
-    steps = h * w if type(geom).__name__ == "PointSTEDGeometry" else w
+    divides the padded scan-step count (``num_steps``: H * W for point
+    scans, rescanned or not; W for line scans)."""
+    padded = dataclasses.replace(geom, grid=Grid(geom.grid.height + 2 * margin,
+                                                 geom.grid.width + 2 * margin))
     chunk = geom.chunk
-    while steps % chunk:
+    while padded.num_steps % chunk:
         chunk -= 1
-    return dataclasses.replace(geom, grid=Grid(h, w), chunk=chunk)
+    return dataclasses.replace(padded, chunk=chunk)
 
 
 def _crop_scaled(img: torch.Tensor, axis: int, x0f: float,
@@ -101,11 +101,8 @@ def acquire_padded(engine_fn, sample: torch.Tensor, geom, margin: int,
                    **kwargs):
     """Run ``engine_fn(padded_sample, padded_geom, **kwargs)`` and crop its
     ``AcquisitionResult`` image back to the original field (for rescan
-    canvases the x-crop scales by the rescan factor)."""
-    if type(geom).__name__ == "RescanPointGeometry":
-        raise NotImplementedError(
-            "padded 2D pixel reassignment (RescanPointGeometry) is not "
-            "ported yet (ROADMAP.md open item 11: imaging/rescan_point.py)")
+    canvases the x-crop scales by the rescan factor, and under 2D pixel
+    reassignment the y-crop too)."""
     rescanned = hasattr(geom, "rescan_factor")
     if rescanned and margin % geom.binning:
         raise ValueError(
@@ -119,7 +116,10 @@ def acquire_padded(engine_fn, sample: torch.Tensor, geom, margin: int,
         r = float(geom.rescan_factor)
         b = geom.binning
         img = _crop_scaled(img, 1, r * margin / b, int(round(r * w)) // b)
-        img = img[margin // b: margin // b + h // b]
+        if isinstance(geom, RescanPointGeometry):
+            img = _crop_scaled(img, 0, r * margin / b, int(round(r * h)) // b)
+        else:
+            img = img[margin // b: margin // b + h // b]
     else:
         img = img[margin: margin + h, margin: margin + w]
     return dataclasses.replace(res, image=img.contiguous())

@@ -33,8 +33,11 @@ their plain versions):
 ==========  =========  ============  ====================================
 placement   noise      use_pallas    route
 ==========  =========  ============  ====================================
-rounded     per-step   None / True   K4 (``rescan_fused``), draws inside
-rounded     collapsed  True          K4 noise-free, then K2c
+rounded     per-step   None / True   K4 (``rescan_fused``), draws inside,
+                                     where ``runs_fit``; else W-major
+                                     frames, K2b, FFT placement
+rounded     collapsed  True          K4 noise-free where ``runs_fit``,
+                                     then K2c; else as the last row
 rounded     per-step   False         frames, K2c per frame, K5 scatter
 subpixel    per-step   None / True   W-major frames, K2b, FFT placement
 subpixel    per-step   False         frames, K2c per frame, FFT placement
@@ -46,7 +49,10 @@ circulant(gx)``; FFT placement adds each frame's rfft (zero-padded to the
 canvas) times its position's phase ramp ``exp(-2i pi k off / wc)`` (built
 in float64 on the host) and inverts once per image. The JAX gates
 ``noisy_vmem_ok`` and ``fused_fits`` modelled the TPU's VMEM and 8-aligned
-placement; K4's own shared-memory limit replaces them.
+placement; K4's own bound ``rescan_fused.runs_fit`` replaces them: where
+the tap runs exceed it, the K4 rows take the W-major K2b route with
+rounded phase ramps (per-step) or FFT phase accumulation (collapsed), as
+the JAX package took its hybrid where ``noisy_vmem_ok`` failed.
 
 Subpixel placement spreads a camera pixel band-limitedly over the canvas:
 per-step subpixel canvases carry small negative excursions (sinc ringing
@@ -84,7 +90,7 @@ from rescan_line_sted_torch.kernels.rescan_accumulate import (
 from rescan_line_sted_torch.kernels.rescan_banded_fused import (
     rescan_banded_fused,
 )
-from rescan_line_sted_torch.kernels.rescan_fused import rescan_fused
+from rescan_line_sted_torch.kernels.rescan_fused import rescan_fused, runs_fit
 from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.physics import psf as psfs
 from rescan_line_sted_torch.physics.dose import line_sted_dose
@@ -459,12 +465,13 @@ def _scan(sample, params, geom, generator, noise_mode="collapsed",
 def _full_frame_scan(sample, params, geom, generator, reassignment,
                      use_pallas):
     """The scan without band windows (module doc's table): kernel K4 for
-    rounded placement with per-step noise or ``use_pallas=True``; else
-    per-chunk frames ``emitted @ circulant(gx)``, sampled per frame when
-    ``generator`` is given (K2b on W-major frames for subpixel placement
-    unless ``use_pallas=False``, else K2c) and placed by the K5 scatter
-    (rounded, per-step) or by FFT phase accumulation. Returns the canvas
-    ``[H/b, wc]`` (noise-free when ``generator`` is None)."""
+    rounded placement with per-step noise or ``use_pallas=True`` where its
+    tap runs fit (``runs_fit``); else per-chunk frames ``emitted @
+    circulant(gx)``, sampled per frame when ``generator`` is given (K2b on
+    W-major frames unless ``use_pallas=False``, else K2c) and placed by the
+    K5 scatter (rounded, ``use_pallas=False``) or by FFT phase
+    accumulation. Returns the canvas ``[H/b, wc]`` (noise-free when
+    ``generator`` is None)."""
     h, w = geom.grid.shape
     b, chunk = geom.binning, geom.chunk
     if w % chunk:
@@ -484,14 +491,15 @@ def _full_frame_scan(sample, params, geom, generator, reassignment,
         return torch.round(r1 * pos / b).to(torch.int32)
 
     if not subpixel and (use_pallas is True
-                         or (per_step and use_pallas is None)):
+                         or (per_step and use_pallas is None)) \
+            and runs_fit(eff_b, gx, b):
         offsets = rounded(torch.arange(w, device=dev))
         return rescan_fused(sample_y.contiguous(), eff_b, gx, offsets, wc,
                             b, generator)
 
     gx_mat = fftconv.circulant_matrix(gx)          # cam = emitted @ gx_mat
-    w_major = per_step and subpixel and use_pallas is not False
-    scatter = per_step and not subpixel
+    w_major = per_step and use_pallas is not False
+    scatter = per_step and use_pallas is False and not subpixel
     if scatter:
         canvas = torch.zeros((hc, wc), dtype=torch.float32, device=dev)
     else:

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` into ONE shared library with a plain
-C interface for ``sm_90a`` (Hopper), loaded with ``ctypes``. The library is
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (Hopper), one process
+per source, all started together, and links the objects into ONE shared
+library with a plain C interface, loaded with ``ctypes``. The library is
 keyed by a hash of the sources and built into ``rescan_line_sted_torch/
 _build/`` (listed in ``.gitignore``), so a checkout builds from its own
 sources only and a changed source rebuilds. A failed build raises with
@@ -9,7 +10,8 @@ nvcc's stderr; nothing falls back to a plain version.
 
 Every C entry point that launches returns ``cudaGetLastError()``;
 ``check`` raises on a non-zero code. ``LAUNCHES`` counts the launches of each kernel (of K1,
-each placement mode and shared-memory layout apart): every wrapper adds
+each placement mode and shared-memory layout apart; of K6, each primitive
+apart): every wrapper adds
 one where it launches, so a run can show which kernels its main path went
 through.
 """
@@ -29,13 +31,16 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"rescan_banded_fused": 0, "rescan_banded_fused_spread": 0,
             "rescan_banded_fused_wide": 0,
             "rescan_banded_fused_spread_wide": 0,
             "poisson_rows_tiered": 0, "poisson_flat": 0, "line_sted_fused": 0,
-            "rescan_fused": 0, "rescan_accumulate": 0}
+            "rescan_fused": 0, "rescan_accumulate": 0,
+            **{f"primitives_{k}": 0 for k in (
+                "fma", "uniform", "uniform_block", "exp", "inv_term",
+                "knuth_round", "place_add", "sgemm")}}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -52,6 +57,14 @@ _SIGNATURES = {
     "rls_rescan_fused": [_P] * 5 + [_I] * 9 + [_U, _U, _P,
                                                ctypes.POINTER(_I)],
     "rls_rescan_accumulate": [_P] * 4 + [_I] * 4 + [_P],
+    "rls_prim_fma": [_P, _I, _I, _P],
+    "rls_prim_uniform": [_P, _I, _I, _U, _U, _P],
+    "rls_prim_uniform_block": [_P, _I, _I, _U, _U, _P],
+    "rls_prim_exp": [_P, _I, _I, ctypes.c_float, _P],
+    "rls_prim_inv_term": [_P, _I, _I, ctypes.c_float, _U, _U, _P],
+    "rls_prim_knuth_round": [_P, _I, _I, ctypes.c_float, _U, _U, _P],
+    "rls_prim_place_add": [_P, _P, _P, _I, _I, _P],
+    "rls_prim_sgemm": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -94,13 +107,32 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stderr)
+    nvcc = _nvcc()
+    jobs = []
+    for cu in (p for p in _sources() if p.suffix == ".cu"):
+        obj = tmp.with_suffix(f".{cu.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(cu), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:          # wait for every compiler we started
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{err}")
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, out)
     return out
 

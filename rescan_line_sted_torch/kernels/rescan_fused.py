@@ -23,6 +23,10 @@ frame. Kernel K4 (``csrc/rescan_fused.cu``) never forms the circulant.
 The plain version runs the same sums as one matrix product per chunk of
 positions (the eff run's sample columns times the banded gx run), then
 bins, draws with ``poisson_reference`` and places with ``index_add_``.
+
+K4 keeps its runs and frames in shared memory; ``runs_fit`` is the static
+bound (``MAX_RUN``) under which the rescan engine hands it a scan, decided
+on the host whatever the device, as ``line_fused.MAX_WIDTH`` is for K3.
 """
 
 from __future__ import annotations
@@ -36,6 +40,14 @@ from rescan_line_sted_torch.kernels.line_fused import _span
 from rescan_line_sted_torch.kernels.poisson import poisson_reference
 
 _CHUNK = 64                # positions per matrix product of the plain version
+# K4's smallest layout (one binned row of b sample rows per block) holds the
+# staged eff run (ne taps) and the frames (ne + ng - 1 columns) of 16
+# positions per sample row, each rounded up to 16 and padded to a bank
+# stride (at most 46 floats more), and the two profiles: at most
+# 33 * b * (ne + ng + 45) + 71 floats, inside a Hopper block's 227 KB
+# (58112 floats) of opt-in shared memory while b * (ne + ng + 45) <= MAX_RUN.
+# At b = 1 that is a combined run ne + ng - 1 of up to 1704 columns.
+MAX_RUN = 1750
 
 
 def _run(profile: torch.Tensor) -> tuple[int, int]:
@@ -45,6 +57,16 @@ def _run(profile: torch.Tensor) -> tuple[int, int]:
     zeros)."""
     p = profile.detach().to("cpu", torch.float32).numpy()
     return _span((p != 0)[None, :])
+
+
+def runs_fit(eff_scaled: torch.Tensor, gx: torch.Tensor,
+             binning: int = 1) -> bool:
+    """Whether K4's smallest shared-memory layout holds the nonzero tap
+    runs of ``eff_scaled`` and ``gx`` at this binning (``MAX_RUN``): a
+    bound on the host that needs no card, so the engine routes a scan the
+    same way on every device."""
+    (_, ne), (_, ng) = _run(eff_scaled), _run(gx)
+    return binning * (ne + ng + 45) <= MAX_RUN
 
 
 def _check(sample_y, eff_scaled, gx, offsets, wc, binning):

@@ -148,6 +148,24 @@ def test_padded_guards():
         T.rescanned_line_sted_image(s, tp, tg, method="scan",
                                     boundary="padded", margin=15,
                                     device="cpu")
-    point = types.new_class("RescanPointGeometry")()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tb.acquire_padded(None, torch.zeros(4, 4), point, 2)
+    # 2D pixel reassignment crops both rescanned axes at R * margin / b,
+    # and its margin must be divisible by the binning too
+    from rescan_line_sted_torch.imaging.point_sted import AcquisitionResult
+
+    point = T.RescanPointGeometry(T.Grid(16, 16), rescan_factor=2.0)
+    seen = []
+
+    def engine(s, g):
+        seen.append(g)
+        n = g.canvas_shape[0] * g.canvas_shape[1]
+        return AcquisitionResult(
+            image=torch.arange(n, dtype=torch.float32).reshape(
+                g.canvas_shape), dose=None)
+
+    img = tb.acquire_padded(engine, torch.zeros(16, 16), point, 4).image
+    full = engine(None, seen[0]).image
+    assert seen[0].grid.shape == (24, 24) and seen[0].chunk == 64
+    assert torch.equal(img, full[8:40, 8:40])
+    with pytest.raises(ValueError, match="margin"):
+        tb.acquire_padded(engine, torch.zeros(16, 16), T.RescanPointGeometry(
+            T.Grid(16, 16), binning=2), 3)

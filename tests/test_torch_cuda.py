@@ -585,3 +585,144 @@ def test_no_band_routes_on_card(cuda, rf, b, use_pallas, kernel):
     want = {"poisson_flat"} | ({"rescan_fused"} if (rf - 1) / b % 1 == 0
                                else set())
     assert {k for k, v in _build.LAUNCHES.items() if v} == want
+
+
+def test_rounded_runs_beyond_k4_take_the_hybrid(cuda):
+    """A flat excitation 4096 columns wide at b = 1 (tap runs beyond K4's
+    bound ``runs_fit``), rounded per-step: the scan returns an image
+    through the W-major K2b route, K4 untouched; its total lies within 5
+    sigma of the noise-free CPU canvas's."""
+    from rescan_line_sted_torch.kernels.rescan_fused import runs_fit
+
+    params = T.RescanParams.create(sigma_exc=2.0, sigma_det=2.0,
+                                   stripe_period=8.0, depletion=4.0,
+                                   brightness=40.0, model=_WideExcModel())
+    geom = T.RescanGeometry(T.Grid(8, 4096), rescan_factor=2.0, chunk=32)
+    assert not runs_fit(torch.ones(4096), torch.ones(64))
+    s = torch.rand((8, 4096), generator=torch.Generator().manual_seed(3))
+    _build.reset_launches()
+    img = T.rescanned_line_sted_image(
+        s, params, geom, torch.Generator().manual_seed(1), method="scan",
+        noise_mode="per_step").image
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == \
+        {"poisson_rows_tiered": 4096 // 32}
+    ref = float(T.rescanned_line_sted_image(
+        s, params, geom, method="scan", device="cpu").image.double().sum())
+    assert img.shape == (8, 8192) and torch.isfinite(img).all()
+    assert abs(float(img.double().sum()) - ref) <= 5 * np.sqrt(ref)
+
+
+# ---- ISM (rescanned point-STED) -------------------------------------------
+
+def _ism(n, rf, b, chunk=64):
+    return (T.PointSTEDParams.create(sigma_exc=3.0, sigma_det=3.0,
+                                     sigma_dep=3.0, depletion=8.0,
+                                     brightness=20.0),
+            T.RescanPointGeometry(T.Grid(n, n), rescan_factor=rf, binning=b,
+                                  chunk=chunk))
+
+
+@pytest.mark.parametrize("rf,b", [(2.0, 1), (1.5, 1), (2.0, 2)])
+def test_ism_on_card_matches_cpu(cuda, rf, b, monkeypatch):
+    """ISM per-step noise launches K2b once per chunk of raster positions
+    and nothing else; collapsed and analytic noise K2c once; with the draws
+    replaced by the identity, and noise-free for every method and boundary,
+    the card matches the CPU (1e-5)."""
+    from rescan_line_sted_torch.imaging import rescan_point
+
+    params, geom = _ism(64, rf, b)
+    s = torch.rand((64, 64), generator=torch.Generator().manual_seed(5))
+    _build.reset_launches()
+    img = T.rescanned_point_sted_image(
+        s, params, geom, torch.Generator().manual_seed(1), method="scan",
+        noise_mode="per_step").image
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == \
+        {"poisson_rows_tiered": 64 * 64 // 64}
+    clean = T.rescanned_point_sted_image(s, params, geom, method="scan",
+                                         device="cpu").image
+    ref = float(clean.double().sum())
+    assert img.is_cuda and abs(float(img.double().sum()) - ref) <= \
+        5 * np.sqrt(ref)
+    _build.reset_launches()
+    for method in ("scan", "analytic"):
+        T.rescanned_point_sted_image(s, params, geom,
+                                     torch.Generator().manual_seed(2),
+                                     method=method)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == \
+        {"poisson_flat": 2}
+    for method in ("scan", "analytic"):
+        for boundary in ("circular", "padded", "apodized"):
+            want = T.rescanned_point_sted_image(
+                s, params, geom, method=method, boundary=boundary,
+                device="cpu").image
+            got = T.rescanned_point_sted_image(
+                s.numpy(), params, geom, method=method,
+                boundary=boundary).image
+            assert got.is_cuda and _rel(got, want) <= 1e-5
+    monkeypatch.setattr(rescan_point, "poisson_rows_tiered",
+                        lambda lam, g: lam.clamp_min(0))
+    got = T.rescanned_point_sted_image(
+        s, params, geom, torch.Generator().manual_seed(0), method="scan",
+        noise_mode="per_step").image
+    assert _rel(got, clean) <= 1e-5
+
+
+# ---- K6 (the card's primitive rates) --------------------------------------
+
+@pytest.mark.parametrize("name", ["fma", "uniform", "uniform_block", "exp",
+                                  "inv_term", "knuth_round", "place_add",
+                                  "sgemm"])
+def test_primitive_matches_plain(cuda, name):
+    """Each K6 microkernel against its plain version at the reps, constants
+    and tolerances of ``primitives.CHECKS`` (where one rep more or less
+    moves the result past the tolerance); one launch each."""
+    from rescan_line_sted_torch.kernels import primitives as prim
+
+    n, key = 3000, (99, 12345)
+    reps, tol = prim.CHECKS[name]
+    chains = {"fma": (), "uniform": (key,), "uniform_block": (key,),
+              "exp": (prim.CHECK_EXP_SCALE,),
+              "inv_term": (key, prim.CHECK_INV_LAM), "knuth_round": (key,)}
+    if name in chains:
+        extra = chains[name]
+        run = lambda: getattr(prim, name)(torch.empty(n, device=cuda), reps,
+                                          *extra)
+        want = getattr(prim, f"{name}_reference")(n, reps, *extra)
+    elif name == "place_add":
+        canvas = torch.rand((3, prim.CANVAS_ROWS, prim.COLS),
+                            generator=torch.Generator().manual_seed(1))
+        window = torch.rand((prim.WIN_ROWS, prim.COLS),
+                            generator=torch.Generator().manual_seed(2))
+        offsets = torch.tensor([0, 2944, 7, 7, 1000, 2943])
+        want = prim.place_add_reference(canvas, window, offsets)
+        run = lambda: prim.place_add(canvas.to(cuda), window.to(cuda),
+                                     offsets.to(cuda))
+    else:
+        g = torch.Generator().manual_seed(3)
+        a = torch.randint(0, 8, (256, 64), generator=g) / 8
+        b = torch.randint(0, 8, (64, 128), generator=g) / 8
+        want = prim.sgemm_reference(a, b, reps)
+        run = lambda: prim.sgemm(a.to(cuda), b.to(cuda), reps)
+    before = _build.LAUNCHES[f"primitives_{name}"]
+    got = run()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"primitives_{name}"] == before + 1
+    assert got.shape == want.shape and _rel(got, want) <= tol
+
+
+def test_primitive_rates_and_bound(cuda):
+    """Every rate is positive and finite; the composite bound of a count
+    set is the sum of its terms."""
+    from rescan_line_sted_torch.kernels import primitives as prim
+
+    rates = prim.primitive_rates(cuda)
+    assert set(rates) == set(prim.NAMES)
+    assert all(np.isfinite(r["rate"]) and r["rate"] > 0
+               for r in rates.values())
+    t = prim.composite_bound({"conv_fma": 1e9, "exps": 1e7,
+                              "single_draws": 1e7, "philox_blocks": 1e6,
+                              "windows": 10}, rates)
+    assert t["total_ms"] == pytest.approx(
+        t["conv_ms"] + t["sampler_ms"] + t["placement_ms"])

@@ -278,8 +278,10 @@ def test_convert_round_trip():
         **kw, model=J.physics.models.PupilDonutModel(charge=2))) == \
         T.PointSTEDParams.create(
             **kw, model=T.physics.models.PupilDonutModel(charge=2))
-    with pytest.raises(NotImplementedError):
-        geometry_from_jax(J.RescanPointGeometry(J.Grid(H, W)))
+    assert geometry_from_jax(J.RescanPointGeometry(
+        J.Grid(H, W), rescan_factor=1.5, binning=2, chunk=16)) == \
+        T.RescanPointGeometry(T.Grid(H, W), rescan_factor=1.5, binning=2,
+                              chunk=16)
 
 
 def test_import_leaves_jax_out():
@@ -289,7 +291,9 @@ def test_import_leaves_jax_out():
             "rescan_line_sted_torch.kernels.line_fused, "
             "rescan_line_sted_torch.kernels.rescan_fused, "
             "rescan_line_sted_torch.kernels.rescan_accumulate, "
-            "rescan_line_sted_torch.imaging.frames; "
+            "rescan_line_sted_torch.imaging.frames, "
+            "rescan_line_sted_torch.imaging.rescan_point, "
+            "rescan_line_sted_torch.kernels.primitives; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'rescan_line_sted_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -391,3 +391,71 @@ def test_cpu_routes_launch_no_kernel():
                                     method="scan", noise_mode="per_step",
                                     use_pallas=up, device="cpu")
     assert all(v == 0 for v in _build.LAUNCHES.values())
+
+
+# ---- K4's static bound: runs beyond it take the hybrid --------------------
+
+def _k4_layout_bytes(b, ne, ng):
+    """Shared memory of K4's smallest layout, one binned row per block
+    (``layout`` in ``csrc/rescan_fused.cu`` at rb = 1), in bytes."""
+    def up(x, m):
+        return (x + m - 1) // m * m
+
+    def bank(n):
+        return up(n - 1, 32) + 1
+
+    frames = 16 * b * (bank(up(ne, 16)) + bank(up(ne + ng - 1, 16)))
+    return 4 * (up(ne, 4) + up(ng + 64, 4) + frames)
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 8, 16, 32])
+def test_k4_run_bound_fits_its_layout(b):
+    """Every pair of runs ``runs_fit`` admits fits a Hopper block's 227 KB
+    (232448 bytes) at one binned row per block, for any split of the
+    combined run; at b = 1 the bound admits a combined run of 1704."""
+    budget = tfused.MAX_RUN // b - 45            # ne + ng at the bound
+    assert budget >= 2
+    for ne in range(1, budget):
+        assert _k4_layout_bytes(b, ne, budget - ne) <= 232448, (b, ne)
+    if b == 1:
+        assert budget - 1 == 1704
+    for ne, fits in ((budget - 4, True), (budget - 3, False)):
+        narrow = torch.zeros(ne)
+        narrow[ne // 2 - 2: ne // 2 + 2] = 1.0     # a 4-tap run
+        assert tfused.runs_fit(torch.ones(ne), narrow, b) == fits
+
+
+def test_rounded_runs_beyond_k4_take_the_hybrid(monkeypatch):
+    """A rounded per-step scan whose tap runs exceed K4's bound (a flat
+    excitation 512 columns wide at b = 4, R = 5: integral steps) takes the
+    W-major K2b route with rounded phase ramps, on the CPU as on the card,
+    for ``use_pallas`` None and True; with its draws replaced by the
+    identity it matches the JAX scan (1e-5 relative L2). Collapsed noise
+    with ``use_pallas=True`` takes phase accumulation."""
+    h, w, b, rf, chunk = 8, 512, 4, 5.0, 32
+    (jp, jg), (tp, tg) = _both("wide", rf, b, h=h, w=w, chunk=chunk)
+    eff = T.imaging.line_sted.effective_line_profile(w, tp)
+    gx = tpsf.detection_profile(w, tp.sigma_det)
+    assert not tfused.runs_fit(tp.brightness * eff, gx, b)
+    assert tfused.runs_fit(tp.brightness * eff, gx, 1)
+    s = _sample(h, w, 5)
+    want = jimaging.rescanned_line_sted_image(jnp.asarray(s), jp, jg,
+                                              method="scan").image
+
+    def no_k4(*args, **kw):
+        raise AssertionError("K4 must not take runs beyond its bound")
+
+    monkeypatch.setattr(trescan, "rescan_fused", no_k4)
+    for use_pallas in (None, True):
+        calls = []
+        monkeypatch.setattr(trescan, "poisson_rows_tiered",
+                            _identity(calls, "k2b"))
+        got = T.rescanned_line_sted_image(
+            s, tp, tg, torch.Generator().manual_seed(0), method="scan",
+            noise_mode="per_step", use_pallas=use_pallas,
+            device="cpu").image
+        assert calls == ["k2b"] * (w // chunk)
+        assert got.shape == tg.canvas_shape and _rel_l2(got, want) <= 1e-5
+    got = T.rescanned_line_sted_image(s, tp, tg, method="scan",
+                                      use_pallas=True, device="cpu").image
+    assert _rel_l2(got, want) <= 1e-5
