@@ -8,10 +8,11 @@ sm_90a), then:
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. checks the Poisson samplers K2b / K2c: moments, chi-square against the
-   exact pmf, zeros, NaN propagation and seeding, at 2^20 draws per rate;
-   K2b count by count against its host reference (same Philox stream) at
-   every rate below the bright tier, and its chi-square p over 16 seeds per
-   single-draw tier;
+   exact pmf (truncated where a tier truncates), zeros, NaN propagation and
+   seeding, at 2^20 draws per rate; K2b and K2c count by count against
+   their host reference (same Philox stream, ``flat=True`` for K2c's warps
+   of 128 rates) at every rate below the bright tier, and K2b's chi-square
+   p over 16 seeds per single-draw tier;
 3. holds kernel K1 (banded fused scan) against its plain PyTorch version,
    noise-free, in each of its modes (max relative error <= 1e-5): integer
    and class placement at the flagship shape (2048^2, R = 1.5, q = 2), at
@@ -33,7 +34,13 @@ sm_90a), then:
 5. times every K1 mode, K2b and K2c against their plain versions (and
    ``torch.poisson``) and each rescan path's per-step image with CUDA
    events (median of 7 after warm-up), with each kernel's bound on this
-   card, before any descanned phase runs;
+   card, before any descanned phase runs; K2c also under the profiler and
+   with a CUDA generator (its key words drawn and read on the card), with
+   its warps' tier mix, and count by count against its host reference on
+   the flagship canvas below the bright tier, with either generator;
+   then K1's host bound: band windows beyond it (sigma_exc = 64, D_in =
+   896) give the 2048^2 noise-free and per-step images with no K1 launch,
+   and the card's image matches the CPU route's at 16 x 1024;
 6. holds kernel K3 (descanned line scan) against its plain version,
    noise-free (max relative error <= 1e-5), at 512^2 and 2048^2 with the
    line settings (siemens star, depletion 8), at 512^2 with an undersized
@@ -66,7 +73,8 @@ sm_90a), then:
    cell, at 512^2 with b = 2, with eff and gx rolled so that their tap runs
    wrap, and with a full-width run (a flat excitation at 256^2), and its
    draws at 256^2 over 16 seeds; and K5 (the scatter-add) against its
-   plain version with duplicate offsets and frames wider than the canvas;
+   plain version with duplicate offsets and frames wider than the canvas,
+   bit for bit the in-order per-frame adds where frames fit the canvas;
 10. drives the rescan scan without band windows, counters reset before
    and read after each path: nobands_2048 (2048^2, R = 2, the stripe
    model flagged as not Gaussian: K4; noise-free held to K1's banded image
@@ -76,9 +84,10 @@ sm_90a), then:
    None (FFT phase accumulation), and rescan_128 (the default model: K4
    by default); each route with its draws replaced by the identity
    against the analytic image; then times K4 against its plain version
-   and ``k4_bound``, K5 against its plain version and ``index_add_``, K2b
-   on the hybrid's frames, and each new path's image (CUDA events and one
-   profiler image);
+   and ``k4_bound``, K5 against its plain version and ``index_add_`` (event
+   and device times, against its bytes bound), K2b on the hybrid's frames,
+   K2c on the scatter route's frames (as on the flagship canvas), and each
+   new path's image (CUDA events and one profiler image);
 11. drives ``rescanned_point_sted_image`` (ISM, POINT_KW, depletion 8) on
    each path, counters reset before and read after each: ism_2048 (2048^2,
    R = 2, canvas [4096, 4096]: analytic, and K2c on it), ism_256
@@ -100,9 +109,12 @@ sm_90a), then:
    times the sgemm rate call's products in cuBLAS, and prints the
    composite bound (``primitives.composite_bound``) of K1 at the
    flagship, K3 at line_2048 and K4 at nobands_2048 beside their
-   datasheet bounds, failing if a kernel runs under its composite.
+   datasheet bounds, and of K2c on the flagship canvas and the scatter
+   frames, failing if a kernel runs under its composite.
 
-Prints one JSON line with the kernels, then the card, then the result line
+Prints a ``rule2`` line (K2c's and K5's times against their library call
+and their bounds; a kernel that misses its target does not fail the run),
+one JSON line with the kernels, then the card, then the result line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 Without CUDA it exits with code 1 and prints no result.
 """
@@ -258,8 +270,7 @@ def phase_sampler(dev) -> dict:
         for name, fn in (("poisson_rows_tiered", poisson_rows_tiered),
                          ("poisson_flat", poisson_flat)):
             x = fn(rate, torch.Generator().manual_seed(int(lam * 1000) + 1))
-            trunc = tier_kmax(lam) if name == "poisson_rows_tiered" else None
-            res = check_counts(name, x, lam, trunc)
+            res = check_counts(name, x, lam, tier_kmax(lam))
             if lam > 0:
                 err = abs(res["mean"] - p_mean)
                 check(err <= 5 * math.sqrt(2 * lam / N_DRAWS),
@@ -296,73 +307,77 @@ def phase_sampler(dev) -> dict:
         check(not torch.equal(a, c),
               f"{name}: new seed, same counts")
     torch.cuda.synchronize()
-    worst["k2b_draw_for_draw"] = k2b_draw_for_draw(dev)
+    worst["k2b_draw_for_draw"] = draw_for_draw(dev)
+    worst["k2c_draw_for_draw"] = draw_for_draw(dev, flat=True)
     k2b_seed_spread(dev)
     log(f"sampler phase passed: max |mean(kernel) - mean(plain)| {worst}")
     return worst
 
 
-def k2b_draw_for_draw(dev) -> float:
-    """K2b against its host reference on the same Philox stream, count by
-    count, at every rate below the bright tier. A count may differ by one
-    only where its uniform sits on a CDF boundary (the card's expf and CDF
-    sums round differently by an ulp); returns the max abs difference."""
+def draw_for_draw(dev, flat: bool = False) -> float:
+    """K2b (``flat``: K2c) against its host reference on the same Philox
+    stream, count by count, at every rate below the bright tier. A count
+    may differ by one only where its uniform sits on a CDF boundary (the
+    card's expf and CDF sums round differently by an ulp); returns the max
+    abs difference."""
     from scipy import stats
 
     from rescan_line_sted_torch.kernels import _build
     from rescan_line_sted_torch.kernels.poisson import (
-        _CUT, poisson_rows_tiered, poisson_rows_tiered_reference,
-        single_draw_uniforms)
+        _CUT, poisson_flat, poisson_rows_tiered,
+        poisson_rows_tiered_reference, single_draw_uniforms)
 
+    kernel, name = ((poisson_flat, "K2c") if flat
+                    else (poisson_rows_tiered, "K2b"))
     worst = 0.0
     for i, lam in enumerate(RATES):
         if lam >= _CUT:
             continue
         rate = torch.full((1024, 1024), lam, device=dev)
-        got = poisson_rows_tiered(
-            rate, torch.Generator().manual_seed(100 + i)).cpu()
+        got = kernel(rate, torch.Generator().manual_seed(100 + i)).cpu()
         key = _build.seeds_from(torch.Generator().manual_seed(100 + i))
-        diff = (got - poisson_rows_tiered_reference(rate, key)).abs()
+        diff = (got - poisson_rows_tiered_reference(rate, key, flat)).abs()
         bad = torch.nonzero(diff.reshape(-1)).flatten().numpy()
         gap = 0.0
         if bad.size:
             u = single_draw_uniforms(N_DRAWS, key)[bad].astype(np.float64)
             cdf = stats.poisson.cdf(np.arange(32), lam)
             gap = float(np.abs(u[:, None] - cdf[None, :]).min(axis=1).max())
-        log(f"K2b vs host reference at rate {lam}: {bad.size} of {N_DRAWS} "
-            f"counts differ, max abs diff {float(diff.max()):.0f}, "
+        log(f"{name} vs host reference at rate {lam}: {bad.size} of "
+            f"{N_DRAWS} counts differ, max abs diff {float(diff.max()):.0f}, "
             f"max |u - F(k)| of those {gap:.2e}")
         check(float(diff.max()) <= 1 and bad.size <= 16 and gap <= 1e-6,
-              f"K2b vs host reference at rate {lam}: {bad.size} counts "
+              f"{name} vs host reference at rate {lam}: {bad.size} counts "
               f"differ, max |u - F(k)| {gap}")
         worst = max(worst, float(diff.max()))
     return worst
 
 
-def k2b_frames_draw_for_draw(name: str, frames: torch.Tensor) -> dict:
-    """K2b against its host reference on a caller's frames (rates varying
-    over the frame, per-warp tiers), count by count under one key, on
-    every warp of 32 adjacent columns below the bright cut (a bright warp
-    draws Knuth / PTRS, which the host reference does not cover). As in
-    ``k2b_draw_for_draw``, a count may differ by one only where its
-    uniform sits within 1e-6 of a CDF value at its own rate, at most 16
-    per 2^20 elements."""
+def frames_draw_for_draw(name: str, frames: torch.Tensor,
+                         flat: bool = False, generator=None) -> dict:
+    """K2b (``flat``: K2c) against its host reference on a caller's frames
+    (rates varying over the frame, per-warp tiers), count by count under
+    one key, on every warp below the bright cut (a bright warp draws Knuth
+    / PTRS, which the host reference does not cover). As in
+    ``draw_for_draw``, a count may differ by one only where its uniform
+    sits within 1e-6 of a CDF value at its own rate, at most 16 per 2^20
+    elements. ``generator``: a CUDA generator's seed instead of the CPU
+    one (K2c then reads its key words on the card)."""
     from scipy import stats
 
     from rescan_line_sted_torch.kernels import _build
     from rescan_line_sted_torch.kernels.poisson import (
-        _CUT, poisson_rows_tiered, poisson_rows_tiered_reference,
-        single_draw_uniforms)
+        _CUT, poisson_flat, poisson_rows_tiered,
+        poisson_rows_tiered_reference, single_draw_uniforms, warp_tiers)
 
-    cols = frames.shape[-1]
-    lam = frames.detach().float().cpu().clamp_min(0).reshape(-1, cols)
-    got = poisson_rows_tiered(frames.contiguous(),
-                              torch.Generator().manual_seed(41)).cpu()
-    key = _build.seeds_from(torch.Generator().manual_seed(41))
-    warp_max = torch.nn.functional.pad(lam, (0, -cols % 32)).reshape(
-        lam.shape[0], -1, 32).amax(-1)
-    bright = (warp_max >= _CUT).repeat_interleave(32, 1)[:, :cols]
-    want = poisson_rows_tiered_reference(torch.where(bright, 0.0, lam), key)
+    kernel = poisson_flat if flat else poisson_rows_tiered
+    make = generator or (lambda: torch.Generator().manual_seed(41))
+    lam = frames.detach().float().cpu().clamp_min(0)
+    got = kernel(frames.contiguous(), make()).cpu()
+    key = _build.seeds_from(make())
+    bright = warp_tiers(lam, flat) >= _CUT
+    want = poisson_rows_tiered_reference(torch.where(bright, 0.0, lam), key,
+                                         flat)
     diff = torch.where(bright, 0.0, (got.reshape(lam.shape) - want).abs())
     bad = torch.nonzero(diff.reshape(-1)).flatten().numpy()
     gap = 0.0
@@ -374,11 +389,11 @@ def k2b_frames_draw_for_draw(name: str, frames: torch.Tensor) -> dict:
     res = {"shape": list(frames.shape), "compared": int((~bright).sum()),
            "differ": int(bad.size), "max_abs_diff": float(diff.max()),
            "max_gap": gap}
-    log(f"K2b vs host reference on {name}'s frames, count by count: "
-        f"{json.dumps(res)}")
+    log(f"{'K2c' if flat else 'K2b'} vs host reference on {name}, count by "
+        f"count: {json.dumps(res)}")
     check(res["compared"] > 0 and res["max_abs_diff"] <= 1
           and bad.size <= 16 * max(1, lam.numel() >> 20) and gap <= 1e-6,
-          f"K2b vs host reference on {name}'s frames: {res}")
+          f"{'K2c' if flat else 'K2b'} vs host reference on {name}: {res}")
     return res
 
 
@@ -717,8 +732,7 @@ def phase_times(dev) -> dict:
     from rescan_line_sted_torch import rescanned_line_sted_image as image
     from rescan_line_sted_torch.data import siemens_star
     from rescan_line_sted_torch.imaging.boundary import default_margin
-    from rescan_line_sted_torch.kernels.poisson import (
-        poisson_flat, poisson_reference, poisson_rows_tiered)
+    from rescan_line_sted_torch.kernels.poisson import poisson_rows_tiered
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
         rescan_banded_fused, rescan_banded_fused_reference)
 
@@ -746,15 +760,13 @@ def phase_times(dev) -> dict:
                 lambda: rescan_banded_fused_reference(*args, **kw)),
             "bound_ms": bound, "bound_by": by}
     canvas = image(sample, *flagship(), method="scan").image
-    lam = canvas.clamp_min(0)
-    bound, by = roofline(0.0, 2 * 4 * canvas.numel())
-    plain = cuda_ms(lambda: poisson_reference(canvas, dev_gen))
-    library = cuda_ms(lambda: torch.poisson(lam, dev_gen))
-    for name, fn in (("poisson_flat", poisson_flat),
-                     ("poisson_rows_tiered", poisson_rows_tiered)):
-        t[name] = {"ms": cuda_ms(lambda: fn(canvas, cpu_gen)),
-                   "plain_ms": plain, "library_ms": library,
-                   "bound_ms": bound, "bound_by": by}
+    k2c = k2c_times("the flagship canvas", canvas, dev)
+    k2c["draws"] = k2c_draw_checks("the flagship canvas", canvas, dev)
+    t["poisson_flat"] = k2c
+    t["poisson_rows_tiered"] = {
+        "ms": cuda_ms(lambda: poisson_rows_tiered(canvas, cpu_gen)),
+        **{k: k2c[k] for k in ("plain_ms", "library_ms", "bound_ms",
+                               "bound_by")}}
     t["e2e"]["irrational"] = per_step(*flagship(rescan_factor=IRRATIONAL))
     t["e2e"]["wide"] = per_step(*flagship(sigma_exc=WIDE_SIGMA))
     t["e2e"]["spread_wide"] = per_step(*flagship(rescan_factor=IRRATIONAL,
@@ -770,6 +782,117 @@ def phase_times(dev) -> dict:
         if name != "e2e":
             log(f"time {name} {json.dumps(v)}")
     return t
+
+
+def tier_mix(lam) -> dict:
+    """Share of K2c's elements on each tier of K2a's ladder, by the max of
+    their warp (128 consecutive rates)."""
+    from rescan_line_sted_torch.kernels.poisson import (
+        _CUT, _INV_TIERS, warp_tiers)
+
+    mx = warp_tiers(lam.float(), flat=True).reshape(-1)
+    tiers = [("zero", mx == 0), ("bernoulli", (mx > 0) & (mx < 1e-3))]
+    lo = 1e-3
+    for hi, kmax in _INV_TIERS:
+        tiers.append((f"inversion_{kmax}", (mx >= lo) & (mx < hi)))
+        lo = hi
+    tiers.append(("bright", (mx >= _CUT) | torch.isnan(mx)))
+    return {k: float(v.sum()) / mx.numel() for k, v in tiers}
+
+
+def k2c_times(name, lam, dev) -> dict:
+    """K2c on rates ``lam`` (``name``'s): CUDA-event and profiler device
+    times with a CPU generator (``ms``, ``device_ms``: key words passed by
+    value) and with a CUDA one (``cuda_gen_ms``, ``cuda_gen_device_ms``:
+    key words drawn and read on the card), the plain version and
+    ``torch.poisson``, the bytes bound, the warps' tier mix, and the work
+    counts of its composite bound (``phase_primitives``): each element at
+    its own tier (a lower bound of its warp's), one Philox block per four
+    single draws, two draws per bright element (a PTRS acceptance at the
+    first attempt)."""
+    from rescan_line_sted_torch.kernels import primitives as prim
+    from rescan_line_sted_torch.kernels.poisson import poisson_flat
+
+    cpu_gen = torch.Generator().manual_seed(1)
+    dev_gen = torch.Generator(dev).manual_seed(1)
+    t = sampler_times(lam, cpu_gen, dev_gen, poisson_flat)
+    t["cuda_gen_ms"] = cuda_ms(lambda: poisson_flat(lam, dev_gen))
+    t["cuda_gen_device_ms"] = device_busy(
+        lambda: poisson_flat(lam, dev_gen))[0]
+    t["tiers"] = tier_mix(lam)
+    cn = prim.tiered_counts(lam, bright_draws=2)
+    t["counts"] = {"exps": cn["exps"], "philox_blocks": cn["uniforms"] / 4,
+                   "inv_terms": cn["inv_terms"],
+                   "knuth_rounds": cn["knuth_rounds"]}
+    log(f"time poisson_flat on {name} {json.dumps(t)}")
+    return t
+
+
+def k2c_draw_checks(name, lam, dev) -> dict:
+    """K2c count by count against its host reference on ``lam`` below the
+    bright tier, with a CPU generator and with a CUDA one."""
+    return {"cpu_generator": frames_draw_for_draw(name, lam, flat=True),
+            "cuda_generator": frames_draw_for_draw(
+                name, lam, flat=True,
+                generator=lambda: torch.Generator(dev).manual_seed(41))}
+
+
+OVER_SIGMA = 64.0   # sigma_exc giving D_in = 896 at chunk 32: beyond K1
+
+
+def phase_k1_bound(dev) -> dict:
+    """K1's host bound (``banded_fits``): band windows beyond it take the
+    routes without band windows on every device. sigma_exc = OVER_SIGMA
+    gives D_in = 896 at chunk 32. At full width (2048^2, R = 1.5) the
+    noise-free and per-step images come back with no K1 launch (per-step:
+    the W-major K2b route), finite, the noisy total within 5 sigma of the
+    noise-free one; at 16 x 1024 (cheap on the host) the card's noise-free
+    image matches the same call on CPU tensors within 1e-5 (max
+    relative)."""
+    from rescan_line_sted_torch import RescanGeometry, Grid
+    from rescan_line_sted_torch import rescanned_line_sted_image as image
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.imaging import rescan
+    from rescan_line_sted_torch.kernels.rescan_banded_fused import banded_fits
+
+    params, geom = flagship(sigma_exc=OVER_SIGMA)
+    d_in, d_out = rescan._illum_band(params, SIZE, geom.chunk)
+    check(d_out is not None and not banded_fits(d_in, d_out, geom.chunk),
+          f"sigma_exc {OVER_SIGMA}: windows {d_in}, {d_out} must exceed K1")
+    sample = siemens_star((SIZE, SIZE), device=dev)
+    gen = torch.Generator().manual_seed(11)
+
+    def run():
+        t0 = time.time()
+        clean = image(sample, params, geom, method="scan").image
+        noisy = image(sample, params, geom, gen, method="scan",
+                      noise_mode="per_step").image
+        torch.cuda.synchronize()
+        return clean, noisy, time.time() - t0
+
+    (clean, noisy, secs), launches = drive("over_bound", run)
+    check(not any(k.startswith("rescan_banded_fused") for k in launches)
+          and launches.get("poisson_rows_tiered", 0) == SIZE // geom.chunk,
+          f"over-bound windows must take the W-major K2b route, not K1: "
+          f"{launches}")
+    mu, tot = float(clean.double().sum()), float(noisy.double().sum())
+    z = (tot - mu) / math.sqrt(mu)
+    check(noisy.shape == clean.shape == geom.canvas_shape
+          and torch.isfinite(noisy).all() and abs(z) <= 5,
+          f"over-bound per-step image: total {tot} vs {mu}")
+    small = RescanGeometry(Grid(16, 1024), rescan_factor=1.5, chunk=32)
+    s = torch.rand((16, 1024), generator=torch.Generator().manual_seed(4))
+    want = image(s, params, small, method="scan", device="cpu").image
+    got = image(s, params, small, method="scan", device=dev).image
+    rel = float((got.cpu().double() - want.double()).abs().max()
+                / want.double().abs().max())
+    res = {"d_in": d_in, "d_out": d_out, "launches": launches,
+           "noisy_total_z": z, "two_images_s": secs,
+           "card_vs_cpu_16x1024_max_rel": rel}
+    log(f"over-bound band windows (sigma_exc {OVER_SIGMA}): "
+        f"{json.dumps(res)}")
+    check(rel <= 1e-5, f"over-bound route on the card vs CPU: rel err {rel}")
+    return res
 
 
 # ---- descanned line- and point-STED: K3 and K2b's callers ----------------
@@ -1053,22 +1176,24 @@ def phase_route_parity(dev) -> None:
               f"rel err {rel}")
 
 
-def caller_frames(module, run) -> torch.Tensor:
-    """A copy of the first frames ``module``'s engine hands K2b in
-    ``run()``."""
+def caller_frames(module, run, sampler="poisson_rows_tiered") -> torch.Tensor:
+    """A copy of the first rates ``module``'s engine hands its sampler in
+    ``run()``: K2b (``poisson_rows_tiered(lam, generator)``) or, with
+    ``sampler="maybe_poisson"``, K2c (``maybe_poisson(generator, lam)``)."""
     seen = []
-    orig = module.poisson_rows_tiered
+    orig = getattr(module, sampler)
 
-    def keep(lam, generator):
+    def keep(*args):
+        lam = args[0] if sampler == "poisson_rows_tiered" else args[1]
         if not seen:
             seen.append(lam.clone())
-        return orig(lam, generator)
+        return orig(*args)
 
-    module.poisson_rows_tiered = keep
+    setattr(module, sampler, keep)
     try:
         run()
     finally:
-        module.poisson_rows_tiered = orig
+        setattr(module, sampler, orig)
     return seen[0]
 
 
@@ -1405,7 +1530,9 @@ def k5_inputs(dev, n=32, h=SCAN_SIZE, w=SCAN_SIZE, wc=2 * SCAN_SIZE,
 def phase_k5(dev) -> dict:
     """K5 against its plain version: the 512^2 route's shape with
     duplicate offsets, frames as wide as the canvas, and frames wider
-    than the canvas (heavy wrap). Returns the worst errors."""
+    than the canvas (heavy wrap); deterministic over two calls, and bit
+    for bit the in-order per-frame adds where frames are no wider than the
+    canvas. Returns the worst errors."""
     from rescan_line_sted_torch.kernels.rescan_accumulate import (
         rescan_accumulate, rescan_accumulate_reference)
 
@@ -1424,8 +1551,24 @@ def phase_k5(dev) -> dict:
               f"K5 vs plain at {(n, h, w, wc)}: rel err {rel}")
         check(torch.equal(got, rescan_accumulate(*args)),
               "K5 must be deterministic")
+        if w <= wc:
+            check(torch.equal(got, in_order_adds(*args)),
+                  f"K5 at {(n, h, w, wc)} must equal the in-order per-frame "
+                  "adds bit for bit")
         worst = {"abs": max(worst["abs"], err), "rel": max(worst["rel"], rel)}
     return worst
+
+
+def in_order_adds(canvas, frames, offsets) -> torch.Tensor:
+    """The canvas plus each frame added in turn on the card (``canvas[:,
+    cols_n] += frames[n]``, n = 0, 1, ...): K5's sum order, for frames no
+    wider than the canvas."""
+    out = canvas.clone()
+    x = torch.arange(frames.shape[2], device=canvas.device)
+    for n in range(frames.shape[0]):
+        out[:, torch.remainder(offsets[n].long() + x, canvas.shape[1])] += \
+            frames[n]
+    return out
 
 
 # path: (size, R, b, model, per-step keyword sets, kernels that must run)
@@ -1624,14 +1767,23 @@ def phase_times_nobands(dev) -> dict:
         float(n * h * w), 4 * (n * h * w + 2 * canvas.numel()))
     k5["device_ms"] = device_busy(
         lambda: rescan_accumulate(canvas, frames, offsets))[0]
+    k5["library_device_ms"] = device_busy(
+        lambda: target.index_add_(1, cols, src))[0]
+    k5["device_over_bound"] = k5["device_ms"] / k5["bound_ms"]
     log(f"time rescan_accumulate {json.dumps(k5)}")
+
+    scatter = caller_frames(rescan, runs["nobands_512_scatter"][0],
+                            "maybe_poisson")
+    k2c = k2c_times("nobands_512_scatter's frames", scatter, canvas.device)
+    k2c["draws"] = k2c_draw_checks("nobands_512_scatter's frames", scatter,
+                                   canvas.device)
 
     hybrid = caller_frames(rescan, runs["nobands_512_subpixel"][0])
     k2b = sampler_times(hybrid, cpu_gen, dev_gen, poisson_rows_tiered)
     log(f"time poisson_rows_tiered on nobands_512_subpixel's frames "
         f"{json.dumps(k2b)}")
     return {"e2e": e2e, "busy": busy, "rescan_fused": k4,
-            "rescan_accumulate": k5, "k2b": k2b}
+            "rescan_accumulate": k5, "k2b": k2b, "k2c": k2c}
 
 
 # ---- rescanned point-STED (ISM): K2b's last caller, K2c -------------------
@@ -1866,7 +2018,7 @@ def phase_ism(dev) -> dict:
                         torch.Generator(dev).manual_seed(3),
                         poisson_rows_tiered)
     log(f"time poisson_rows_tiered on ism_256's frames {json.dumps(k2b)}")
-    k2b_draws = k2b_frames_draw_for_draw("ism_256", frames)
+    k2b_draws = frames_draw_for_draw("ism_256's frames", frames)
     return {"paths": paths, "errs": errs, "e2e": e2e, "busy": busy,
             "k2b": k2b, "k2b_draws": k2b_draws}
 
@@ -1928,14 +2080,16 @@ def prim_bound(name, rate) -> tuple[float, str]:
     return roofline(float(ops) * prim.FILL * reps, 4 * prim.FILL)
 
 
-def phase_primitives(dev, k1, k3, k4) -> dict:
+def phase_primitives(dev, k1, k3, k4, k2c) -> dict:
     """K6: every microkernel against its plain version; the rates
     (``primitive_rates``, counters reset before and read after); reps
     cuBLAS products against sgemm; the composite bound of K1 (flagship,
-    its frames' tiers counted per element), K3 (line_2048) and K4
-    (nobands_2048) from those rates, each held under the kernel's noisy
-    time measured in this run (``k1``, ``k3``, ``k4``: their timing dicts,
-    K3's and K4's with their counts)."""
+    its frames' tiers counted per element), K3 (line_2048), K4
+    (nobands_2048) and K2c (``k2c``: its timing dicts on the flagship
+    canvas and nobands_512_scatter's frames, with their counts) from those
+    rates, each held under the kernel's noisy time measured in this run
+    (``k1``, ``k3``, ``k4``: their timing dicts, K3's and K4's with their
+    counts)."""
     from rescan_line_sted_torch.kernels import primitives as prim
 
     errs, plain_ms = prim_checks(dev)
@@ -1984,6 +2138,9 @@ def phase_primitives(dev, k1, k3, k4) -> dict:
                          "windows": k4["placed"] / prim.WINDOW}}
     measured = {"rescan_banded_fused": k1["ms"], "line_sted_fused": k3["ms"],
                 "rescan_fused": k4["ms"]}
+    for where, t in k2c.items():
+        counts[f"poisson_flat on {where}"] = t["counts"]
+        measured[f"poisson_flat on {where}"] = t["ms"]
     bounds = {name: {**prim.composite_bound(cn, rates), "counts": cn}
               for name, cn in counts.items()}
     for name, bd in bounds.items():
@@ -2032,6 +2189,7 @@ def main() -> int:
     k1_err = phase_k1(dev)
     paths = phase_e2e(dev)
     times = phase_times(dev)          # rescan timings before the new phases
+    over_bound = phase_k1_bound(dev)
     k3_err = phase_k3(dev)
     paths.update(phase_descanned(dev))
     phase_route_parity(dev)
@@ -2042,8 +2200,10 @@ def main() -> int:
     nob = phase_times_nobands(dev)
     ism = phase_ism(dev)
     paths.update(ism["paths"])
+    k2c = {"flagship canvas": times["poisson_flat"],
+           "nobands_512_scatter frames": nob["k2c"]}
     k6 = phase_primitives(dev, times["rescan_banded_fused"],
-                          desc["line_sted_fused"], nob["rescan_fused"])
+                          desc["line_sted_fused"], nob["rescan_fused"], k2c)
     log(f"after timing: {clocks()}")
     log(f"smoke run took {time.time() - t0:.1f} s after the card was named")
 
@@ -2076,7 +2236,10 @@ def main() -> int:
          "launches": sum(k2c_paths.values()),
          "max_abs_err": sampler_err["poisson_flat"],
          "err_kind": "max |mean(kernel) - mean(plain)| over rates",
-         **times["poisson_flat"]})
+         **times["poisson_flat"],
+         "composite_bound_ms": k6["bounds"][
+             "poisson_flat on flagship canvas"]["total_ms"],
+         "nobands_512_scatter_frames": nob["k2c"]})
 
     k3_paths = launched("line_sted_fused")
     kernels.append(
@@ -2139,6 +2302,26 @@ def main() -> int:
              **entry})
     check(all(k["launches"] > 0 for k in kernels[-len(k6["entries"]):]),
           f"every K6 kernel must launch in primitive_rates: {k6['launches']}")
+    rule2 = {}
+    for name, t, composite in (
+            ("poisson_flat (flagship canvas)", times["poisson_flat"],
+             "poisson_flat on flagship canvas"),
+            ("poisson_flat (nobands_512_scatter frames)", nob["k2c"],
+             "poisson_flat on nobands_512_scatter frames"),
+            ("rescan_accumulate (k5_inputs)", nob["rescan_accumulate"],
+             None)):
+        rule2[name] = {
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "over_library": t["ms"] / t["library_ms"],
+            "over_bound": t["ms"] / t["bound_ms"],
+            "device_over_bound": t["device_ms"] / t["bound_ms"]}
+        if composite:
+            c = k6["bounds"][composite]["total_ms"]
+            rule2[name].update(cuda_gen_ms=t["cuda_gen_ms"], composite_ms=c,
+                               device_over_composite=t["device_ms"] / c)
+    log(json.dumps({"rule2": rule2}))
+    log(json.dumps({"k1_over_bound": over_bound}))
     log(json.dumps({"k2a_in_k1": desc["k2a"]}))
     busy = {**desc["busy"], **nob["busy"]}
     log(json.dumps({"device_busy_ms": {k: v["device_ms"]

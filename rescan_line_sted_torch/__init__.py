@@ -12,6 +12,8 @@ miss the engine's 1e-5 parity bar, so it is switched off here.
 
 import torch
 
+__version__ = "0.1.0"
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

@@ -8,6 +8,9 @@
   packages compute from the same numbers. The static ``*_support`` fields
   bound the PSF supports; the banded scan windows are built from them.
 
+Every class has ``replace(**changes)``, as the JAX package's params carry
+flax's.
+
 The port computes in float32 throughout; ``rescan_line_sted_torch``
 disables TF32 at import (a 10-bit mantissa would miss the 1e-5 parity bar).
 """
@@ -19,8 +22,17 @@ import dataclasses
 import numpy as np
 
 
+class Replaceable:
+    """``replace(**changes)``: a new frozen instance with ``changes``
+    applied (``dataclasses.replace``), as flax's ``struct.dataclass``
+    gives the JAX package's params and results."""
+
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
+
+
 @dataclasses.dataclass(frozen=True)
-class Grid:
+class Grid(Replaceable):
     """Simulation pixel grid. Convolutions are circular on this grid."""
 
     height: int
@@ -32,7 +44,7 @@ class Grid:
 
 
 @dataclasses.dataclass(frozen=True)
-class PointSTEDGeometry:
+class PointSTEDGeometry(Replaceable):
     """Static geometry of a 2D point-scanning STED acquisition: the scan
     visits every pixel, ``height * width`` positions, ``chunk`` at a time
     (``chunk`` must divide ``height * width``)."""
@@ -46,7 +58,7 @@ class PointSTEDGeometry:
 
 
 @dataclasses.dataclass(frozen=True)
-class LineSTEDGeometry:
+class LineSTEDGeometry(Replaceable):
     """Static geometry of a descanned line-STED acquisition: the line runs
     along y and is scanned along x, ``width`` positions with one image
     column each (``chunk`` must divide ``width``)."""
@@ -60,7 +72,7 @@ class LineSTEDGeometry:
 
 
 @dataclasses.dataclass(frozen=True)
-class RescanGeometry:
+class RescanGeometry(Replaceable):
     """Static geometry of a rescanned line-STED acquisition.
 
     The (re-binned) camera frame captured at scan position ``x0`` is
@@ -97,7 +109,7 @@ class RescanGeometry:
 
 
 @dataclasses.dataclass(frozen=True)
-class RescanPointGeometry:
+class RescanPointGeometry(Replaceable):
     """Static geometry of a rescanned point-STED acquisition (2D pixel
     reassignment, ISM).
 
@@ -149,7 +161,7 @@ def _aperture_support(radius, pad: int = 2) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
-class PointSTEDParams:
+class PointSTEDParams(Replaceable):
     """Physics of a point-STED acquisition.
 
     * ``sigma_exc`` / ``sigma_det``  Gaussian excitation / detection PSF
@@ -191,7 +203,7 @@ class PointSTEDParams:
 
 
 @dataclasses.dataclass(frozen=True)
-class LineSTEDParams:
+class LineSTEDParams(Replaceable):
     """Physics of a (de/re)scanned line-STED acquisition.
 
     * ``sigma_exc``      Gaussian width of the excitation line profile (px).

@@ -110,10 +110,10 @@ static __device__ __noinline__ float sample_poisson_at(float lam,
 // (single_draw of that index; asked only where the tier needs it). ONE
 // tier serves all 32 x N rates of the warp: it comes from their max, so
 // EVERY lane of the warp must call this; lanes without elements pass
-// rates of 0.
-template <int N, typename Uniform, typename Index>
-static __device__ __forceinline__ void tiered(float (&lam)[N], Uniform uniform_of,
-                                              Index index_of, uint2 key) {
+// rates of 0. The bright tier draws each element with bright(rate, index).
+template <int N, typename Uniform, typename Index, typename Bright>
+static __device__ __forceinline__ void tiered_with(float (&lam)[N], Uniform uniform_of,
+                                                   Index index_of, Bright bright) {
   uint32_t mxb = 0u;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -127,7 +127,7 @@ static __device__ __forceinline__ void tiered(float (&lam)[N], Uniform uniform_o
 #pragma unroll
     for (int i = 0; i < N; ++i) lam[i] = 0.0f;
   } else if (mxb > 0x7f800000u || mx >= kCut) {
-    for (int i = 0; i < N; ++i) lam[i] = sample_poisson_at(lam[i], index_of(i), key);
+    for (int i = 0; i < N; ++i) lam[i] = bright(lam[i], index_of(i));
   } else if (mx < 1e-3f) {
 #pragma unroll
     for (int i = 0; i < N; ++i) lam[i] = uniform_of(i) < lam[i] ? 1.0f : 0.0f;
@@ -146,6 +146,15 @@ static __device__ __forceinline__ void tiered(float (&lam)[N], Uniform uniform_o
   } else {
     for (int i = 0; i < N; ++i) lam[i] = inversion<24>(uniform_of(i), lam[i]);
   }
+}
+
+// The ladder with sample_poisson's bright tier (K1, K2b, K3, K4).
+template <int N, typename Uniform, typename Index>
+static __device__ __forceinline__ void tiered(float (&lam)[N], Uniform uniform_of,
+                                              Index index_of, uint2 key) {
+  tiered_with(lam, uniform_of, index_of, [key](float rate, unsigned long long index) {
+    return sample_poisson_at(rate, index, key);
+  });
 }
 
 // The ladder for N elements of consecutive indices index0 + i whose

@@ -407,9 +407,20 @@ cudaError_t launch(const K1Args& a, size_t smem, cudaStream_t stream) {
 
 }  // namespace
 
+// The bytes of both layouts, bytes[0] resident and bytes[1] generator, so
+// that the host's bound (kernels/rescan_banded_fused.py banded_fits) can be
+// held to this file's formula. Launches nothing; returns 0.
+extern "C" int rls_rescan_banded_fused_smem(int d_in, int dob, int chunk, int b,
+                                            int n_spread, long long* bytes) {
+  bytes[0] = static_cast<long long>(banded_smem_bytes(false, d_in, dob, chunk, b, n_spread));
+  bytes[1] = static_cast<long long>(banded_smem_bytes(true, d_in, dob, chunk, b, n_spread));
+  return 0;
+}
+
 // Launches K1. *variant reports the shared-memory layout it took: 0 with G
 // resident, 1 with G as its Toeplitz generator (band windows too wide for
-// the resident layout), -1 when neither fits (nothing is launched).
+// the resident layout), -1 when neither fits (nothing is launched; the
+// rescan engine's host bound banded_fits keeps such windows away).
 // n_spread > 0 selects NUFFT spreading placement (q must be 2).
 extern "C" int rls_rescan_banded_fused(const float* g_t, const float* ill,
                                        const float* sample_ext, const int* sa_lo,

@@ -26,7 +26,11 @@ import dataclasses
 
 import torch
 
-from rescan_line_sted_torch.config import _aperture_support, _support
+from rescan_line_sted_torch.config import (
+    Replaceable,
+    _aperture_support,
+    _support,
+)
 from rescan_line_sted_torch.device import as_sample
 from rescan_line_sted_torch.imaging import analytic
 from rescan_line_sted_torch.imaging import boundary as boundaries
@@ -40,7 +44,7 @@ from rescan_line_sted_torch.physics.noise import maybe_poisson
 
 
 @dataclasses.dataclass(frozen=True)
-class AcquisitionResult:
+class AcquisitionResult(Replaceable):
     image: torch.Tensor
     dose: DoseReport
 

@@ -26,9 +26,10 @@ Methods:
 
 Without band windows (a model whose excitation is not the Gaussian
 envelope, a frame no wider than the windows, a binning that misaligns
-them) the scan takes the JAX package's TPU routes (``_full_frame_scan``),
-whatever the device (a CUDA sample launches the kernels, a CPU one runs
-their plain versions):
+them, or windows beyond K1's shared memory, ``banded_fits``: D_in above
+~850 at chunk 32) the scan takes the JAX package's TPU routes
+(``_full_frame_scan``), whatever the device (a CUDA sample launches the
+kernels, a CPU one runs their plain versions):
 
 ==========  =========  ============  ====================================
 placement   noise      use_pallas    route
@@ -88,6 +89,7 @@ from rescan_line_sted_torch.kernels.rescan_accumulate import (
     rescan_accumulate,
 )
 from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+    banded_fits,
     rescan_banded_fused,
 )
 from rescan_line_sted_torch.kernels.rescan_fused import rescan_fused, runs_fit
@@ -386,7 +388,8 @@ def _banded_inputs(sample, params, geom, reassignment="auto"):
     rational steps place through classes (``_apply_class_residues``); any
     other subpixel step through K1's NUFFT spreading mode
     (``_apply_nufft_deconv``). Returns None where the banded route does not
-    apply (no band windows, or windows that do not fit the canvas).
+    apply (no band windows, windows that do not fit the canvas, or windows
+    beyond K1's shared memory, ``banded_fits``, whatever the device).
     """
     reassignment = _resolve_reassignment(geom, reassignment)
     h, w = geom.grid.shape
@@ -401,10 +404,13 @@ def _banded_inputs(sample, params, geom, reassignment="auto"):
         pq = (None, 1)                     # round() is integral for any R
     else:
         pq = _rational_step(step, chunk)   # None: no classes, NUFFT mode
-    tail = _NUFFT_P // 2 - 1 if pq is None else 0   # spread rows past dob
+    n_spread = _NUFFT_P // 2 if pq is None else 0
     windowed = _illum_band(params, w, chunk, b)
     if (windowed is None or windowed[1] is None or chunk % 8
-            or (windowed[1] // b + tail + 7) // 8 * 8 + 8 > wc):
+            or (windowed[1] // b + max(n_spread - 1, 0) + 7) // 8 * 8 + 8
+            > wc
+            or not banded_fits(windowed[0], windowed[1] // b, chunk, b,
+                               n_spread)):
         return None
     d_in, d_out = windowed
 

@@ -12,9 +12,10 @@ at 0 and NaN rates give NaN counts on both routes. The kernels draw their
 two Philox key words from ``generator``; the plain version draws from it
 directly, so the two routes give different (equally distributed) counts.
 
-``poisson_rows_tiered_reference`` is K2b draw for draw: numpy Philox4x32-10
-on the kernel's counters, the kernel's uniforms and tiers, and the plain
-quantile function, so a card run can be checked count by count.
+``poisson_rows_tiered_reference`` is K2b (or, with ``flat=True``, K2c) draw
+for draw below the bright tier: numpy Philox4x32-10 on the kernel's
+counters, the kernel's uniforms and tiers, and the plain quantile function,
+so a card run can be checked count by count.
 """
 
 from __future__ import annotations
@@ -85,24 +86,39 @@ def single_draw_uniforms(n: int, key: tuple[int, int]) -> np.ndarray:
             + np.float32(2.0 ** -24))
 
 
-def poisson_rows_tiered_reference(lam: torch.Tensor,
-                                  key: tuple[int, int]) -> torch.Tensor:
+def warp_tiers(lam: torch.Tensor, flat: bool = False) -> torch.Tensor:
+    """The max rate each element's warp tiers by, shaped as ``lam``: K2b's
+    warp covers 32 adjacent columns of a row; K2c's (``flat``) 128
+    consecutive elements of the flattened tensor. NaN where the warp holds
+    a NaN."""
+    lam = lam.detach().clamp_min(0.0)
+    group = 128 if flat else 32
+    cols = lam.numel() if flat or lam.ndim == 0 else lam.shape[-1]
+    x = lam.reshape(-1, cols)
+    mx = F.pad(x, (0, -cols % group)).reshape(x.shape[0], -1, group)
+    mx = torch.where(torch.isnan(mx).any(-1), float("nan"), mx.amax(-1))
+    return mx.repeat_interleave(group, dim=1)[:, :cols].reshape(lam.shape)
+
+
+def poisson_rows_tiered_reference(lam: torch.Tensor, key: tuple[int, int],
+                                  flat: bool = False) -> torch.Tensor:
     """K2b's counts for Philox key words ``key`` (``_build.seeds_from`` of
     the generator K2b is given), on the host: one tier per 32 adjacent
-    columns of a row, from their max. Covers the zero, Bernoulli and
-    inversion tiers; raises where a warp would take the bright tier (its
-    Knuth / PTRS draws are checked by their statistics). The card's ``expf``
-    and CDF sums may differ from these by an ulp, so a count may differ by
-    one where a uniform sits on a CDF boundary."""
+    columns of a row, from their max; with ``flat``, K2c's: one tier per
+    128 consecutive elements (a warp of four elements per thread), whose
+    single-draw uniforms are those of the flat index. Covers the zero,
+    Bernoulli and inversion tiers; raises where a warp would take the
+    bright tier (its Knuth / PTRS draws are checked by their statistics).
+    The card's ``expf`` and CDF sums may differ from these by an ulp, so a
+    count may differ by one where a uniform sits on a CDF boundary."""
     lam = lam.detach().to("cpu", torch.float32).clamp_min(0.0)
-    cols = lam.shape[-1]
+    cols = lam.numel() if flat or lam.ndim == 0 else lam.shape[-1]
     rows = lam.numel() // cols
     x = lam.reshape(rows, cols)
-    mx = F.pad(x, (0, -cols % 32)).reshape(rows, -1, 32).amax(-1)
+    mx = warp_tiers(x, flat)
     if bool((torch.isnan(mx) | (mx >= _CUT)).any()):
         raise ValueError("rates at or above the bright-tier cut (or NaN): "
-                         "K2b draws them with Knuth / PTRS")
-    mx = mx.repeat_interleave(32, dim=1)[:, :cols]
+                         "the kernel draws them with Knuth / PTRS")
     u = torch.from_numpy(single_draw_uniforms(rows * cols, key)).reshape(
         rows, cols)
     out = (u < x).to(torch.float32)                          # Bernoulli tier
@@ -135,14 +151,18 @@ def poisson_rows_tiered(lam: torch.Tensor,
 
 def poisson_flat(lam: torch.Tensor, generator: torch.Generator
                  ) -> torch.Tensor:
-    """K2c: Poisson counts of ``lam`` (any shape), Knuth + PTRS per element."""
+    """K2c: Poisson counts of ``lam`` (any shape), K2a's tiers per warp of
+    128 consecutive rates. The key words come from ``generator`` without a
+    host-device sync (``_build.key_words``): a CUDA generator leaves them
+    on the card for the kernel to read."""
     if not lam.is_cuda:
         return poisson_reference(lam, generator)
     _build.require_cuda_f32("poisson_flat", lam)
     out = torch.empty_like(lam)
-    s0, s1 = _build.seeds_from(generator)
+    s0, s1, keys = _build.key_words(generator, lam.device)
     code = _build.lib().rls_poisson_flat(
         lam.data_ptr(), out.data_ptr(), lam.numel(), s0, s1,
+        None if keys is None else keys.data_ptr(),
         _build.stream_handle(lam.device))
     _build.check(code, "poisson_flat")
     _build.LAUNCHES["poisson_flat"] += 1

@@ -438,14 +438,17 @@ def primitive_rates(device=None) -> dict:
     return rates
 
 
-def tiered_counts(lam: torch.Tensor) -> dict:
+def tiered_counts(lam: torch.Tensor, bright_draws: int = PTRS_DRAWS
+                  ) -> dict:
     """Sampler work of K2a's tiered ladder on rates ``lam``, counted per
     element at the element's own tier (a lower bound of the warp's tier):
     ``uniforms``, one per element of rate in (0, 10); ``exps``, one per
     element of rate 1e-3 or more (the Bernoulli tier takes none; a bright
     element's PTRS takes logs); CDF-inversion terms (kmax per element in
-    [1e-3, 10)); Knuth rounds (a bright element's ``PTRS_DRAWS`` draws,
-    each at least a round's work)."""
+    [1e-3, 10)); Knuth rounds (a bright element's ``bright_draws`` draws,
+    each at least a round's work: all ``PTRS_DRAWS`` where every attempt
+    runs, 2 where the sampler stops at the first acceptance, as K2c's
+    does)."""
     lam = lam.clamp_min(0)
     terms = 0
     lo = 1e-3
@@ -454,7 +457,7 @@ def tiered_counts(lam: torch.Tensor) -> dict:
         lo = hi
     return {"uniforms": int(((lam > 0) & (lam < _CUT)).sum()),
             "exps": int((lam >= 1e-3).sum()), "inv_terms": terms,
-            "knuth_rounds": PTRS_DRAWS * int((lam >= _CUT).sum())}
+            "knuth_rounds": bright_draws * int((lam >= _CUT).sum())}
 
 
 def knuth_counts(lam: torch.Tensor) -> dict:

@@ -6,10 +6,14 @@ engine of the rescan scan adds each (re-binned) camera frame into the
 canvas at a per-frame column offset, wrapping circularly on the canvas.
 
 K5 (``csrc/rescan_accumulate.cu``) lets one thread own each canvas element
-and walk the frames in order: deterministic, no atomics, and any frame
-width, wider than the canvas included. The JAX wrapper gave way to XLA's
-scatter when a frame plus the TPU's 8-row alignment padding was wider than
-the canvas (``w_pad > wc``); K5 needs no padding, so it takes every width.
+and walk the frames in order, several frames' loads in flight, skipping the
+frames that miss its block's columns: deterministic, no atomics, the sums
+in the order canvas, frame 0, 1, ..., and any frame width, wider than the
+canvas included. The JAX wrapper gave way to XLA's scatter when a frame
+plus the TPU's 8-row alignment padding was wider than the canvas (``w_pad
+> wc``); K5 needs no padding, so it takes every width. The kernel reduces
+int32 or int64 offsets mod Wc itself, so conforming inputs reach it with
+no eager op before the launch.
 """
 
 from __future__ import annotations
@@ -60,16 +64,22 @@ def rescan_accumulate(canvas: torch.Tensor, frames: torch.Tensor,
     _check(canvas, frames, offsets)
     n, h, w = frames.shape
     wc = canvas.shape[1]
-    if h > 65535:
-        raise ValueError("rescan_accumulate: at most 65535 canvas rows")
-    offs = torch.remainder(offsets.to(canvas.device, torch.int64),
-                           wc).to(torch.int32)
-    canvas, frames = canvas.contiguous(), frames.contiguous()
-    _build.require_cuda_f32("rescan_accumulate", canvas, frames, offs)
+    if h > 4 * 65535:
+        raise ValueError("rescan_accumulate: at most 262140 canvas rows")
+    # conforming inputs pass as they are; others are converted once
+    if offsets.device != canvas.device or not offsets.is_contiguous() \
+            or offsets.dtype not in (torch.int32, torch.int64):
+        offsets = offsets.to(canvas.device, torch.int64).contiguous()
+    if not frames.is_contiguous():
+        frames = frames.contiguous()
+    if not canvas.is_contiguous():
+        canvas = canvas.contiguous()
+    _build.require_cuda_f32("rescan_accumulate", canvas, frames)
     out = torch.empty_like(canvas)
     code = _build.lib().rls_rescan_accumulate(
-        canvas.data_ptr(), frames.data_ptr(), offs.data_ptr(),
-        out.data_ptr(), h, wc, n, w, _build.stream_handle(canvas.device))
+        canvas.data_ptr(), frames.data_ptr(), offsets.data_ptr(),
+        out.data_ptr(), h, wc, n, w, int(offsets.dtype == torch.int64),
+        _build.stream_handle(canvas.device))
     _build.check(code, "rescan_accumulate")
     _build.LAUNCHES["rescan_accumulate"] += 1
     return out

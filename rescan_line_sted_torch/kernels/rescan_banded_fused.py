@@ -23,6 +23,12 @@ placement modes. Per chunk of C scan positions the scan
 The tables and placement scalars are built here in plain torch (with
 floor division and Python-sign modulo, as the JAX wrapper does), and the
 kernel (``csrc/rescan_banded_fused.cu``) or the plain loop consumes them.
+
+K1's limit is decided on the host, the same on every device:
+``banded_fits`` holds the shared memory of K1's smaller layout to Hopper's
+opt-in limit per block, and the rescan engine sends band windows beyond it
+to its routes without band windows (``imaging/rescan.py``), as the JAX
+package declines its banded kernel above a VMEM bound.
 """
 
 from __future__ import annotations
@@ -33,6 +39,44 @@ import torch
 
 from rescan_line_sted_torch.kernels import _build, fftconv
 from rescan_line_sted_torch.kernels.poisson import poisson_reference
+
+# K1's shared-memory layout (csrc/rescan_banded_fused.cu: kLanes, kPassRows,
+# gen_len, banded_smem_bytes); a card test holds this mirror to the C entry
+# rls_rescan_banded_fused_smem
+_LANES = 16
+_PASS_ROWS = 512
+# dynamic shared memory a block may opt into on Hopper (H100, H200): a
+# constant, not a device query, so the route never depends on the card
+SMEM_OPTIN = 232448
+
+
+def banded_smem_bytes(d_in: int, dob: int, chunk: int, binning: int = 1,
+                      n_spread: int = 0) -> int:
+    """Dynamic shared memory (bytes) of K1's smaller layout, which keeps
+    the binned detection window as its Toeplitz generator: the two-slot
+    frame-row ring, the sample window, the generator (rounded to 4
+    floats), the illumination window and the chunk's spreading taps."""
+    gen = (binning * (dob - 1) + d_in + 3) // 4 * 4
+    return 4 * ((2 * _PASS_ROWS + d_in) * _LANES + gen
+                + chunk * (d_in + 2 * n_spread))
+
+
+def banded_fits(d_in: int, dob: int, chunk: int, binning: int = 1,
+                n_spread: int = 0) -> bool:
+    """Whether K1 runs these band windows (``dob = d_out / binning``;
+    ``n_spread`` taps per parity in NUFFT mode, else 0)."""
+    return banded_smem_bytes(d_in, dob, chunk, binning,
+                             n_spread) <= SMEM_OPTIN
+
+
+def kernel_smem_bytes(d_in: int, dob: int, chunk: int, binning: int = 1,
+                      n_spread: int = 0) -> tuple[int, int]:
+    """The C entry's own byte counts of K1's (resident, generator)
+    layouts; builds the kernel library (needs nvcc, no card)."""
+    out = (ctypes.c_longlong * 2)()
+    _build.lib().rls_rescan_banded_fused_smem(d_in, dob, chunk, binning,
+                                              n_spread, out)
+    return int(out[0]), int(out[1])
 
 
 def _check(h, w, *, wc, d_in, d_out, chunk, binning, n_spread=0):
@@ -237,11 +281,12 @@ def rescan_banded_fused(
         _build.stream_handle(sample_y.device), ctypes.byref(variant))
     _build.check(code, "rescan_banded_fused")
     if variant.value < 0:
-        raise NotImplementedError(
-            f"band windows d_in={d_in}, d_out={d_out} at chunk {chunk} "
-            "exceed the card's shared memory per block even with the "
-            "detection factor kept as its Toeplitz generator (ROADMAP.md "
-            "open item 6.3)")
+        raise RuntimeError(
+            f"rescan_banded_fused: internal error: the host bound "
+            f"banded_fits and K1's layout disagree (band windows d_in="
+            f"{d_in}, d_out={d_out} at chunk {chunk} fit neither layout of "
+            "this card's shared memory); the rescan engine routes such "
+            "windows around K1")
     name = "rescan_banded_fused" + ("_spread" if n_spread else "") + (
         "_wide" if variant.value == 1 else "")
     _build.LAUNCHES[name] += 1

@@ -13,12 +13,13 @@ import dataclasses
 
 import torch
 
+from rescan_line_sted_torch.config import Replaceable
 from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.physics import psf as psfs
 
 
 @dataclasses.dataclass(frozen=True)
-class DoseReport:
+class DoseReport(Replaceable):
     """Per-pixel photodose and signal ledger for one acquisition (all f32
     0-d tensors; ``num_steps`` is the scan-position count)."""
 

@@ -115,3 +115,85 @@ def test_plain_noise_statistics():
     tot, ref = float(noisy[0].double().sum()), float(clean.double().sum())
     assert abs(tot - ref) <= 5 * np.sqrt(ref)
 
+
+
+# ---- K1's host bound: band windows beyond its shared memory -----------------
+
+def _layout_bytes(d_in, dob, chunk, b, n_spread):
+    """K1's generator layout (``csrc/rescan_banded_fused.cu``,
+    ``banded_smem_bytes(gen=true)``): a ring of 2 x 512 frame rows and the
+    sample window, 16 lanes each, the generator of b (dob - 1) + d_in
+    values rounded to 4, the illumination window and the spreading taps."""
+    gen = -(-(b * (dob - 1) + d_in) // 4) * 4
+    return 4 * ((1024 + d_in) * 16 + gen + chunk * (d_in + 2 * n_spread))
+
+
+@pytest.mark.parametrize("d_in,dob,chunk,b,n_spread,fits", [
+    (128, 128, 32, 1, 0, True), (256, 256, 32, 1, 4, True),
+    (768, 768, 32, 1, 0, True), (768, 896, 32, 1, 4, True),
+    (896, 896, 32, 1, 0, False), (896, 1024, 32, 1, 4, False),
+    (384, 384, 64, 1, 0, True), (512, 512, 64, 1, 0, False),
+    (768, 384, 32, 2, 0, True), (1280, 640, 16, 2, 0, False),
+    (832, 832, 32, 1, 0, True), (840, 840, 32, 1, 0, False)])
+def test_banded_fits_layout_formula(d_in, dob, chunk, b, n_spread, fits):
+    """``banded_fits`` against the generator layout's bytes, on both sides
+    of Hopper's 232448-byte opt-in limit."""
+    from rescan_line_sted_torch.kernels import rescan_banded_fused as k1
+
+    want = _layout_bytes(d_in, dob, chunk, b, n_spread)
+    assert k1.banded_smem_bytes(d_in, dob, chunk, b, n_spread) == want
+    assert k1.banded_fits(d_in, dob, chunk, b, n_spread) == fits
+    assert fits == (want <= 232448) == (want <= k1.SMEM_OPTIN)
+
+
+def test_wide_excitation_leaves_k1_on_every_device():
+    """sigma_exc = 64 at chunk 32 gives band windows D_in = 896 (beyond
+    the bound): ``_banded_inputs`` declines them from the geometry alone,
+    before any tensor work, so the route cannot depend on the device."""
+    import rescan_line_sted_torch as T
+    from rescan_line_sted_torch.imaging import rescan as trescan
+
+    params = T.RescanParams.create(sigma_exc=64.0, depletion=4.0)
+    geom = T.RescanGeometry(T.Grid(8, 2048), rescan_factor=1.5, chunk=32)
+    d_in, d_out = trescan._illum_band(params, 2048, 32)
+    assert d_out is not None and d_in == 896
+    assert trescan._banded_inputs(torch.zeros(8, 2048), params, geom) is None
+    narrow = T.RescanParams.create(sigma_exc=48.0, depletion=4.0)
+    assert trescan._banded_inputs(torch.zeros(8, 2048), narrow,
+                                  geom) is not None
+
+
+@pytest.mark.parametrize("rf,b", [(2.0, 1), (1.5, 1), (1.0 + np.pi / 16, 1),
+                                  (3.0, 2)])
+def test_over_bound_windows_take_the_full_frame_scan(rf, b, monkeypatch):
+    """With the bound patched to 0 every band window is over it: the scan
+    takes ``_full_frame_scan`` (never K1's wrapper) and its noise-free
+    image matches the JAX package's scan within 1e-5 (max relative)."""
+    import rescan_line_sted_torch as T
+    import rescan_line_sted_tpu as J
+    from rescan_line_sted_torch.imaging import rescan as trescan
+    from rescan_line_sted_torch.kernels import rescan_banded_fused as k1
+    from rescan_line_sted_tpu.imaging import rescanned_line_sted_image
+
+    kw = dict(sigma_exc=2.0, sigma_det=2.0, stripe_period=8.0,
+              depletion=4.0, brightness=40.0)
+    h, w = 32, 256
+    s = np.random.default_rng(7).random((h, w), np.float32)
+    tg = T.RescanGeometry(T.Grid(h, w), rescan_factor=rf, binning=b,
+                          chunk=16)
+    jg = J.RescanGeometry(J.Grid(h, w), rescan_factor=rf, binning=b,
+                          chunk=16)
+    tp = T.RescanParams.create(**kw)
+    assert trescan._banded_inputs(torch.from_numpy(s), tp, tg) is not None
+    monkeypatch.setattr(k1, "SMEM_OPTIN", 0)
+    calls = []
+    full = trescan._full_frame_scan
+    monkeypatch.setattr(trescan, "_full_frame_scan",
+                        lambda *a, **k: (calls.append(1), full(*a, **k))[1])
+    monkeypatch.setattr(trescan, "rescan_banded_fused", None)  # never called
+    got = T.rescanned_line_sted_image(torch.from_numpy(s), tp, tg,
+                                      method="scan", device="cpu").image
+    want = rescanned_line_sted_image(
+        jnp.asarray(s), J.RescanParams.create(**kw), jg, method="scan").image
+    assert calls == [1]
+    assert _rel(got, want) <= 1e-5

@@ -726,3 +726,179 @@ def test_primitive_rates_and_bound(cuda):
                               "windows": 10}, rates)
     assert t["total_ms"] == pytest.approx(
         t["conv_ms"] + t["sampler_ms"] + t["placement_ms"])
+
+
+# ---- K1's host bound -------------------------------------------------------
+
+def test_banded_fits_matches_the_kernel_layout(cuda):
+    """``banded_fits`` against the C entry's own byte counts of K1's
+    layouts, over a grid of band windows that crosses Hopper's opt-in
+    limit (every argument of the formula varied)."""
+    from rescan_line_sted_torch.kernels import rescan_banded_fused as k1
+
+    crossed = set()
+    for d_in in range(128, 1281, 64):
+        for extra in (0, 128):
+            for chunk, b, n_spread in ((32, 1, 0), (32, 1, 4), (16, 2, 0),
+                                       (64, 1, 0), (8, 4, 4)):
+                dob = (d_in + extra) // b
+                resident, gen = k1.kernel_smem_bytes(d_in, dob, chunk, b,
+                                                     n_spread)
+                assert gen == k1.banded_smem_bytes(d_in, dob, chunk, b,
+                                                   n_spread)
+                assert gen <= resident
+                fits = k1.banded_fits(d_in, dob, chunk, b, n_spread)
+                assert fits == (gen <= k1.SMEM_OPTIN)
+                crossed.add(fits)
+    assert crossed == {True, False}
+    assert torch.cuda.get_device_properties(0).shared_memory_per_block_optin \
+        >= k1.SMEM_OPTIN
+
+
+def test_over_bound_windows_give_an_image_without_k1(cuda):
+    """sigma_exc = 64 gives band windows D_in = 896 at chunk 32, beyond
+    K1's bound: the card takes the same route as the CPU (no K1 launch, no
+    NotImplementedError), its noise-free image within 1e-5 of the CPU's,
+    and per-step noise gives a finite image."""
+    params = T.RescanParams.create(sigma_exc=64.0, sigma_det=3.0,
+                                   depletion=4.0, brightness=1.0)
+    geom = T.RescanGeometry(T.Grid(16, 1024), rescan_factor=1.5, chunk=32)
+    s = torch.rand((16, 1024), generator=torch.Generator().manual_seed(4))
+    k1 = ("rescan_banded_fused", "rescan_banded_fused_spread",
+          "rescan_banded_fused_wide", "rescan_banded_fused_spread_wide")
+    before = dict(_build.LAUNCHES)
+    want = T.rescanned_line_sted_image(s, params, geom, method="scan",
+                                       device="cpu").image
+    got = T.rescanned_line_sted_image(s, params, geom, method="scan").image
+    noisy = T.rescanned_line_sted_image(
+        s, params, geom, torch.Generator().manual_seed(2), method="scan",
+        noise_mode="per_step").image
+    torch.cuda.synchronize()
+    assert got.is_cuda and _rel(got, want) <= 1e-5
+    assert noisy.shape == geom.canvas_shape and torch.isfinite(noisy).all()
+    assert all(_build.LAUNCHES[k] == before[k] for k in k1)
+
+
+# ---- K2c: tiers per warp of 128 rates, settled bright draws ------------------
+
+def _flat_rates(n, seed, scale, bright_every=0):
+    """Rates varying over each warp of 128; every ``bright_every``-th warp
+    gets one rate of 12 (the bright tier)."""
+    lam = scale * torch.rand(n, generator=torch.Generator().manual_seed(seed))
+    lam[:: 97] = 0.0
+    if bright_every:
+        lam[5::128 * bright_every] = 12.0
+    return lam
+
+
+@pytest.mark.parametrize("n,scale,misalign", [
+    (1 << 18, 0.5, 0), (1 << 18, 8.0, 0), (1 << 18 | 77, 1.2, 0),
+    (100003, 4.0, 1), (4099, 0.02, 3)])
+def test_flat_draw_for_draw(cuda, n, scale, misalign):
+    """K2c against ``poisson_rows_tiered_reference(flat=True)`` on the same
+    Philox stream, count by count, on every warp below the bright tier
+    (some warps are bright and are left out): ragged ends, and views whose
+    data does not start on 16 bytes (the scalar path)."""
+    from rescan_line_sted_torch.kernels.poisson import _CUT, warp_tiers
+
+    full = _flat_rates(n + misalign, n, scale, bright_every=7)
+    lam, dev = full[misalign:], full.to(cuda)[misalign:]
+    assert (dev.data_ptr() % 16 == 0) == (misalign == 0)
+    got = poisson_flat(dev, torch.Generator().manual_seed(n)).cpu()
+    key = _build.seeds_from(torch.Generator().manual_seed(n))
+    bright = warp_tiers(lam, flat=True) >= _CUT
+    want = poisson_rows_tiered_reference(torch.where(bright, 0.0, lam), key,
+                                         flat=True)
+    diff = torch.where(bright, 0.0, (got - want).abs())
+    assert bool(bright.any()) and bool((~bright).any())
+    assert float(diff.max()) <= 1 and int((diff > 0).sum()) <= 4
+    assert (got[lam == 0] == 0).all()
+
+
+@pytest.mark.parametrize("lam_val,with_bright", [
+    (7.0, True), (2.5, True), (12.0, False), (40.0, False), (300.0, False)])
+def test_flat_bright_tier_statistics(cuda, lam_val, with_bright):
+    """The bright tier with its loops ended once settled: Knuth (rates
+    under 10 in a warp whose max is 10) and PTRS, moments and chi-square
+    against the Poisson pmf (Knuth's 24 rounds put their tail mass on
+    24)."""
+    from scipy import stats
+
+    n = 1 << 19
+    lam = torch.full((n,), lam_val)
+    if with_bright:
+        lam[::128] = 10.0
+    x = poisson_flat(lam.to(cuda), torch.Generator().manual_seed(17)).cpu()
+    v = x.double().numpy()
+    if with_bright:
+        v = np.delete(v, np.arange(0, n, 128))
+    m = v.size
+    assert (v == np.round(v)).all() and (v >= 0).all()
+    assert abs(v.mean() - lam_val) <= 5 * np.sqrt(lam_val / m)
+    assert abs(v.var() - lam_val) <= 5 * np.sqrt((lam_val + 2 * lam_val ** 2)
+                                                 / m)
+    kmax = 24 if lam_val < 10 else int(lam_val + 8 * np.sqrt(lam_val) + 10)
+    pmf = stats.poisson.pmf(np.arange(kmax + 1), lam_val)
+    pmf[-1] += stats.poisson.sf(kmax, lam_val)
+    obs = np.bincount(v.astype(np.int64), minlength=kmax + 1)[:kmax + 1]
+    exp = pmf * m
+    keep = exp > 5
+    chi2 = ((obs[keep] - exp[keep]) ** 2 / exp[keep]).sum()
+    assert stats.chi2.sf(chi2, max(int(keep.sum()) - 1, 1)) > 1e-6
+
+
+def test_flat_cuda_generator_never_syncs(cuda):
+    """With a CUDA generator K2c draws its key words on the card and reads
+    them there: the call raises under sync-debug mode "error" if anything
+    synchronises. Its counts equal the host reference under the words that
+    ``seeds_from`` draws from the same generator state."""
+    lam = _flat_rates(1 << 16, 3, 3.0).to(cuda)
+    poisson_flat(lam, torch.Generator(cuda).manual_seed(0))   # build, warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = poisson_flat(lam, torch.Generator(cuda).manual_seed(9))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    key = _build.seeds_from(torch.Generator(cuda).manual_seed(9))
+    want = poisson_rows_tiered_reference(lam, key, flat=True)
+    diff = (got.cpu() - want).abs()
+    assert float(diff.max()) <= 1 and int((diff > 0).sum()) <= 4
+    with pytest.raises(ValueError, match="generator"):
+        _build.key_words(torch.Generator(cuda), torch.device("cpu"))
+
+
+# ---- K5: loads in flight, missed frames skipped, the sum order kept ----------
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n,h,w,wc", [
+    (32, 512, 512, 1024), (20, 16, 64, 64), (37, 9, 100, 333),
+    (3000, 5, 40, 700)])
+def test_rescan_accumulate_bitwise_in_order(cuda, dtype, n, h, w, wc):
+    """K5 (w <= wc) bitwise equal to an in-order loop of per-frame adds on
+    the card (``canvas[:, cols_n] += frames[n]``, n = 0, 1, ...: the canvas
+    value first, then each frame), and over repeated calls; offsets of
+    either integer type, negative and beyond wc, duplicated; more frames
+    than one pass of staged offsets (3000)."""
+    from rescan_line_sted_torch.kernels.rescan_accumulate import (
+        rescan_accumulate, rescan_accumulate_reference)
+
+    g = torch.Generator().manual_seed(n + w)
+    canvas = torch.rand((h, wc), generator=g).to(cuda)
+    frames = torch.rand((n, h, w), generator=g).to(cuda)
+    offsets = torch.randint(-2 * wc, 3 * wc, (n,), generator=g)
+    offsets[1::4] = offsets[::4][: len(offsets[1::4])]
+    offsets = offsets.to(cuda, dtype)
+    want = canvas.clone()
+    x = torch.arange(w, device=cuda)
+    for k in range(n):
+        cols = torch.remainder(offsets[k].long() + x, wc)
+        want[:, cols] += frames[k]
+    before = _build.LAUNCHES["rescan_accumulate"]
+    got = rescan_accumulate(canvas, frames, offsets)
+    again = rescan_accumulate(canvas, frames, offsets)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["rescan_accumulate"] == before + 2
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert _rel(got, rescan_accumulate_reference(canvas, frames,
+                                                 offsets)) <= 1e-5

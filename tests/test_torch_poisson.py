@@ -25,6 +25,7 @@ from rescan_line_sted_torch.kernels.poisson import (
     poisson_rows_tiered,
     poisson_rows_tiered_reference,
     single_draw_uniforms,
+    warp_tiers,
 )
 from rescan_line_sted_torch.physics.noise import maybe_poisson, poisson_counts
 from rescan_line_sted_tpu.kernels.poisson_pallas import (
@@ -127,6 +128,55 @@ def test_rows_tiered_reference_tiers():
         lam[3, 3] = bad
         with pytest.raises(ValueError, match="bright"):
             poisson_rows_tiered_reference(lam, (5, 6))
+
+
+@pytest.mark.parametrize("shape", [(3, 100), (300,), (2, 3, 50)])
+def test_flat_reference_tiers(shape):
+    """K2c's host reference (``flat=True``): one tier per 128 consecutive
+    elements of the flattened tensor whatever its shape, the last group
+    ragged, the uniforms those of the flat index."""
+    flat = torch.full((300,), 0.5)
+    flat[130] = 1.4                # second warp: kmax 8, the others 6
+    flat[260:] = 0.0               # a ragged last warp of zeros
+    lam = flat.reshape(shape)
+    x = poisson_rows_tiered_reference(lam, (5, 6), flat=True)
+    assert x.shape == lam.shape
+    x = x.reshape(-1)
+    u = torch.from_numpy(single_draw_uniforms(300, (5, 6)))
+    assert torch.equal(x[:128], inversion_from_uniform(u[:128], flat[:128],
+                                                       6))
+    assert torch.equal(x[128:256], inversion_from_uniform(
+        u[128:256], flat[128:256], 8))
+    assert torch.equal(x[256:260], inversion_from_uniform(
+        u[256:260], flat[256:260], 6))
+    assert (x[260:] == 0).all()
+    mx = warp_tiers(lam, flat=True).reshape(-1)
+    assert (mx[:128] == 0.5).all() and (mx[128:256] == 1.4).all() \
+        and (mx[256:] == 0.5).all()
+    flat[299] = float("nan")
+    assert torch.isnan(warp_tiers(flat, flat=True)[256:]).all()
+    with pytest.raises(ValueError, match="bright"):
+        poisson_rows_tiered_reference(flat, (5, 6), flat=True)
+
+
+def test_rows_and_flat_warps_differ():
+    """K2b tiers 32 columns of a row, K2c 128 consecutive elements: a
+    bright lane lifts 31 neighbours in K2b and 127 in K2c."""
+    lam = torch.full((2, 256), 0.2)
+    lam[0, 5] = 1.0
+    rows = warp_tiers(lam)
+    flat = warp_tiers(lam, flat=True)
+    assert (rows[0, :32] == 1.0).all() and (rows[0, 32:] == 0.2).all()
+    assert (flat[0, :128] == 1.0).all() and (flat[0, 128:] == 0.2).all()
+    assert (rows[1] == 0.2).all() and (flat[1] == 0.2).all()
+
+
+def test_key_words_from_a_cpu_generator():
+    """A CPU generator gives K2c its key words by value, the same two that
+    ``seeds_from`` draws; no tensor is left for the kernel to read."""
+    got = _build.key_words(torch.Generator().manual_seed(3), "cpu")
+    assert got == (*_build.seeds_from(torch.Generator().manual_seed(3)),
+                   None)
 
 
 @pytest.mark.parametrize("lam_val", [0.05, 0.7, 5.0, 30.0, 300.0])

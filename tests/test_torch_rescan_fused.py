@@ -26,7 +26,6 @@ from rescan_line_sted_torch.imaging import frames as tframes
 from rescan_line_sted_torch.imaging import rescan as trescan
 from rescan_line_sted_torch.kernels import _build
 from rescan_line_sted_torch.kernels import fftconv as tfft
-from rescan_line_sted_torch.kernels import rescan_fused as tfused
 from rescan_line_sted_torch.kernels.rescan_accumulate import (
     rescan_accumulate,
     rescan_accumulate_reference,
@@ -38,9 +37,10 @@ from rescan_line_sted_tpu.kernels import fftconv as jfft
 from rescan_line_sted_tpu.kernels.rescan_fused import rescan_fused as jfused
 from rescan_line_sted_tpu.physics import models as jmodels
 
-# the kernels package exports the function under the module's name
+# both kernels packages export the function under the module's name
 jaccum = importlib.import_module(
     "rescan_line_sted_tpu.kernels.rescan_accumulate")
+tfused = importlib.import_module("rescan_line_sted_torch.kernels.rescan_fused")
 torch.set_num_threads(1)
 KW = dict(sigma_exc=2.0, sigma_det=2.0, stripe_period=8.0, depletion=4.0,
           brightness=40.0)
@@ -192,6 +192,33 @@ def test_k5_plain_matches_jax(n, h, w, wc, use_pallas):
         jnp.asarray(canvas), jnp.asarray(frames), jnp.asarray(offs))) <= 1e-5
     with pytest.raises(ValueError):
         rescan_accumulate(_t(canvas), _t(frames)[:, :2], _t(offs))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n,h,w,wc", [(9, 6, 16, 40), (6, 4, 40, 40),
+                                      (5, 3, 70, 24)])
+def test_k5_plain_route_offsets(dtype, n, h, w, wc):
+    """K5's route on CPU tensors (the plain version) with int32 and int64
+    offsets that are negative, at least ``wc`` and duplicated: the canvas
+    plus each frame added in order at its columns mod ``wc`` (numpy,
+    float64), and the JAX reference, within 1e-6 relative."""
+    rng = np.random.default_rng(n + w)
+    canvas = rng.random((h, wc), np.float32)
+    frames = rng.random((n, h, w), np.float32)
+    offs = rng.integers(-3 * wc, 4 * wc, n)
+    offs[:3] = (-wc - 1, wc, 2 * wc + 5)
+    offs[3] = offs[0]
+    want = canvas.astype(np.float64)
+    for k in range(n):
+        for x in range(w):
+            want[:, (offs[k] + x) % wc] += frames[k, :, x]
+    offsets = torch.from_numpy(offs).to(dtype)
+    got = rescan_accumulate(_t(canvas), _t(frames), offsets)
+    assert got.dtype == torch.float32 and got.shape == (h, wc)
+    assert _rel(got, want) <= 1e-6
+    assert _rel(got, jaccum.rescan_accumulate_reference(
+        jnp.asarray(canvas), jnp.asarray(frames),
+        jnp.asarray(offs.astype(np.int32)))) <= 1e-6
 
 
 # ---- frames.py ------------------------------------------------------------
