@@ -11,8 +11,10 @@ sm_90a), then:
    exact pmf (truncated where a tier truncates), zeros, NaN propagation and
    seeding, at 2^20 draws per rate; K2b and K2c count by count against
    their host reference (same Philox stream, ``flat=True`` for K2c's warps
-   of 128 rates) at every rate below the bright tier, and K2b's chi-square
-   p over 16 seeds per single-draw tier;
+   of 128 rates) at every rate below the bright tier, K2b also on rows of
+   1, 3, 5 and 130 columns and a misaligned view with a CPU and a CUDA
+   generator, and K2b's chi-square p over 16 seeds per single-draw tier;
+   K2b and K2c with a CUDA generator under sync-debug mode "error";
 3. holds kernel K1 (banded fused scan) against its plain PyTorch version,
    noise-free, in each of its modes (max relative error <= 1e-5): integer
    and class placement at the flagship shape (2048^2, R = 1.5, q = 2), at
@@ -71,8 +73,10 @@ sm_90a), then:
 9. holds kernel K4 (the full-frame rescan scan) against its plain
    version, noise-free (max relative error <= 1e-5), on the nobands_2048
    cell, at 512^2 with b = 2, with eff and gx rolled so that their tap runs
-   wrap, and with a full-width run (a flat excitation at 256^2), and its
-   draws at 256^2 over 16 seeds; and K5 (the scatter-add) against its
+   wrap, with a full-width run (a flat excitation at 256^2) and with frame
+   windows that wrap the camera columns in most chunks (256^2, b = 2),
+   each case's chunks per placement path logged, and its draws at 256^2
+   over 16 seeds; and K5 (the scatter-add) against its
    plain version with duplicate offsets and frames wider than the canvas,
    bit for bit the in-order per-frame adds where frames fit the canvas;
 10. drives the rescan scan without band windows, counters reset before
@@ -85,7 +89,8 @@ sm_90a), then:
    by default); each route with its draws replaced by the identity
    against the analytic image; then times K4 against its plain version
    and ``k4_bound``, K5 against its plain version and ``index_add_`` (event
-   and device times, against its bytes bound), K2b on the hybrid's frames,
+   and device times, against its bytes bound), K2b on the hybrid's frames
+   (count by count against its host reference with either generator),
    K2c on the scatter route's frames (as on the flagship canvas), and each
    new path's image (CUDA events and one profiler image);
 11. drives ``rescanned_point_sted_image`` (ISM, POINT_KW, depletion 8) on
@@ -100,7 +105,7 @@ sm_90a), then:
    (complex64 products on the card) against its complex128 closed form on
    the host; CUDA-event image times and one profiler image per path; K2b
    on ism_256's frames, timed and held count by count against its host
-   reference;
+   reference with either generator (as on the line and point frames);
 12. holds each K6 microkernel (``csrc/primitives.cu``) against its plain
    version on the inputs of its rate call, at the reps and constants of
    ``primitives.CHECKS`` (where a kernel that ran another count of reps
@@ -109,11 +114,14 @@ sm_90a), then:
    times the sgemm rate call's products in cuBLAS, and prints the
    composite bound (``primitives.composite_bound``) of K1 at the
    flagship, K3 at line_2048 and K4 at nobands_2048 beside their
-   datasheet bounds, and of K2c on the flagship canvas and the scatter
+   datasheet bounds (K4's also with one Philox block per draw), of K2c on
+   the flagship canvas and the scatter frames and of K2b on each caller's
    frames, failing if a kernel runs under its composite.
 
-Prints a ``rule2`` line (K2c's and K5's times against their library call
-and their bounds; a kernel that misses its target does not fail the run),
+Prints a ``rule2`` line (K2b's, K2c's and K5's times against their
+library call and their bounds, K4's against its composite, with its
+chunks per placement path; a kernel that misses its target does not fail
+the run),
 one JSON line with the kernels, then the card, then the result line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 Without CUDA it exits with code 1 and prints no result.
@@ -307,10 +315,64 @@ def phase_sampler(dev) -> dict:
         check(not torch.equal(a, c),
               f"{name}: new seed, same counts")
     torch.cuda.synchronize()
-    worst["k2b_draw_for_draw"] = draw_for_draw(dev)
+    worst["k2b_draw_for_draw"] = max(draw_for_draw(dev), k2b_ragged(dev))
     worst["k2c_draw_for_draw"] = draw_for_draw(dev, flat=True)
+    no_sync(dev)
     k2b_seed_spread(dev)
     log(f"sampler phase passed: max |mean(kernel) - mean(plain)| {worst}")
+    return worst
+
+
+def host_key(generator) -> tuple[int, int]:
+    """The two Philox key words ``_build.key_words`` draws from
+    ``generator`` (the kernels' key), read on the host."""
+    from rescan_line_sted_torch.kernels import _build
+
+    s0, s1, keys = _build.key_words(generator, generator.device)
+    return (s0, s1) if keys is None else tuple(keys.tolist())
+
+
+def no_sync(dev) -> None:
+    """K2b and K2c with a CUDA generator under
+    ``torch.cuda.set_sync_debug_mode("error")``: their key words stay on
+    the card, so nothing synchronises (a sync raises)."""
+    from rescan_line_sted_torch.kernels.poisson import (
+        poisson_flat, poisson_rows_tiered)
+
+    lam = torch.rand((64, 2048), generator=torch.Generator().manual_seed(2)
+                     ).to(dev)
+    for fn in (poisson_rows_tiered, poisson_flat):
+        gen = torch.Generator(dev).manual_seed(4)
+        fn(lam, gen)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn(lam, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    log("K2b and K2c with a CUDA generator under sync-debug mode 'error': "
+        "no sync")
+
+
+def k2b_ragged(dev) -> float:
+    """K2b count by count against its host reference on rows of 1, 3, 5
+    and 130 columns (warps that end inside a Philox block or a row) and on
+    a view that does not start on 16 bytes (the scalar path), with a CPU
+    and a CUDA generator; returns the max abs difference."""
+    worst = 0.0
+    for cols, shift in ((1, 0), (3, 0), (5, 0), (130, 0), (2048, 1)):
+        rows = 4096 // max(1, cols // 64)
+        g = torch.Generator().manual_seed(cols)
+        full = (1.5 * torch.rand(rows * cols + shift, generator=g)).to(dev)
+        lam = full[shift:].reshape(rows, cols)
+        check((lam.data_ptr() % 16 == 0) == (shift == 0),
+              "K2b's misaligned case must not start on 16 bytes")
+        for gen in (lambda: torch.Generator().manual_seed(41),
+                    lambda: torch.Generator(dev).manual_seed(41)):
+            res = frames_draw_for_draw(f"[{rows}, {cols}] + {shift}", lam,
+                                       generator=gen)
+            worst = max(worst, res["max_abs_diff"])
     return worst
 
 
@@ -322,7 +384,6 @@ def draw_for_draw(dev, flat: bool = False) -> float:
     abs difference."""
     from scipy import stats
 
-    from rescan_line_sted_torch.kernels import _build
     from rescan_line_sted_torch.kernels.poisson import (
         _CUT, poisson_flat, poisson_rows_tiered,
         poisson_rows_tiered_reference, single_draw_uniforms)
@@ -335,7 +396,7 @@ def draw_for_draw(dev, flat: bool = False) -> float:
             continue
         rate = torch.full((1024, 1024), lam, device=dev)
         got = kernel(rate, torch.Generator().manual_seed(100 + i)).cpu()
-        key = _build.seeds_from(torch.Generator().manual_seed(100 + i))
+        key = host_key(torch.Generator().manual_seed(100 + i))
         diff = (got - poisson_rows_tiered_reference(rate, key, flat)).abs()
         bad = torch.nonzero(diff.reshape(-1)).flatten().numpy()
         gap = 0.0
@@ -365,7 +426,6 @@ def frames_draw_for_draw(name: str, frames: torch.Tensor,
     one (K2c then reads its key words on the card)."""
     from scipy import stats
 
-    from rescan_line_sted_torch.kernels import _build
     from rescan_line_sted_torch.kernels.poisson import (
         _CUT, poisson_flat, poisson_rows_tiered,
         poisson_rows_tiered_reference, single_draw_uniforms, warp_tiers)
@@ -374,7 +434,7 @@ def frames_draw_for_draw(name: str, frames: torch.Tensor,
     make = generator or (lambda: torch.Generator().manual_seed(41))
     lam = frames.detach().float().cpu().clamp_min(0)
     got = kernel(frames.contiguous(), make()).cpu()
-    key = _build.seeds_from(make())
+    key = host_key(make())
     bright = warp_tiers(lam, flat) >= _CUT
     want = poisson_rows_tiered_reference(torch.where(bright, 0.0, lam), key,
                                          flat)
@@ -761,7 +821,7 @@ def phase_times(dev) -> dict:
             "bound_ms": bound, "bound_by": by}
     canvas = image(sample, *flagship(), method="scan").image
     k2c = k2c_times("the flagship canvas", canvas, dev)
-    k2c["draws"] = k2c_draw_checks("the flagship canvas", canvas, dev)
+    k2c["draws"] = draw_checks("the flagship canvas", canvas, dev, True)
     t["poisson_flat"] = k2c
     t["poisson_rows_tiered"] = {
         "ms": cuda_ms(lambda: poisson_rows_tiered(canvas, cpu_gen)),
@@ -784,13 +844,14 @@ def phase_times(dev) -> dict:
     return t
 
 
-def tier_mix(lam) -> dict:
-    """Share of K2c's elements on each tier of K2a's ladder, by the max of
-    their warp (128 consecutive rates)."""
+def tier_mix(lam, flat: bool = True) -> dict:
+    """Share of K2c's (``flat``: 128 consecutive rates a warp) or K2b's
+    (128 adjacent columns of a row) elements on each tier of K2a's ladder,
+    by the max of their warp."""
     from rescan_line_sted_torch.kernels.poisson import (
         _CUT, _INV_TIERS, warp_tiers)
 
-    mx = warp_tiers(lam.float(), flat=True).reshape(-1)
+    mx = warp_tiers(lam.float(), flat=flat).reshape(-1)
     tiers = [("zero", mx == 0), ("bernoulli", (mx > 0) & (mx < 1e-3))]
     lo = 1e-3
     for hi, kmax in _INV_TIERS:
@@ -801,40 +862,39 @@ def tier_mix(lam) -> dict:
 
 
 def k2c_times(name, lam, dev) -> dict:
-    """K2c on rates ``lam`` (``name``'s): CUDA-event and profiler device
-    times with a CPU generator (``ms``, ``device_ms``: key words passed by
-    value) and with a CUDA one (``cuda_gen_ms``, ``cuda_gen_device_ms``:
-    key words drawn and read on the card), the plain version and
-    ``torch.poisson``, the bytes bound, the warps' tier mix, and the work
-    counts of its composite bound (``phase_primitives``): each element at
-    its own tier (a lower bound of its warp's), one Philox block per four
-    single draws, two draws per bright element (a PTRS acceptance at the
-    first attempt)."""
-    from rescan_line_sted_torch.kernels import primitives as prim
+    """K2c on rates ``lam`` (``name``'s): ``sampler_times`` and the warps'
+    tier mix."""
     from rescan_line_sted_torch.kernels.poisson import poisson_flat
 
-    cpu_gen = torch.Generator().manual_seed(1)
-    dev_gen = torch.Generator(dev).manual_seed(1)
-    t = sampler_times(lam, cpu_gen, dev_gen, poisson_flat)
-    t["cuda_gen_ms"] = cuda_ms(lambda: poisson_flat(lam, dev_gen))
-    t["cuda_gen_device_ms"] = device_busy(
-        lambda: poisson_flat(lam, dev_gen))[0]
+    t = sampler_times(lam, torch.Generator().manual_seed(1),
+                      torch.Generator(dev).manual_seed(1), poisson_flat)
     t["tiers"] = tier_mix(lam)
-    cn = prim.tiered_counts(lam, bright_draws=2)
-    t["counts"] = {"exps": cn["exps"], "philox_blocks": cn["uniforms"] / 4,
-                   "inv_terms": cn["inv_terms"],
-                   "knuth_rounds": cn["knuth_rounds"]}
     log(f"time poisson_flat on {name} {json.dumps(t)}")
     return t
 
 
-def k2c_draw_checks(name, lam, dev) -> dict:
-    """K2c count by count against its host reference on ``lam`` below the
-    bright tier, with a CPU generator and with a CUDA one."""
-    return {"cpu_generator": frames_draw_for_draw(name, lam, flat=True),
+def draw_checks(name, lam, dev, flat: bool) -> dict:
+    """K2b (``flat``: K2c) count by count against its host reference on
+    ``lam`` below the bright tier, with a CPU generator and with a CUDA
+    one."""
+    return {"cpu_generator": frames_draw_for_draw(name, lam, flat=flat),
             "cuda_generator": frames_draw_for_draw(
-                name, lam, flat=True,
+                name, lam, flat=flat,
                 generator=lambda: torch.Generator(dev).manual_seed(41))}
+
+
+def k2b_times(name, lam, dev) -> dict:
+    """K2b on a caller's frames ``lam``: ``sampler_times``, the warps'
+    tier mix and ``draw_checks``."""
+    from rescan_line_sted_torch.kernels.poisson import poisson_rows_tiered
+
+    t = sampler_times(lam, torch.Generator().manual_seed(3),
+                      torch.Generator(dev).manual_seed(3),
+                      poisson_rows_tiered)
+    t["tiers"] = tier_mix(lam, flat=False)
+    log(f"time poisson_rows_tiered on {name} {json.dumps(t)}")
+    t["draws"] = draw_checks(name, lam, dev, flat=False)
+    return t
 
 
 OVER_SIGMA = 64.0   # sigma_exc giving D_in = 896 at chunk 32: beyond K1
@@ -946,9 +1006,11 @@ def k3_bound(args, slit_support, noisy=True) -> tuple[float, str, dict]:
     """Least time (ms) of one K3 call and what bounds it. Operations, at
     the fp32 peak: an FMA (2) per nonzero tap of each computed row at every
     position and lane and, for a noisy call, the Philox blocks its draws
-    take on these rates (6 per element below 10: Knuth's 24 uniforms; 5 at
-    10 or above: PTRS; none at 0), PHILOX_OPS each. Bytes: the sample read
-    and the image written once. Returns the counts too."""
+    take on these rates (below 10: a quarter block per Knuth round, whose
+    loop ends once the count is settled: min(rate + 1, 24) rounds in
+    expectation; at 10 or above one block, a PTRS acceptance at the first
+    attempt; none at 0), PHILOX_OPS each. Bytes: the sample read and the
+    image written once. Returns the counts too."""
     from rescan_line_sted_torch.kernels.line_fused import (
         _rows, _span, _taps, line_sted_fused_reference)
     from rescan_line_sted_torch.kernels.primitives import knuth_counts
@@ -963,7 +1025,9 @@ def k3_bound(args, slit_support, noisy=True) -> tuple[float, str, dict]:
         row = torch.zeros_like(slit)         # frame row i0 + k alone, weight 1
         row[i0 + k] = 1.0
         lam = line_sted_fused_reference(s, eff, gx, row, slit_support=w)
-        blocks += int((6 * ((lam > 0) & (lam < 10)) + 5 * (lam >= 10)).sum())
+        low = lam[(lam > 0) & (lam < 10)].double()
+        blocks += float((low + 1.0).clamp(max=24).sum()) / 4 \
+            + int((lam >= 10).sum())
         for key, v in knuth_counts(lam).items():
             sampler[key] += v
     n = {"rows": int(ws.size), "run": _span(taps)[1],
@@ -1216,11 +1280,17 @@ def k1_frames(args, kw) -> torch.Tensor:
 
 
 def sampler_times(lam, cpu_gen, dev_gen, kernel=None) -> dict:
-    """A sampler's CUDA-event times on rates ``lam``: the kernel (if
-    given), the plain version and ``torch.poisson``, with the bound of
-    reading and writing every element once. A call shorter than the host's
-    launch work times the host, so each also gets its device time under
-    the profiler (``*_device_ms``)."""
+    """A sampler's CUDA-event times on rates ``lam``: the kernel (if given)
+    with a CPU generator (``ms``: key words by value) and a CUDA one
+    (``cuda_gen_ms``: key words drawn and read on the card), the plain
+    version and ``torch.poisson``, with the bound of reading and writing
+    every element once. A call shorter than the host's launch work times
+    the host, so each also gets its device time under the profiler
+    (``*_device_ms``). With a kernel, the work counts of its composite
+    bound (``phase_primitives``): each element at its own tier (a lower
+    bound of its warp's), one Philox block per four single draws, two
+    draws per bright element (a PTRS acceptance at the first attempt)."""
+    from rescan_line_sted_torch.kernels import primitives as prim
     from rescan_line_sted_torch.kernels.poisson import poisson_reference
 
     clamped = lam.clamp_min(0)
@@ -1229,11 +1299,17 @@ def sampler_times(lam, cpu_gen, dev_gen, kernel=None) -> dict:
              "library": lambda: torch.poisson(clamped, dev_gen)}
     if kernel is not None:
         calls["kernel"] = lambda: kernel(lam, cpu_gen)
+        calls["cuda_gen"] = lambda: kernel(lam, dev_gen)
     t = {"shape": list(lam.shape), "bound_ms": bound, "bound_by": by}
     for name, fn in calls.items():
         key = "" if name == "kernel" else name + "_"
         t[key + "ms"] = cuda_ms(fn)
         t[key + "device_ms"] = device_busy(fn)[0]
+    if kernel is not None:
+        cn = prim.tiered_counts(lam)
+        t["counts"] = {"exps": cn["exps"], "philox_blocks": cn["uniforms"] / 4,
+                       "inv_terms": cn["inv_terms"],
+                       "knuth_rounds": cn["knuth_rounds"]}
     return t
 
 
@@ -1270,7 +1346,6 @@ def phase_times_descanned(dev, k1_times) -> dict:
     from rescan_line_sted_torch.imaging import line_sted, point_sted
     from rescan_line_sted_torch.kernels.line_fused import (
         line_sted_fused, line_sted_fused_reference)
-    from rescan_line_sted_torch.kernels.poisson import poisson_rows_tiered
 
     cpu_gen = torch.Generator().manual_seed(3)
     dev_gen = torch.Generator(dev).manual_seed(3)
@@ -1332,10 +1407,8 @@ def phase_times_descanned(dev, k1_times) -> dict:
     k2b = {
         "line_2048": caller_frames(line_sted, runs["line_2048"][0]),
         "point_512": caller_frames(point_sted, runs["point_512"][0])}
-    k2b = {name: sampler_times(f, cpu_gen, dev_gen, poisson_rows_tiered)
+    k2b = {name: k2b_times(f"{name}'s frames", f, dev)
            for name, f in k2b.items()}
-    for name, v in k2b.items():
-        log(f"time poisson_rows_tiered on {name}'s frames {json.dumps(v)}")
 
     frames = k1_frames(*k1_inputs(K1_MODES["rescan_banded_fused"][1], dev))
     k2a = sampler_times(frames, cpu_gen, dev_gen)
@@ -1409,8 +1482,9 @@ def k4_bound(args, noisy=True) -> tuple[float, str, dict]:
     the fp32 peak: an FMA (2) per pair of nonzero eff and gx taps at every
     position and sample row and, for a noisy call, the Philox blocks its
     draws take on this run's binned rates: a quarter block per element of
-    rate in (0, 10) (one single-draw uniform, four to a block), 5 blocks
-    at 10 or above (PTRS), none at 0; PHILOX_OPS each. Bytes: the sample
+    rate in (0, 10) (one single-draw uniform, four to a block), one block
+    at 10 or above (a PTRS acceptance at the first attempt), none at 0;
+    PHILOX_OPS each. Bytes: the sample
     read and the canvas written once. Returns the counts too."""
     from rescan_line_sted_torch.kernels.primitives import tiered_counts
     from rescan_line_sted_torch.kernels.rescan_fused import _run, _window
@@ -1447,25 +1521,28 @@ def k4_bound(args, noisy=True) -> tuple[float, str, dict]:
                 sampler[key] += v
     n["drawn_low"], n["drawn_high"] = low, high
     n.update(sampler)
-    n["philox_blocks"] = low / 4 + 5 * high
+    n["philox_blocks"] = low / 4 + high
     return (*roofline(2.0 * n["fma"] + PHILOX_OPS * n["philox_blocks"],
                       4 * (h * w + (h // b) * wc)), n)
 
 
 def phase_k4(dev) -> dict:
     """K4 against its plain version, noise-free (max relative <= 1e-5):
-    the 2048^2 cell, b = 2, eff and gx rolled so that their runs wrap, and
-    a full-width run (WideExcModel at 256^2); its draws at 256^2 over
-    SEEDS seeds. Returns the worst errors."""
+    the 2048^2 cell, b = 2, eff and gx rolled so that their runs wrap, a
+    full-width run (WideExcModel at 256^2), and frame windows that wrap the
+    camera columns in most chunks at b = 2 (each chunk's placement path
+    logged, ``rescan_fused.chunk_paths``); its draws at 256^2 over SEEDS
+    seeds. Returns the worst errors."""
     from rescan_line_sted_torch.data import siemens_star
     from rescan_line_sted_torch.kernels.rescan_fused import (
-        _run, rescan_fused, rescan_fused_reference)
+        _run, chunk_paths, rescan_fused, rescan_fused_reference)
 
     worst = {"abs": 0.0, "rel": 0.0}
     cases = (("nobands_2048", nobands(SIZE), 0),
              ("512^2 R=3 b=2", nobands(512, 3.0, 2), 0),
              ("512^2 rolled 250", nobands(512), 250),
-             ("256^2 WideExcModel", nobands(256, model=WideExcModel()), 0))
+             ("256^2 WideExcModel", nobands(256, model=WideExcModel()), 0),
+             ("256^2 R=2 b=2 windows wrapped", nobands(256, 2.0, 2), 0))
     for name, (params, geom), shift in cases:
         star = siemens_star(geom.grid.shape, device=dev)
         s, eff, gx, offs, wc, b = k4_inputs(params, geom, star)
@@ -1476,10 +1553,14 @@ def phase_k4(dev) -> dict:
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
         (e0, ne), (g0, ng) = _run(args[1]), _run(args[2])
+        paths = chunk_paths(s.shape[1], b, args[1], args[2])
         log(f"K4 vs plain {name}: eff run {e0}+{ne}, gx run {g0}+{ng} mod "
-            f"{s.shape[1]}: max abs err {err:.3e}, max rel err {rel:.3e}")
+            f"{s.shape[1]}, chunks {json.dumps(paths)}: max abs err "
+            f"{err:.3e}, max rel err {rel:.3e}")
         check(got.shape == want.shape and rel <= 1e-5,
               f"K4 vs plain at {name}: rel err {rel}")
+        check("wrapped" not in name or paths["split"] > paths["strip"],
+              f"{name}: most chunks' windows must wrap: {paths}")
         check(shift == 0 or e0 + ne > s.shape[1],
               f"the rolled K4 case must wrap its eff run: {e0}, {ne}")
         check(isinstance(params.model, WideExcModel) == (ne == s.shape[1]),
@@ -1712,11 +1793,10 @@ def phase_times_nobands(dev) -> dict:
     from rescan_line_sted_torch import rescanned_line_sted_image as image
     from rescan_line_sted_torch.data import siemens_star
     from rescan_line_sted_torch.imaging import rescan
-    from rescan_line_sted_torch.kernels.poisson import poisson_rows_tiered
     from rescan_line_sted_torch.kernels.rescan_accumulate import (
         _cols, rescan_accumulate, rescan_accumulate_reference)
     from rescan_line_sted_torch.kernels.rescan_fused import (
-        rescan_fused, rescan_fused_reference)
+        chunk_paths, rescan_fused, rescan_fused_reference)
 
     cpu_gen = torch.Generator().manual_seed(4)
     dev_gen = torch.Generator(dev).manual_seed(4)
@@ -1741,6 +1821,7 @@ def phase_times_nobands(dev) -> dict:
 
     args = k4_inputs(*nobands(SIZE), stars[SIZE])
     bound, by, counts = k4_bound(args)
+    counts["chunk_paths"] = chunk_paths(SIZE, 1, args[1], args[2])
     k4 = {"ms": cuda_ms(lambda: rescan_fused(*args, generator=cpu_gen)),
           "plain_ms": cuda_ms(lambda: rescan_fused_reference(
               *args, generator=dev_gen)),
@@ -1775,13 +1856,11 @@ def phase_times_nobands(dev) -> dict:
     scatter = caller_frames(rescan, runs["nobands_512_scatter"][0],
                             "maybe_poisson")
     k2c = k2c_times("nobands_512_scatter's frames", scatter, canvas.device)
-    k2c["draws"] = k2c_draw_checks("nobands_512_scatter's frames", scatter,
-                                   canvas.device)
+    k2c["draws"] = draw_checks("nobands_512_scatter's frames", scatter,
+                               canvas.device, True)
 
     hybrid = caller_frames(rescan, runs["nobands_512_subpixel"][0])
-    k2b = sampler_times(hybrid, cpu_gen, dev_gen, poisson_rows_tiered)
-    log(f"time poisson_rows_tiered on nobands_512_subpixel's frames "
-        f"{json.dumps(k2b)}")
+    k2b = k2b_times("nobands_512_subpixel's frames", hybrid, dev)
     return {"e2e": e2e, "busy": busy, "rescan_fused": k4,
             "rescan_accumulate": k5, "k2b": k2b, "k2c": k2c}
 
@@ -1948,7 +2027,6 @@ def phase_ism(dev) -> dict:
     from rescan_line_sted_torch import rescanned_point_sted_image as image
     from rescan_line_sted_torch.data import siemens_star
     from rescan_line_sted_torch.imaging import rescan_point
-    from rescan_line_sted_torch.kernels.poisson import poisson_rows_tiered
 
     paths = {}
     stars = {n: siemens_star((n, n), device=dev)
@@ -2014,13 +2092,9 @@ def phase_ism(dev) -> dict:
     log(f"ism_2048 first analytic image (phase tables built, cached) "
         f"{1e3 * first:.1f} ms")
     frames = caller_frames(rescan_point, runs["ism_256_per_step"][0])
-    k2b = sampler_times(frames, torch.Generator().manual_seed(3),
-                        torch.Generator(dev).manual_seed(3),
-                        poisson_rows_tiered)
-    log(f"time poisson_rows_tiered on ism_256's frames {json.dumps(k2b)}")
-    k2b_draws = frames_draw_for_draw("ism_256's frames", frames)
+    k2b = k2b_times("ism_256's frames", frames, dev)
     return {"paths": paths, "errs": errs, "e2e": e2e, "busy": busy,
-            "k2b": k2b, "k2b_draws": k2b_draws}
+            "k2b": k2b}
 
 
 # ---- K6: the card's primitive rates and the composite bound --------------
@@ -2080,13 +2154,14 @@ def prim_bound(name, rate) -> tuple[float, str]:
     return roofline(float(ops) * prim.FILL * reps, 4 * prim.FILL)
 
 
-def phase_primitives(dev, k1, k3, k4, k2c) -> dict:
+def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
     """K6: every microkernel against its plain version; the rates
     (``primitive_rates``, counters reset before and read after); reps
     cuBLAS products against sgemm; the composite bound of K1 (flagship,
     its frames' tiers counted per element), K3 (line_2048), K4
-    (nobands_2048) and K2c (``k2c``: its timing dicts on the flagship
-    canvas and nobands_512_scatter's frames, with their counts) from those
+    (nobands_2048), K2c (``k2c``: its timing dicts on the flagship
+    canvas and nobands_512_scatter's frames, with their counts) and K2b
+    (``k2b``: on each caller's frames) from those
     rates, each held under the kernel's noisy time measured in this run
     (``k1``, ``k3``, ``k4``: their timing dicts, K3's and K4's with their
     counts)."""
@@ -2119,8 +2194,8 @@ def phase_primitives(dev, k1, k3, k4, k2c) -> dict:
     frames = k1_frames(args, kw)
     k1_sampler = prim.tiered_counts(frames)
     del frames
-    # K1 takes four lanes' uniforms from one Philox block, K4 one block per
-    # element (a single draw); K3's draws are in its Knuth rounds
+    # K1, K2b, K2c and K4 take four elements' uniforms from one Philox
+    # block; K3's draws are in its Knuth rounds
     counts = {
         "rescan_banded_fused": {
             "conv_fma": w * dob * kw["d_in"] * h, "exps": k1_sampler["exps"],
@@ -2132,17 +2207,25 @@ def phase_primitives(dev, k1, k3, k4, k2c) -> dict:
                             "inv_terms": k3["inv_terms"],
                             "knuth_rounds": k3["knuth_rounds"]},
         "rescan_fused": {"conv_fma": k4["fma"], "exps": k4["exps"],
-                         "single_draws": k4["uniforms"],
+                         "philox_blocks": k4["uniforms"] / 4,
                          "inv_terms": k4["inv_terms"],
                          "knuth_rounds": k4["knuth_rounds"],
                          "windows": k4["placed"] / prim.WINDOW}}
     measured = {"rescan_banded_fused": k1["ms"], "line_sted_fused": k3["ms"],
                 "rescan_fused": k4["ms"]}
-    for where, t in k2c.items():
-        counts[f"poisson_flat on {where}"] = t["counts"]
-        measured[f"poisson_flat on {where}"] = t["ms"]
+    for kernel, by_caller in (("poisson_flat", k2c),
+                              ("poisson_rows_tiered", k2b)):
+        for where, t in by_caller.items():
+            counts[f"{kernel} on {where}"] = t["counts"]
+            measured[f"{kernel} on {where}"] = t["ms"]
     bounds = {name: {**prim.composite_bound(cn, rates), "counts": cn}
               for name, cn in counts.items()}
+    # K4's composite with one Philox block per draw, as its draws were
+    # counted before they shared blocks: the work, not the kernel, sets it
+    one_each = dict(counts["rescan_fused"],
+                    philox_blocks=k4["uniforms"])
+    log(f"composite bound rescan_fused with one Philox block per draw: "
+        f"{json.dumps(prim.composite_bound(one_each, rates))}")
     for name, bd in bounds.items():
         log(f"composite bound {name}: {json.dumps(bd)}; the kernel ran "
             f"{measured[name]:.4f} ms noisy, "
@@ -2202,8 +2285,11 @@ def main() -> int:
     paths.update(ism["paths"])
     k2c = {"flagship canvas": times["poisson_flat"],
            "nobands_512_scatter frames": nob["k2c"]}
+    k2b = {**desc["poisson_rows_tiered"], "nobands_512_subpixel": nob["k2b"],
+           "ism_256": ism["k2b"]}
     k6 = phase_primitives(dev, times["rescan_banded_fused"],
-                          desc["line_sted_fused"], nob["rescan_fused"], k2c)
+                          desc["line_sted_fused"], nob["rescan_fused"], k2c,
+                          k2b)
     log(f"after timing: {clocks()}")
     log(f"smoke run took {time.time() - t0:.1f} s after the card was named")
 
@@ -2259,16 +2345,17 @@ def main() -> int:
          "replaces": "rescan_line_sted_tpu/kernels/poisson_pallas.py:344",
          "path": "line_2048 (banded frames)", "paths": k2b_paths,
          "launches": sum(k2b_paths.values()),
-         "max_abs_err": max(sampler_err["k2b_draw_for_draw"],
-                            ism["k2b_draws"]["max_abs_diff"]),
+         "max_abs_err": max([sampler_err["k2b_draw_for_draw"]] + [
+             d["max_abs_diff"] for t in k2b.values()
+             for d in t["draws"].values()]),
          "err_kind": "counts against the host reference on the same "
                      "Philox stream, rates below the bright tier (constant "
-                     "rates, and ism_256's frames)",
-         **desc["poisson_rows_tiered"]["line_2048"],
-         "callers": {**desc["poisson_rows_tiered"],
-                     "nobands_512_subpixel": nob["k2b"],
-                     "ism_256": ism["k2b"]},
-         "ism_256_frames_against_host": ism["k2b_draws"],
+                     "rates, ragged and misaligned rows, each caller's "
+                     "frames with a CPU and a CUDA generator)",
+         **k2b["line_2048"],
+         "composite_bound_ms": k6["bounds"][
+             "poisson_rows_tiered on line_2048"]["total_ms"],
+         "callers": k2b,
          "flagship_canvas": times["poisson_rows_tiered"]})
     for name, replaces, path, err in (
             ("rescan_fused",
@@ -2309,7 +2396,9 @@ def main() -> int:
             ("poisson_flat (nobands_512_scatter frames)", nob["k2c"],
              "poisson_flat on nobands_512_scatter frames"),
             ("rescan_accumulate (k5_inputs)", nob["rescan_accumulate"],
-             None)):
+             None),
+            *((f"poisson_rows_tiered ({where} frames)", t,
+               f"poisson_rows_tiered on {where}") for where, t in k2b.items())):
         rule2[name] = {
             "ms": t["ms"], "device_ms": t["device_ms"],
             "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
@@ -2320,6 +2409,12 @@ def main() -> int:
             c = k6["bounds"][composite]["total_ms"]
             rule2[name].update(cuda_gen_ms=t["cuda_gen_ms"], composite_ms=c,
                                device_over_composite=t["device_ms"] / c)
+    k4 = nob["rescan_fused"]
+    rule2["rescan_fused (nobands_2048)"] = {
+        "ms": k4["ms"], "noise_free_ms": k4["noise_free_ms"],
+        "device_ms": k4["device_ms"],
+        "composite_ms": k6["bounds"]["rescan_fused"]["total_ms"],
+        "chunk_paths": k4["chunk_paths"]}
     log(json.dumps({"rule2": rule2}))
     log(json.dumps({"k1_over_bound": over_bound}))
     log(json.dumps({"k2a_in_k1": desc["k2a"]}))

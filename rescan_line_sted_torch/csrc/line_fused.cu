@@ -66,7 +66,8 @@ struct K3Args {
   const float* wm;    // [n_rows] weight of each row's mean
   float* out;         // [h, w] image
   int h, w, i0, n_rows, j0, n_taps, noisy;
-  uint2 key;
+  uint2 key;                 // the key words, unless key_dev holds them
+  const long long* key_dev;  // null, or the two key words drawn on the card
 };
 
 __host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
@@ -93,6 +94,7 @@ size_t line_smem_bytes(int w, int n_taps) {
 __global__ void __launch_bounds__(kThreads)
 line_sted_fused_kernel(const K3Args a) {
   extern __shared__ __align__(16) float smem[];
+  const uint2 key = rls::load_key(a.key, a.key_dev);
   const int w = a.w, tp = round16(a.n_taps), t_len = span(a.n_taps);
   float* krow = smem;                                  // [tp], zero-padded
   float* sbuf = krow + tp;                             // skewed [t_len][kLanes]
@@ -159,7 +161,7 @@ line_sted_fused_kernel(const K3Args a) {
         if (y < a.h && pos < w) {
           const unsigned long long index =
               (static_cast<unsigned long long>(pos) * a.n_rows + k) * a.h + y;
-          res[e] += wsk * rls::sample_poisson_at(acc[e], index, a.key) + wmk * acc[e];
+          res[e] += wsk * rls::sample_poisson_at(acc[e], index, key) + wmk * acc[e];
         }
       }
     } else {
@@ -184,8 +186,8 @@ line_sted_fused_kernel(const K3Args a) {
 extern "C" int rls_line_sted_fused(const float* s, const float* eff, const float* gx,
                                    const float* ws, const float* wm, float* out,
                                    int h, int w, int i0, int n_rows, int j0, int n_taps,
-                                   int noisy, unsigned seed0, unsigned seed1, void* stream,
-                                   int* smem) {
+                                   int noisy, unsigned seed0, unsigned seed1,
+                                   const long long* key_dev, void* stream, int* smem) {
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -201,7 +203,7 @@ extern "C" int rls_line_sted_fused(const float* s, const float* eff, const float
   if (err != cudaSuccess) return static_cast<int>(err);
   if (h > 0 && w > 0) {
     const K3Args a{s, eff, gx, ws, wm, out, h, w, i0, n_rows, j0, n_taps, noisy,
-                   make_uint2(seed0, seed1)};
+                   make_uint2(seed0, seed1), key_dev};
     const dim3 grid((w + kPositions - 1) / kPositions, (h + kLanes - 1) / kLanes);
     line_sted_fused_kernel<<<grid, kThreads, need, static_cast<cudaStream_t>(stream)>>>(a);
   }

@@ -40,6 +40,14 @@ static __device__ __forceinline__ uint32_t word_of(uint4 bits, uint32_t word) {
   return word == 0 ? bits.x : word == 1 ? bits.y : word == 2 ? bits.z : bits.w;
 }
 
+// The key words: by value, or from device memory where the caller drew
+// them on the card (two int64, _build.key_words: no host-device sync).
+static __device__ __forceinline__ uint2 load_key(uint2 key, const long long* key_dev) {
+  return key_dev == nullptr ? key
+                            : make_uint2(static_cast<uint32_t>(key_dev[0]),
+                                         static_cast<uint32_t>(key_dev[1]));
+}
+
 // The single-draw stream: element `index` takes word index % 4 of
 // Philox(counter = (group lo, group hi, 0, 1)) with group = index / 4, so
 // one Philox block serves four neighbouring elements. The tag 1 in the

@@ -8,13 +8,15 @@
 //   max < 10      single-uniform CDF inversion, kmax 3/4/6/8/24 by the max;
 //   max >= 10/NaN 24-round Knuth + 10-attempt Hormann PTRS (Stirling lgamma).
 // On the TPU the tier came from a sub-block's max; here it comes from the
-// max over a WARP's rates (32 per warp in K2b, 32 x 16 in K1), so the
-// branch is warp-uniform (no divergence) and each tier's truncation bound
-// still holds because the max bounds every rate it covers.
+// max over a WARP's rates (128 per warp in K2b and K2c, four per lane;
+// 32 x 16 in K1 and K4), so the branch is warp-uniform (no divergence) and
+// each tier's truncation bound still holds because the max bounds every
+// rate it covers.
 //
 // Bound on the card: integer arithmetic of Philox-10 and one exp per
 // element; the Bernoulli and inversion tiers take one Philox word per
-// element (a block serves four), the bright tier 11 blocks.
+// element (a block serves four), the bright tier's loops end once settled:
+// ~(rate + 1) / 4 blocks for a Knuth element, 1-2 for a PTRS one.
 #pragma once
 
 #include "philox.cuh"
@@ -55,54 +57,50 @@ static __device__ __forceinline__ float inversion(float u, float lam) {
 }
 
 // Knuth product method below kCut, PTRS transformed rejection at or above
-// it (poisson_pallas.py sample_poisson). lam <= 0 gives 0; NaN gives NaN.
-// The TPU evaluated both branches and selected per element; here each lane
-// runs only its own branch, on the same draws (Knuth 0-23, PTRS 24-43).
-static __device__ __forceinline__ float sample_poisson(float lam, Uniforms& u) {
+// it (poisson_pallas.py sample_poisson), on element `index`'s multi-draw
+// stream (Knuth draws 0-23, PTRS 24-43). lam <= 0 gives 0; NaN gives NaN.
+// The TPU evaluated both branches to the end and selected per element;
+// here each lane runs only its own branch, and each loop ends once its
+// count is settled: Knuth's product only falls, so no later round adds to
+// the count once it is under the threshold, and PTRS keeps its first
+// acceptance. Each loop reads a prefix of the same draws, so the counts are
+// those of the full loops, at ~(lam + 1) / 4 Philox blocks for Knuth and
+// 1-2 for PTRS instead of 6 and 5. Kept out of line: K1, K2b, K2c and K4
+// call it only on their rare bright warps.
+static __device__ __noinline__ float sample_poisson_at(float lam,
+                                                       unsigned long long index,
+                                                       uint2 key) {
   if (!(lam > 0.0f)) return lam * 0.0f;  // zero for lam <= 0, NaN for NaN
+  Uniforms u(key, index);
   if (lam < kCut) {
     const float threshold = expf(-lam);
     float prod = 1.0f, small = 0.0f;
-#pragma unroll
     for (int k = 0; k < kKnuthRounds; ++k) {
       prod *= u.next();
-      small += prod >= threshold ? 1.0f : 0.0f;
+      if (prod < threshold) break;
+      small += 1.0f;
     }
     return small;
   }
   u.n = kKnuthRounds;
-  const float lam_b = lam;  // >= kCut here, so max(lam, kCut - 1) = lam
-  const float log_lam = logf(lam_b);
-  const float b = 0.931f + 2.53f * sqrtf(lam_b);
+  const float log_lam = logf(lam);
+  const float b = 0.931f + 2.53f * sqrtf(lam);
   const float a = -0.059f + 0.02483f * b;
   const float vr = 0.9277f - 3.6224f / (b - 2.0f);
   const float inv_alpha = 1.1239f + 1.1328f / (b - 3.4f);
-  float large = rintf(lam_b);
-  bool done = false;
-#pragma unroll
   for (int r = 0; r < kPtrsRounds; ++r) {
     const float uu = u.next() - 0.5f;
     const float v = u.next();
     const float us = 0.5f - fabsf(uu);
-    const float k = floorf((2.0f * a / us + b) * uu + lam_b + 0.43f);
+    const float k = floorf((2.0f * a / us + b) * uu + lam + 0.43f);
     const bool accept_fast = (us >= 0.07f) && (v <= vr);
     const bool reject = (k < 0.0f) || ((us < 0.013f) && (v > us));
     const float safe_us = fmaxf(us, 1e-6f);
     const float lhs = logf(v * inv_alpha / (a / (safe_us * safe_us) + b));
-    const float rhs = -lam_b + k * log_lam - stirling_lgamma(fmaxf(k, 0.0f) + 1.0f);
-    const bool accept = accept_fast || (!reject && lhs <= rhs);
-    if (accept && !done) large = k;
-    done = done || accept;
+    const float rhs = -lam + k * log_lam - stirling_lgamma(fmaxf(k, 0.0f) + 1.0f);
+    if (accept_fast || (!reject && lhs <= rhs)) return k;
   }
-  return large;
-}
-
-// The bright tier, kept out of line: it is rare and large.
-static __device__ __noinline__ float sample_poisson_at(float lam,
-                                                       unsigned long long index,
-                                                       uint2 key) {
-  Uniforms u(key, index);
-  return sample_poisson(lam, u);
+  return rintf(lam);  // no acceptance in kPtrsRounds attempts
 }
 
 // K2a's tier ladder for N elements per lane, in place: element i of this
@@ -110,10 +108,10 @@ static __device__ __noinline__ float sample_poisson_at(float lam,
 // (single_draw of that index; asked only where the tier needs it). ONE
 // tier serves all 32 x N rates of the warp: it comes from their max, so
 // EVERY lane of the warp must call this; lanes without elements pass
-// rates of 0. The bright tier draws each element with bright(rate, index).
-template <int N, typename Uniform, typename Index, typename Bright>
-static __device__ __forceinline__ void tiered_with(float (&lam)[N], Uniform uniform_of,
-                                                   Index index_of, Bright bright) {
+// rates of 0. The bright tier draws each element with sample_poisson_at.
+template <int N, typename Uniform, typename Index>
+static __device__ __forceinline__ void tiered(float (&lam)[N], Uniform uniform_of,
+                                              Index index_of, uint2 key) {
   uint32_t mxb = 0u;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -127,7 +125,8 @@ static __device__ __forceinline__ void tiered_with(float (&lam)[N], Uniform unif
 #pragma unroll
     for (int i = 0; i < N; ++i) lam[i] = 0.0f;
   } else if (mxb > 0x7f800000u || mx >= kCut) {
-    for (int i = 0; i < N; ++i) lam[i] = bright(lam[i], index_of(i));
+#pragma unroll
+    for (int i = 0; i < N; ++i) lam[i] = sample_poisson_at(lam[i], index_of(i), key);
   } else if (mx < 1e-3f) {
 #pragma unroll
     for (int i = 0; i < N; ++i) lam[i] = uniform_of(i) < lam[i] ? 1.0f : 0.0f;
@@ -144,17 +143,9 @@ static __device__ __forceinline__ void tiered_with(float (&lam)[N], Uniform unif
 #pragma unroll
     for (int i = 0; i < N; ++i) lam[i] = inversion<8>(uniform_of(i), lam[i]);
   } else {
+#pragma unroll
     for (int i = 0; i < N; ++i) lam[i] = inversion<24>(uniform_of(i), lam[i]);
   }
-}
-
-// The ladder with sample_poisson's bright tier (K1, K2b, K3, K4).
-template <int N, typename Uniform, typename Index>
-static __device__ __forceinline__ void tiered(float (&lam)[N], Uniform uniform_of,
-                                              Index index_of, uint2 key) {
-  tiered_with(lam, uniform_of, index_of, [key](float rate, unsigned long long index) {
-    return sample_poisson_at(rate, index, key);
-  });
 }
 
 // The ladder for N elements of consecutive indices index0 + i whose
@@ -165,14 +156,6 @@ static __device__ __forceinline__ void poisson_tiered(float (&lam)[N],
                                                       unsigned long long index0,
                                                       uint2 key) {
   tiered(lam, [&](int i) { return u[i]; }, [&](int i) { return index0 + i; }, key);
-}
-
-// The ladder for N elements of any indices index_of(i), each drawing its
-// uniform from the single-draw stream.
-template <int N, typename Index>
-static __device__ __forceinline__ void poisson_tiered_at(float (&lam)[N], Index index_of,
-                                                         uint2 key) {
-  tiered(lam, [&](int i) { return single_draw(index_of(i), key); }, index_of, key);
 }
 
 }  // namespace rls

@@ -20,7 +20,7 @@
 //   exp          x = expf(-x) * scale (the TPU body's 0.5)   (MUFU ex2 + FMA)
 //   inv_term     one CDF-inversion term as inversion<> of poisson.cuh:
 //                n += u > cdf; term *= lam / (k + 1); cdf += term
-//   knuth_round  one Knuth round as sample_poisson of poisson.cuh: a draw
+//   knuth_round  one Knuth round as sample_poisson_at of poisson.cuh: a draw
 //                of the multi-draw stream, prod *= u, small += prod >= e^-lam
 //   place_add    add a [136, 512] window into a [3080, 512] device canvas at
 //                a row offset read from device memory per rep, in order,

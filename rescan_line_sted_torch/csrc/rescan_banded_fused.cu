@@ -68,7 +68,8 @@ struct K1Args {
   const float* wt;          // [W, 2 * n_spread] window taps (spreading)
   float* out;               // [q, wc, H/b]
   int h, w, chunk, d_in, dob, b, q, wc, n_spread, noisy;
-  uint2 key;
+  uint2 key;                 // the key words, unless key_dev holds them
+  const long long* key_dev;  // null, or the two key words drawn on the card
 };
 
 // acc[i][l] += sum_d G(d, r_i) * ill[c_i][d] * win[d][l] for this thread's
@@ -157,6 +158,7 @@ template <bool kSpread, bool kGen>
 __global__ void __launch_bounds__(kThreads, 1)
 rescan_banded_fused_kernel(const K1Args p) {
   const int h = p.h, w = p.w, chunk = p.chunk, d_in = p.d_in, dob = p.dob, b = p.b;
+  const uint2 key = rls::load_key(p.key, p.key_dev);
   const int wc = p.wc, n_spread = p.n_spread;
   extern __shared__ __align__(16) float smem[];
   float* f_ring = smem;                      // [2][kPassRows][kLanes] frame rows
@@ -247,7 +249,7 @@ rescan_banded_fused_kernel(const K1Args p) {
           if ((e0 & 3) == 0) {  // one Philox block per four lanes
 #pragma unroll
             for (int j4 = 0; j4 < kLanes / 4; ++j4) {
-              const uint4 bits = rls::single_draw_block((e0 >> 2) + j4, p.key);
+              const uint4 bits = rls::single_draw_block((e0 >> 2) + j4, key);
               u[4 * j4 + 0] = rls::bits_to_uniform(bits.x);
               u[4 * j4 + 1] = rls::bits_to_uniform(bits.y);
               u[4 * j4 + 2] = rls::bits_to_uniform(bits.z);
@@ -255,12 +257,12 @@ rescan_banded_fused_kernel(const K1Args p) {
             }
           } else {
 #pragma unroll
-            for (int j = 0; j < kLanes; ++j) u[j] = rls::single_draw(e0 + j, p.key);
+            for (int j = 0; j < kLanes; ++j) u[j] = rls::single_draw(e0 + j, key);
           }
 #pragma unroll
           for (int j = 0; j < kLanes; ++j)
             if (!(rok && lane0 + j < hb)) acc[rr][j] = 0.0f;
-          rls::poisson_tiered(acc[rr], u, e0, p.key);
+          rls::poisson_tiered(acc[rr], u, e0, key);
         }
       }
 
@@ -428,7 +430,8 @@ extern "C" int rls_rescan_banded_fused(const float* g_t, const float* ill,
                                        const int* cls, const float* wt, float* out,
                                        int h, int w, int chunk, int d_in, int dob,
                                        int b, int q, int wc, int n_spread, int noisy,
-                                       unsigned seed0, unsigned seed1, void* stream,
+                                       unsigned seed0, unsigned seed1,
+                                       const long long* key_dev, void* stream,
                                        int* variant) {
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -442,7 +445,7 @@ extern "C" int rls_rescan_banded_fused(const float* g_t, const float* ill,
   if (*variant < 0) return 0;
   const K1Args a{g_t, ill, sample_ext, sa_lo, sa_hi, m0, cls, wt, out,
                  h, w, chunk, d_in, dob, b, q, wc, n_spread, noisy,
-                 make_uint2(seed0, seed1)};
+                 make_uint2(seed0, seed1), key_dev};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_spread)
     err = *variant ? launch<true, true>(a, gen, s) : launch<true, false>(a, resident, s);

@@ -48,14 +48,14 @@ _U = ctypes.c_uint
 _LL = ctypes.c_longlong
 # C signatures of the entry points (every one returns a cudaError_t code)
 _SIGNATURES = {
-    "rls_poisson_rows_tiered": [_P, _P, _I, _I, _U, _U, _P],
+    "rls_poisson_rows_tiered": [_P, _P, _I, _I, _U, _U, _P, _P],
     "rls_poisson_flat": [_P, _P, _LL, _U, _U, _P, _P],
-    "rls_rescan_banded_fused": [_P] * 9 + [_I] * 10 + [_U, _U, _P,
+    "rls_rescan_banded_fused": [_P] * 9 + [_I] * 10 + [_U, _U, _P, _P,
                                                     ctypes.POINTER(_I)],
     "rls_rescan_banded_fused_smem": [_I] * 5 + [ctypes.POINTER(_LL)],
-    "rls_line_sted_fused": [_P] * 6 + [_I] * 7 + [_U, _U, _P,
+    "rls_line_sted_fused": [_P] * 6 + [_I] * 7 + [_U, _U, _P, _P,
                                                   ctypes.POINTER(_I)],
-    "rls_rescan_fused": [_P] * 5 + [_I] * 9 + [_U, _U, _P,
+    "rls_rescan_fused": [_P] * 5 + [_I] * 9 + [_U, _U, _P, _P,
                                                ctypes.POINTER(_I)],
     "rls_rescan_accumulate": [_P] * 4 + [_I] * 5 + [_P],
     "rls_prim_fma": [_P, _I, _I, _P],
@@ -156,8 +156,11 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {code}")
 
 
-def stream_handle(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of the current stream of ``device`` (a CUDA tensor's
+    device), read on every call: a caller may switch streams between
+    launches."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def require_cuda_f32(name: str, *tensors) -> None:
@@ -174,25 +177,23 @@ def require_cuda_f32(name: str, *tensors) -> None:
             raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def seeds_from(generator) -> tuple[int, int]:
-    """Two 31-bit Philox key words drawn from ``generator`` (read on the
-    host: with a CUDA generator each read synchronises the device)."""
-    s = torch.randint(0, 2**31 - 1, (2,), generator=generator,
-                      device=generator.device, dtype=torch.int64)
-    return int(s[0]), int(s[1])
-
-
 def key_words(generator, device) -> tuple[int, int, torch.Tensor | None]:
-    """The Philox key words of ``seeds_from`` without a host-device sync:
+    """The kernel's two 31-bit Philox key words, drawn from ``generator``
+    with ``torch.randint`` and never read back on the host from a card:
     ``(s0, s1, None)`` by value from a CPU generator, or ``(0, 0, keys)``
     from a CUDA generator on ``device``, ``keys`` the two words left on
     the card (int64) for the kernel to read. Both draw the same words from
     the same generator state; the CUDA path stays valid under CUDA-graph
-    capture."""
-    if generator.device.type == "cpu":
-        return (*seeds_from(generator), None)
-    if generator.device != torch.device(device):
+    capture. No generator (a noise-free call) gives ``(0, 0, None)``."""
+    if generator is None:
+        return 0, 0, None
+    on_host = generator.device.type == "cpu"
+    if not on_host and generator.device != torch.device(device):
         raise ValueError(f"generator on {generator.device}, tensor on "
                          f"{device}")
-    return 0, 0, torch.randint(0, 2**31 - 1, (2,), generator=generator,
-                               device=generator.device, dtype=torch.int64)
+    s = torch.randint(0, 2**31 - 1, (2,), generator=generator,
+                      device=generator.device, dtype=torch.int64)
+    if on_host:
+        s0, s1 = s.tolist()
+        return s0, s1, None
+    return 0, 0, s

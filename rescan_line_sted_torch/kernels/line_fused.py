@@ -164,14 +164,14 @@ def line_sted_fused(sample_y: torch.Tensor, eff_scaled: torch.Tensor,
     ws_t, wm_t = torch.from_numpy(ws).to(dev), torch.from_numpy(wm).to(dev)
     _build.require_cuda_f32("line_sted_fused", s, eff, gx, ws_t, wm_t)
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
-    s0 = s1 = 0
-    if generator is not None:
-        s0, s1 = _build.seeds_from(generator)
+    s0, s1, keys = _build.key_words(generator, dev)
     smem = (ctypes.c_int * 2)()
     code = _build.lib().rls_line_sted_fused(
         s.data_ptr(), eff.data_ptr(), gx.data_ptr(), ws_t.data_ptr(),
         wm_t.data_ptr(), out.data_ptr(), h, w, i0, ws.size, j0, n_taps,
-        int(generator is not None), s0, s1, _build.stream_handle(dev), smem)
+        int(generator is not None), s0, s1,
+        None if keys is None else keys.data_ptr(), _build.stream_handle(dev),
+        smem)
     _build.check(code, "line_sted_fused")
     if smem[0] > smem[1]:
         raise ValueError(

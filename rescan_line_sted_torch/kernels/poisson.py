@@ -86,27 +86,30 @@ def single_draw_uniforms(n: int, key: tuple[int, int]) -> np.ndarray:
             + np.float32(2.0 ** -24))
 
 
+_WARP = 128   # rates a warp tiers by: four per lane, 32 lanes
+
+
 def warp_tiers(lam: torch.Tensor, flat: bool = False) -> torch.Tensor:
     """The max rate each element's warp tiers by, shaped as ``lam``: K2b's
-    warp covers 32 adjacent columns of a row; K2c's (``flat``) 128
-    consecutive elements of the flattened tensor. NaN where the warp holds
-    a NaN."""
+    warp covers 128 adjacent columns of a row (the last one of a row
+    ragged); K2c's (``flat``) 128 consecutive elements of the flattened
+    tensor, across rows. NaN where the warp holds a NaN."""
     lam = lam.detach().clamp_min(0.0)
-    group = 128 if flat else 32
     cols = lam.numel() if flat or lam.ndim == 0 else lam.shape[-1]
     x = lam.reshape(-1, cols)
-    mx = F.pad(x, (0, -cols % group)).reshape(x.shape[0], -1, group)
+    mx = F.pad(x, (0, -cols % _WARP)).reshape(x.shape[0], -1, _WARP)
     mx = torch.where(torch.isnan(mx).any(-1), float("nan"), mx.amax(-1))
-    return mx.repeat_interleave(group, dim=1)[:, :cols].reshape(lam.shape)
+    return mx.repeat_interleave(_WARP, dim=1)[:, :cols].reshape(lam.shape)
 
 
 def poisson_rows_tiered_reference(lam: torch.Tensor, key: tuple[int, int],
                                   flat: bool = False) -> torch.Tensor:
-    """K2b's counts for Philox key words ``key`` (``_build.seeds_from`` of
-    the generator K2b is given), on the host: one tier per 32 adjacent
-    columns of a row, from their max; with ``flat``, K2c's: one tier per
-    128 consecutive elements (a warp of four elements per thread), whose
-    single-draw uniforms are those of the flat index. Covers the zero,
+    """K2b's counts for Philox key words ``key`` (``_build.key_words`` of
+    the generator K2b is given), on the host: one tier per 128 adjacent
+    columns of a row (a warp of four columns per thread), from their max;
+    with ``flat``, K2c's: one tier per 128 consecutive elements of the
+    flattened tensor. Either way element i takes the single-draw uniform of
+    its flat index i. Covers the zero,
     Bernoulli and inversion tiers; raises where a warp would take the
     bright tier (its Knuth / PTRS draws are checked by their statistics).
     The card's ``expf`` and CDF sums may differ from these by an ulp, so a
@@ -133,16 +136,19 @@ def poisson_rows_tiered_reference(lam: torch.Tensor, key: tuple[int, int],
 def poisson_rows_tiered(lam: torch.Tensor,
                         generator: torch.Generator) -> torch.Tensor:
     """K2b: Poisson counts of ``lam`` [..., cols], sampler tier chosen per
-    warp of 32 adjacent columns (mostly-dark rows stay on cheap tiers)."""
+    warp of 128 adjacent columns of a row (mostly-dark rows stay on cheap
+    tiers). The key words come from ``generator`` without a host-device
+    sync, as K2c's do."""
     if not lam.is_cuda:
         return poisson_reference(lam, generator)
     _build.require_cuda_f32("poisson_rows_tiered", lam)
     cols = lam.shape[-1] if lam.ndim else 1
     rows = lam.numel() // max(cols, 1)
     out = torch.empty_like(lam)
-    s0, s1 = _build.seeds_from(generator)
+    s0, s1, keys = _build.key_words(generator, lam.device)
     code = _build.lib().rls_poisson_rows_tiered(
         lam.data_ptr(), out.data_ptr(), rows, cols, s0, s1,
+        None if keys is None else keys.data_ptr(),
         _build.stream_handle(lam.device))
     _build.check(code, "poisson_rows_tiered")
     _build.LAUNCHES["poisson_rows_tiered"] += 1

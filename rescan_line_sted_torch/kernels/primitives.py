@@ -61,7 +61,7 @@ INV_LAM = 0.3                   # the TPU bodies' rate
 EXP_SCALE = 0.5                 # the TPU body's exp chain: x = exp(-x) / 2
 KNUTH_THRESHOLD = float(np.float32(np.exp(-0.3)))
 KNUTH_ROUNDS = 24               # Knuth rounds of an element below the cut
-PTRS_DRAWS = 20                 # multi-draw uniforms of a bright element
+PTRS_DRAWS = 2                  # a bright element's least draws: one attempt
 NAMES = ("fma", "uniform", "uniform_block", "exp", "inv_term", "knuth_round",
          "place_add", "sgemm")
 TARGET_MS, REPEATS = 1.0, 7     # a rate call's least length; timings per rate
@@ -438,17 +438,15 @@ def primitive_rates(device=None) -> dict:
     return rates
 
 
-def tiered_counts(lam: torch.Tensor, bright_draws: int = PTRS_DRAWS
-                  ) -> dict:
+def tiered_counts(lam: torch.Tensor) -> dict:
     """Sampler work of K2a's tiered ladder on rates ``lam``, counted per
     element at the element's own tier (a lower bound of the warp's tier):
     ``uniforms``, one per element of rate in (0, 10); ``exps``, one per
     element of rate 1e-3 or more (the Bernoulli tier takes none; a bright
     element's PTRS takes logs); CDF-inversion terms (kmax per element in
-    [1e-3, 10)); Knuth rounds (a bright element's ``bright_draws`` draws,
-    each at least a round's work: all ``PTRS_DRAWS`` where every attempt
-    runs, 2 where the sampler stops at the first acceptance, as K2c's
-    does)."""
+    [1e-3, 10)); Knuth rounds (a bright element's ``PTRS_DRAWS`` draws,
+    each at least a round's work: the sampler stops at the first
+    acceptance)."""
     lam = lam.clamp_min(0)
     terms = 0
     lo = 1e-3
@@ -457,19 +455,20 @@ def tiered_counts(lam: torch.Tensor, bright_draws: int = PTRS_DRAWS
         lo = hi
     return {"uniforms": int(((lam > 0) & (lam < _CUT)).sum()),
             "exps": int((lam >= 1e-3).sum()), "inv_terms": terms,
-            "knuth_rounds": bright_draws * int((lam >= _CUT).sum())}
+            "knuth_rounds": PTRS_DRAWS * int((lam >= _CUT).sum())}
 
 
 def knuth_counts(lam: torch.Tensor) -> dict:
     """Sampler work of the Knuth + PTRS sampler (K3's draws) on ``lam``:
-    one exp (or log) per element of rate > 0; ``KNUTH_ROUNDS`` rounds per
-    element below the cut and ``PTRS_DRAWS`` draws of the multi-draw
-    stream per bright one (each round and draw takes its uniform from that
-    stream, which the knuth_round rate includes)."""
+    one exp (or log) per element of rate > 0; for an element below the
+    cut, Knuth's rounds until its count is settled, min(rate + 1,
+    ``KNUTH_ROUNDS``) in expectation; ``PTRS_DRAWS`` draws of the
+    multi-draw stream per bright one (each round and draw takes its
+    uniform from that stream, which the knuth_round rate includes)."""
     lam = lam.clamp_min(0)
+    low = lam[(lam > 0) & (lam < _CUT)].double()
     return {"exps": int((lam > 0).sum()), "inv_terms": 0,
-            "knuth_rounds": KNUTH_ROUNDS * int(((lam > 0) & (lam < _CUT))
-                                               .sum())
+            "knuth_rounds": float((low + 1.0).clamp(max=KNUTH_ROUNDS).sum())
             + PTRS_DRAWS * int((lam >= _CUT).sum())}
 
 
@@ -477,9 +476,9 @@ def composite_bound(counts: dict, rates: dict) -> dict:
     """The least time (ms) of a kernel from its counts and the measured
     primitive rates (``primitive_rates``). ``counts`` may hold ``conv_fma``
     (charged at the faster FFMA rate, the fma chain's or sgemm's),
-    ``exps``, ``single_draws`` (single-draw uniforms, one Philox block
-    each: K2b's and K4's draws), ``philox_blocks`` (blocks whose four words
-    all serve: K1's draws), ``inv_terms``, ``knuth_rounds`` and ``windows``
+    ``exps``, ``philox_blocks`` (single-draw blocks whose four words all
+    serve: a quarter block per draw of K1, K2b, K2c and K4), ``inv_terms``,
+    ``knuth_rounds`` and ``windows``
     (placed elements / 69632, the [136, 512] window). Returns each term and
     the total."""
     def rate(name):
@@ -489,7 +488,6 @@ def composite_bound(counts: dict, rates: dict) -> dict:
     t = {"conv_ms": counts.get("conv_fma", 0) / max(rate("fma"),
                                                     rate("sgemm")),
          "sampler_ms": counts.get("exps", 0) / rate("exp")
-         + counts.get("single_draws", 0) / rate("uniform")
          + counts.get("philox_blocks", 0) / rate("uniform_block")
          + counts.get("inv_terms", 0) / rate("inv_term")
          + counts.get("knuth_rounds", 0) / rate("knuth_round"),

@@ -269,15 +269,14 @@ def rescan_banded_fused(
                             sa_lo, sa_hi, m0, cls, *taps)
     out = torch.empty((q, wc, hb), dtype=torch.float32,
                       device=sample_y.device)
-    s0 = s1 = 0
-    if generator is not None:
-        s0, s1 = _build.seeds_from(generator)
+    s0, s1, keys = _build.key_words(generator, sample_y.device)
     variant = ctypes.c_int(-1)
     code = _build.lib().rls_rescan_banded_fused(
         g_t.data_ptr(), ill_w.data_ptr(), sample_ext.data_ptr(),
         sa_lo.data_ptr(), sa_hi.data_ptr(), m0.data_ptr(), cls.data_ptr(),
         taps[0].data_ptr() if taps else None, out.data_ptr(), h, w, chunk,
         d_in, dob, b, q, wc, n_spread, int(generator is not None), s0, s1,
+        None if keys is None else keys.data_ptr(),
         _build.stream_handle(sample_y.device), ctypes.byref(variant))
     _build.check(code, "rescan_banded_fused")
     if variant.value < 0:

@@ -27,6 +27,21 @@ bins, draws with ``poisson_reference`` and places with ``index_add_``.
 K4 keeps its runs and frames in shared memory; ``runs_fit`` is the static
 bound (``MAX_RUN``) under which the rescan engine hands it a scan, decided
 on the host whatever the device, as ``line_fused.MAX_WIDTH`` is for K3.
+
+K4's draws: binned element ``(p, Y, X)`` takes the single-draw uniform
+(Philox4x32-10, ``csrc/philox.cuh``) of index ``((Y * wc + c) * ceil(W /
+4)) * 4 + p``, ``c = (offsets[p] + X) mod wc`` its canvas column (one-to-one
+with X for a fixed p, since W/b <= wc), so one Philox block serves four
+consecutive positions of one canvas element; a bright warp draws on the
+multi-draw stream of the same index. No host reference reproduces this
+stream count by count: K4's draws are held to their statistics (seed-mean,
+variance / mean, totals) and to determinism. The plain version draws with
+``poisson_reference``.
+
+K4 places each chunk of 16 positions as a strip of canvas columns summed
+in position order; a chunk whose frame windows wrap the camera columns
+places the windows' heads and wrapped tails as two strips
+(``chunk_paths`` counts both kinds on the host).
 """
 
 from __future__ import annotations
@@ -41,12 +56,14 @@ from rescan_line_sted_torch.kernels.poisson import poisson_reference
 
 _CHUNK = 64                # positions per matrix product of the plain version
 # K4's smallest layout (one binned row of b sample rows per block) holds the
-# staged eff run (ne taps) and the frames (ne + ng - 1 columns) of 16
-# positions per sample row, each rounded up to 16 and padded to a bank
-# stride (at most 46 floats more), and the two profiles: at most
-# 33 * b * (ne + ng + 45) + 71 floats, inside a Hopper block's 227 KB
-# (58112 floats) of opt-in shared memory while b * (ne + ng + 45) <= MAX_RUN.
-# At b = 1 that is a combined run ne + ng - 1 of up to 1704 columns.
+# two profiles' runs (ne taps rounded up to 16, ng taps and 64 zeros), one
+# staged sample window per sample row (ne + 16 columns, padded to a stride
+# of 16 mod 32) and the frames (ne + ng - 1 columns rounded up to 16 and
+# padded to a bank stride) of 16 positions per sample row: at most
+# 18 * b * (ne + ng + 48) floats. While b * (ne + ng + 45) <= MAX_RUN (b <=
+# 32) that is under 34000 floats (133 KB), inside a Hopper block's 227 KB of
+# opt-in shared memory less K4's static plan (under 1 KB). At b = 1 the
+# bound admits a combined run ne + ng - 1 of up to 1704 columns.
 MAX_RUN = 1750
 
 
@@ -67,6 +84,27 @@ def runs_fit(eff_scaled: torch.Tensor, gx: torch.Tensor,
     same way on every device."""
     (_, ne), (_, ng) = _run(eff_scaled), _run(gx)
     return binning * (ne + ng + 45) <= MAX_RUN
+
+
+_KP = 16                   # K4's scan positions per chunk
+
+
+def chunk_paths(w: int, binning: int, eff_scaled: torch.Tensor,
+                gx: torch.Tensor) -> dict:
+    """How K4 places its chunks of 16 positions at width ``w``: ``strip``,
+    one strip of canvas columns; ``split``, a chunk with a frame window
+    that wraps the camera columns (binned window start ``xab`` with ``xab
+    + lb > W/b``), placed as a strip of heads and one of tails. The rule
+    of ``csrc/rescan_fused.cu``, on the host."""
+    (e0, ne), (g0, ng) = _run(eff_scaled), _run(gx)
+    if ne == 0 or ng == 0:
+        return {"strip": 0, "split": 0}
+    b, wb = binning, w // binning
+    lb = min(wb, -(-(ne + ng - 1 + b - 1) // b))
+    xab = (torch.arange(w) + e0 + g0) % w // b
+    wraps = torch.nn.functional.pad(xab + lb > wb, (0, -w % _KP))
+    split = int(wraps.reshape(-1, _KP).any(1).sum())
+    return {"strip": -(-w // _KP) - split, "split": split}
 
 
 def _check(sample_y, eff_scaled, gx, offsets, wc, binning):
@@ -172,14 +210,14 @@ def rescan_fused(sample_y: torch.Tensor, eff_scaled: torch.Tensor,
     eff, gxc = eff_scaled.contiguous(), gx.contiguous()
     offs = torch.remainder(offsets.to(dev, torch.int64), wc).to(torch.int32)
     _build.require_cuda_f32("rescan_fused", s, eff, gxc, offs, out)
-    s0 = s1 = 0
-    if generator is not None:
-        s0, s1 = _build.seeds_from(generator)
-    info = (ctypes.c_int * 3)()
+    s0, s1, keys = _build.key_words(generator, dev)
+    info = (ctypes.c_int * 5)()
     code = _build.lib().rls_rescan_fused(
         s.data_ptr(), eff.data_ptr(), gxc.data_ptr(), offs.data_ptr(),
         out.data_ptr(), h, w, binning, wc, e0, ne, g0, ng,
-        int(generator is not None), s0, s1, _build.stream_handle(dev), info)
+        int(generator is not None), s0, s1,
+        None if keys is None else keys.data_ptr(), _build.stream_handle(dev),
+        info)
     _build.check(code, "rescan_fused")
     if info[2] == 0:
         raise ValueError(

@@ -46,6 +46,13 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+def _host_key(generator):
+    """The two Philox key words ``_build.key_words`` draws from
+    ``generator``, read on the host."""
+    s0, s1, keys = _build.key_words(generator, generator.device)
+    return (s0, s1) if keys is None else tuple(keys.tolist())
+
+
 @pytest.mark.parametrize("kernel", KERNELS, ids=KERNEL_IDS)
 @pytest.mark.parametrize("lam_val", [5e-4, 0.05, 0.3, 1.2, 7.0, 40.0])
 def test_sampler_statistics(cuda, kernel, lam_val):
@@ -90,9 +97,99 @@ def test_rows_tiered_draw_for_draw(cuda, lam_val):
     got = poisson_rows_tiered(lam.to(cuda),
                               torch.Generator().manual_seed(21)).cpu()
     want = poisson_rows_tiered_reference(
-        lam, _build.seeds_from(torch.Generator().manual_seed(21)))
+        lam, _host_key(torch.Generator().manual_seed(21)))
     diff = (got - want).abs()
     assert float(diff.max()) <= 1 and int((diff > 0).sum()) <= 4
+
+
+@pytest.mark.parametrize("cols,shift", [
+    (1, 0), (3, 0), (5, 0), (130, 0), (2048, 0), (2048, 1), (130, 3)])
+@pytest.mark.parametrize("on_card", [False, True])
+def test_rows_tiered_ragged_draw_for_draw(cuda, cols, shift, on_card):
+    """K2b (four columns and one Philox block per thread, a warp on 128
+    columns of a row) against its host reference count by count: rows that
+    end inside a Philox block or a warp, and views that do not start on 16
+    bytes (scalar loads), with a CPU generator and a CUDA one (key words
+    read on the card)."""
+    rows = 2048 // max(1, cols // 32)
+    full = 1.4 * torch.rand(rows * cols + shift,
+                            generator=torch.Generator().manual_seed(cols))
+    lam, dev = full[shift:].reshape(rows, cols), \
+        full.to(cuda)[shift:].reshape(rows, cols)
+    assert (dev.data_ptr() % 16 == 0) == (shift == 0)
+    gen = (lambda: torch.Generator(cuda).manual_seed(cols)) if on_card \
+        else (lambda: torch.Generator().manual_seed(cols))
+    got = poisson_rows_tiered(dev, gen()).cpu()
+    want = poisson_rows_tiered_reference(lam, _host_key(gen()))
+    diff = (got - want).abs()
+    assert float(diff.max()) <= 1 and int((diff > 0).sum()) <= 4
+
+
+def test_rows_tiered_cuda_generator_never_syncs(cuda):
+    """K2b with a CUDA generator draws its key words on the card and reads
+    them there: no sync under sync-debug mode "error"; its counts equal the
+    host reference under the same words."""
+    lam = 3.0 * torch.rand((96, 2048),
+                           generator=torch.Generator().manual_seed(1))
+    dev = lam.to(cuda)
+    poisson_rows_tiered(dev, torch.Generator(cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = poisson_rows_tiered(dev, torch.Generator(cuda).manual_seed(9))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = poisson_rows_tiered_reference(
+        lam, _host_key(torch.Generator(cuda).manual_seed(9)))
+    diff = (got.cpu() - want).abs()
+    assert float(diff.max()) <= 1 and int((diff > 0).sum()) <= 4
+
+
+def _fixed_key(monkeypatch, generator):
+    """Make the kernels take by value the key words that ``generator`` (a
+    copy of its state is used) would give them."""
+    copy = torch.Generator(generator.device)
+    copy.set_state(generator.get_state())
+    words = _host_key(copy)
+    monkeypatch.setattr(_build, "key_words",
+                        lambda g, d: (*words, None) if g is not None
+                        else (0, 0, None))
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k3", "k4"])
+def test_key_words_on_card_match_by_value(cuda, kernel, monkeypatch):
+    """K1, K3 and K4 read their key words on the card from a CUDA
+    generator; the same words passed by value (drawn from a copy of the
+    generator's state) give the same canvas."""
+    from rescan_line_sted_torch.kernels.line_fused import line_sted_fused
+    from rescan_line_sted_torch.kernels.rescan_fused import rescan_fused
+
+    if kernel == "k1":
+        args, kw = _case(2, 1, 1.5, 8, cuda)
+        s, e, gx, offs = args
+
+        def run(g):
+            return rescan_banded_fused(50.0 * s, 40.0 * e, gx, offs, **kw,
+                                       generator=g)
+    elif kernel == "k3":
+        s, eff, gx, slit = _line_inputs(64, 256, 4.0, cuda)
+
+        def run(g):
+            return line_sted_fused(5.0 * s, eff, gx, slit, g,
+                                   slit_support=18)
+    else:
+        s, eff, gx = _k4_inputs(64, 256, cuda)
+        offs = torch.arange(256, device=cuda).int()
+
+        def run(g):
+            return rescan_fused(3.0 * s, eff, gx, offs, 512, generator=g)
+    gen = torch.Generator(cuda).manual_seed(12)
+    state = gen.get_state()
+    on_card = run(gen)
+    gen.set_state(state)
+    _fixed_key(monkeypatch, gen)
+    by_value = run(gen)
+    assert torch.equal(on_card, by_value) and on_card.sum() > 0
 
 
 def test_banded_kernel_wide_windows_match_plain(cuda):
@@ -428,6 +525,31 @@ def test_rescan_fused_matches_plain(cuda, h, w, b, rf, run, roll):
         assert got.shape == (h // b, wc) and _rel(got, want) <= 1e-5
 
 
+@pytest.mark.parametrize("b,roll", [(1, 0), (1, 100), (2, 0)])
+def test_rescan_fused_wrapped_windows(cuda, b, roll):
+    """K4 where frame windows wrap the camera columns in most chunks (the
+    windows' heads and tails placed as two strips), noise-free against its
+    plain version, at b = 1 and b = 2; its draws there are deterministic
+    and their total within 5 sigma."""
+    from rescan_line_sted_torch.kernels.rescan_fused import (
+        chunk_paths, rescan_fused, rescan_fused_reference)
+
+    h, w = 32, 256
+    s, eff, gx = _k4_inputs(h, w, cuda, roll=roll)
+    assert chunk_paths(w, b, eff, gx)["split"] > 0
+    wc = 2 * w // b
+    offs = torch.round(torch.arange(w, device=cuda) / b).int()
+    want = rescan_fused_reference(s, eff, gx, offs, wc, b)
+    got = rescan_fused(s, eff, gx, offs, wc, b)
+    assert got.shape == (h // b, wc) and _rel(got, want) <= 1e-5
+    noisy = [rescan_fused(4.0 * s, eff, gx, offs, wc, b,
+                          generator=torch.Generator().manual_seed(3))
+             for _ in range(2)]
+    mu = 4.0 * float(want.double().sum())
+    assert torch.equal(noisy[0], noisy[1])
+    assert abs(float(noisy[0].double().sum()) - mu) <= 5 * np.sqrt(mu)
+
+
 def test_rescan_fused_nonfinite_and_negative(cuda):
     """Negative samples give negative noise-free frames (as the plain
     version) and clamp to 0 when drawn; a NaN sample reaches only canvas
@@ -722,8 +844,7 @@ def test_primitive_rates_and_bound(cuda):
     assert all(np.isfinite(r["rate"]) and r["rate"] > 0
                for r in rates.values())
     t = prim.composite_bound({"conv_fma": 1e9, "exps": 1e7,
-                              "single_draws": 1e7, "philox_blocks": 1e6,
-                              "windows": 10}, rates)
+                              "philox_blocks": 1e6, "windows": 10}, rates)
     assert t["total_ms"] == pytest.approx(
         t["conv_ms"] + t["sampler_ms"] + t["placement_ms"])
 
@@ -805,7 +926,7 @@ def test_flat_draw_for_draw(cuda, n, scale, misalign):
     lam, dev = full[misalign:], full.to(cuda)[misalign:]
     assert (dev.data_ptr() % 16 == 0) == (misalign == 0)
     got = poisson_flat(dev, torch.Generator().manual_seed(n)).cpu()
-    key = _build.seeds_from(torch.Generator().manual_seed(n))
+    key = _host_key(torch.Generator().manual_seed(n))
     bright = warp_tiers(lam, flat=True) >= _CUT
     want = poisson_rows_tiered_reference(torch.where(bright, 0.0, lam), key,
                                          flat=True)
@@ -851,7 +972,7 @@ def test_flat_cuda_generator_never_syncs(cuda):
     """With a CUDA generator K2c draws its key words on the card and reads
     them there: the call raises under sync-debug mode "error" if anything
     synchronises. Its counts equal the host reference under the words that
-    ``seeds_from`` draws from the same generator state."""
+    ``_build.key_words`` draws from the same generator state."""
     lam = _flat_rates(1 << 16, 3, 3.0).to(cuda)
     poisson_flat(lam, torch.Generator(cuda).manual_seed(0))   # build, warm
     torch.cuda.synchronize()
@@ -860,7 +981,7 @@ def test_flat_cuda_generator_never_syncs(cuda):
         got = poisson_flat(lam, torch.Generator(cuda).manual_seed(9))
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    key = _build.seeds_from(torch.Generator(cuda).manual_seed(9))
+    key = _host_key(torch.Generator(cuda).manual_seed(9))
     want = poisson_rows_tiered_reference(lam, key, flat=True)
     diff = (got.cpu() - want).abs()
     assert float(diff.max()) <= 1 and int((diff > 0).sum()) <= 4

@@ -109,25 +109,54 @@ def test_rows_tiered_reference_statistics(lam_val, kmax):
 
 
 def test_rows_tiered_reference_tiers():
-    """Zero and negative warps give 0; a warp's tier comes from its max,
-    so one bright lane lifts its 31 neighbours' cap; the bright tier and
-    NaN are refused (K2b draws them with Knuth / PTRS)."""
-    lam = torch.zeros((4, 70))
+    """Zero and negative warps give 0; a warp's tier comes from the max of
+    its 128 adjacent columns of a row, so one bright lane lifts the other
+    127, in other 32-column groups too; the ragged last warp of a row
+    (301 columns: 45, not a multiple of four) tiers by its own max; the
+    bright tier and NaN are refused (K2b draws them with Knuth / PTRS)."""
+    lam = torch.zeros((4, 301))
     lam[1] = -0.3
     lam[2] = 0.5
-    lam[2, 40] = 1.4               # second warp of row 2: kmax 8, not 6
+    lam[2, 100] = 1.4              # first warp of row 2: kmax 8, not 6
+    lam[2, 290] = 1.2              # the ragged last warp: kmax 8
     x = poisson_rows_tiered_reference(lam, (5, 6))
     assert x.shape == lam.shape and (x[:2] == 0).all() and (x[3] == 0).all()
     u = torch.from_numpy(single_draw_uniforms(lam.numel(), (5, 6)))
     u = u.reshape(lam.shape)
-    assert torch.equal(x[2, 32:64], inversion_from_uniform(
-        u[2, 32:64], lam[2, 32:64], 8))
-    assert torch.equal(x[2, :32], inversion_from_uniform(
-        u[2, :32], lam[2, :32], 6))
+    for lo, hi, kmax in ((0, 128, 8), (128, 256, 6), (256, 301, 8)):
+        assert torch.equal(x[2, lo:hi], inversion_from_uniform(
+            u[2, lo:hi], lam[2, lo:hi], kmax)), (lo, hi)
+    mx = warp_tiers(lam)
+    assert (mx[2, :128] == 1.4).all() and (mx[2, 128:256] == 0.5).all() \
+        and (mx[2, 256:] == 1.2).all()
     for bad in (10.0, float("nan")):
         lam[3, 3] = bad
         with pytest.raises(ValueError, match="bright"):
             poisson_rows_tiered_reference(lam, (5, 6))
+
+
+@pytest.mark.parametrize("cols", [1, 3, 5, 130])
+def test_rows_tiered_reference_ragged_rows(cols):
+    """K2b's warps on rows that are not a multiple of four (or of 128)
+    columns: each row's warps hold only its own columns, and every element
+    keeps the single-draw uniform of its flat index, so a row that starts
+    inside a Philox block takes the block's remaining words."""
+    rows = 7
+    lam = 0.05 + 0.1 * torch.arange(rows * cols, dtype=torch.float32
+                                    ).reshape(rows, cols) / (rows * cols)
+    lam[3, cols // 2] = 1.2        # row 3's first warp: kmax 8
+    x = poisson_rows_tiered_reference(lam, (7, 8))
+    u = torch.from_numpy(single_draw_uniforms(rows * cols, (7, 8)))
+    u = u.reshape(rows, cols)
+    mx = warp_tiers(lam)
+    for r in range(rows):
+        for lo in range(0, cols, 128):
+            hi = min(lo + 128, cols)
+            top = float(lam[r, lo:hi].max())
+            assert (mx[r, lo:hi] == top).all()
+            kmax = next(k for h, k in _INV_TIERS if top < h)
+            assert torch.equal(x[r, lo:hi], inversion_from_uniform(
+                u[r, lo:hi], lam[r, lo:hi], kmax)), (r, lo)
 
 
 @pytest.mark.parametrize("shape", [(3, 100), (300,), (2, 3, 50)])
@@ -160,23 +189,30 @@ def test_flat_reference_tiers(shape):
 
 
 def test_rows_and_flat_warps_differ():
-    """K2b tiers 32 columns of a row, K2c 128 consecutive elements: a
-    bright lane lifts 31 neighbours in K2b and 127 in K2c."""
-    lam = torch.full((2, 256), 0.2)
+    """K2b and K2c both tier 128 rates per warp, but K2b's warps stop at a
+    row's end and K2c's run across rows: a bright rate lifts only its own
+    row in K2b, and the next row's first columns in K2c."""
+    lam = torch.full((3, 100), 0.2)
     lam[0, 5] = 1.0
+    lam[1, 99] = 1.2
     rows = warp_tiers(lam)
     flat = warp_tiers(lam, flat=True)
-    assert (rows[0, :32] == 1.0).all() and (rows[0, 32:] == 0.2).all()
-    assert (flat[0, :128] == 1.0).all() and (flat[0, 128:] == 0.2).all()
-    assert (rows[1] == 0.2).all() and (flat[1] == 0.2).all()
+    assert (rows[0] == 1.0).all() and (rows[1] == 1.2).all() \
+        and (rows[2] == 0.2).all()
+    flat = flat.reshape(-1)
+    assert (flat[:128] == 1.0).all() and (flat[128:256] == 1.2).all() \
+        and (flat[256:] == 0.2).all()
 
 
 def test_key_words_from_a_cpu_generator():
-    """A CPU generator gives K2c its key words by value, the same two that
-    ``seeds_from`` draws; no tensor is left for the kernel to read."""
+    """A CPU generator gives the kernels their key words by value, the two
+    31-bit words ``torch.randint`` draws from it; no tensor is left for the
+    kernel to read. No generator (a noise-free call) gives zeros."""
     got = _build.key_words(torch.Generator().manual_seed(3), "cpu")
-    assert got == (*_build.seeds_from(torch.Generator().manual_seed(3)),
-                   None)
+    want = torch.randint(0, 2**31 - 1, (2,),
+                         generator=torch.Generator().manual_seed(3))
+    assert got == (*want.tolist(), None)
+    assert _build.key_words(None, "cpu") == (0, 0, None)
 
 
 @pytest.mark.parametrize("lam_val", [0.05, 0.7, 5.0, 30.0, 300.0])

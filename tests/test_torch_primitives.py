@@ -192,28 +192,33 @@ def test_knuth_round_matches_body_transcription():
 
 
 def test_counts_and_composite_bound():
-    """Sampler counts per element at its own tier, and the composite bound
+    """Sampler counts per element at its own tier (Knuth's rounds until
+    the count is settled, in expectation; a bright element's one PTRS
+    attempt), and the composite bound
     as the sum of counts over rates, on hand-made numbers: the convolution
-    at the faster FFMA rate, single draws and Philox blocks each at their
-    own rate."""
+    at the faster FFMA rate, Philox blocks (a quarter per single draw) at
+    the ``uniform_block`` rate."""
     lam = torch.tensor([0.0, -1.0, 5e-4, 0.05, 0.2, 0.5, 1.0, 3.0, 12.0,
                         float("nan")])
     c = prim.tiered_counts(lam)
     assert c == {"uniforms": 6, "exps": 6, "inv_terms": 3 + 4 + 6 + 8 + 24,
-                 "knuth_rounds": 20}
+                 "knuth_rounds": 2}
     k = prim.knuth_counts(lam)
-    assert k == {"exps": 7, "inv_terms": 0, "knuth_rounds": 24 * 6 + 20}
+    assert k["exps"] == 7 and k["inv_terms"] == 0
+    assert math.isclose(k["knuth_rounds"], 6 + (5e-4 + 0.05 + 0.2 + 0.5
+                                                + 1.0 + 3.0) + 2, rel_tol=1e-6)
+    assert math.isclose(prim.knuth_counts(torch.tensor([30.0, 9.9, 40.0]))[
+        "knuth_rounds"], 10.9 + 2 * 2, rel_tol=1e-6)
     rates = {"fma": 1e12, "sgemm": 2e12, "uniform": 1e11,
              "uniform_block": 5e10, "exp": 2e11, "inv_term": 4e11,
              "knuth_round": {"rate": 5e10}, "place_add": 1e6}
-    counts = {"conv_fma": 4e9, "exps": 1e8, "single_draws": 1e8,
-              "philox_blocks": 2.5e7, "inv_terms": 8e8, "knuth_rounds": 5e7,
-              "windows": 3000}
+    counts = {"conv_fma": 4e9, "exps": 1e8, "philox_blocks": 2.5e7,
+              "inv_terms": 8e8, "knuth_rounds": 5e7, "windows": 3000}
     t = prim.composite_bound(counts, rates)
     assert math.isclose(t["conv_ms"], 2.0)
-    assert math.isclose(t["sampler_ms"], 0.5 + 1.0 + 0.5 + 2.0 + 1.0)
+    assert math.isclose(t["sampler_ms"], 0.5 + 0.5 + 2.0 + 1.0)
     assert math.isclose(t["placement_ms"], 3.0)
-    assert math.isclose(t["total_ms"], 10.0)
+    assert math.isclose(t["total_ms"], 9.0)
     rates["fma"] = 4e12
     assert math.isclose(prim.composite_bound(counts, rates)["conv_ms"], 1.0)
 
