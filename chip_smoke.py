@@ -14,11 +14,16 @@ sm_90a), then:
    of 128 rates) at every rate below the bright tier, K2b also on rows of
    1, 3, 5 and 130 columns and a misaligned view with a CPU and a CUDA
    generator, and K2b's chi-square p over 16 seeds per single-draw tier;
-   K2b and K2c with a CUDA generator under sync-debug mode "error";
-3. holds kernel K1 (banded fused scan) against its plain PyTorch version,
-   noise-free, in each of its modes (max relative error <= 1e-5): integer
-   and class placement at the flagship shape (2048^2, R = 1.5, q = 2), at
-   2048^2 R = 2.0 and at 512^2 R = 3.0, b = 2; NUFFT spreading at 2048^2
+   K2b and K2c with a CUDA generator, and a second per-step K3 line image
+   (its plan cached by the line engine), under sync-debug mode "error";
+3. holds kernel K1 (banded fused scan, its convolution in three TF32
+   passes on the tensor cores) against its plain PyTorch version,
+   noise-free, in each of its modes (max relative error <= 1e-5, logged
+   beside the fp32 FFMA engine's 7.4e-7, with each case's shared-memory
+   layout and grid; two noisy launches with one key give the same canvas
+   bit for bit in every case): integer and class placement at the
+   flagship shape (2048^2, R = 1.5, q = 2), at 2048^2 R = 2.0 and at
+   512^2 R = 3.0, b = 2; NUFFT spreading at 2048^2
    R = 1 + pi/16 and 512^2 R = 1 + pi/8, b = 2; the wide layout (band
    windows D_in = D_out = 256, sigma_exc = 8) at 2048^2, R = 1.5 and
    R = 1 + pi/16; and a noisy class and NUFFT canvas total within 5 sigma;
@@ -111,17 +116,20 @@ sm_90a), then:
    ``primitives.CHECKS`` (where a kernel that ran another count of reps
    fails), measures this card's primitive rates through
    ``primitives.primitive_rates`` (counters reset before and read after),
-   times the sgemm rate call's products in cuBLAS, and prints the
-   composite bound (``primitives.composite_bound``) of K1 at the
-   flagship, K3 at line_2048 and K4 at nobands_2048 beside their
-   datasheet bounds (K4's also with one Philox block per draw), of K2c on
-   the flagship canvas and the scatter frames and of K2b on each caller's
-   frames, failing if a kernel runs under its composite.
+   times the sgemm and tf32x3 rate calls' products in cuBLAS, and prints
+   the composite bound (``primitives.composite_bound``) of K1 in each of
+   its four modes (its convolution at the tf32x3 rate), K3 at line_2048
+   and K4 at nobands_2048 beside their datasheet bounds (K1's three TF32
+   passes at 495 TFLOP/s, and in fp32 FFMA; K4's also with one Philox
+   block per draw), of K2c on the flagship canvas and the scatter frames
+   and of K2b on each caller's frames, failing if a kernel runs under its
+   composite.
 
 Prints a ``rule2`` line (K2b's, K2c's and K5's times against their
-library call and their bounds, K4's against its composite, with its
-chunks per placement path; a kernel that misses its target does not fail
-the run),
+library call and their bounds, K1's four modes and K3 against their bounds
+and composites with their launch shapes, K4's against its composite, with
+its chunks per placement path; a kernel that misses its target does not
+fail the run),
 one JSON line with the kernels, then the card, then the result line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 Without CUDA it exits with code 1 and prints no result.
@@ -173,7 +181,9 @@ K1_MODES = {
         "rescan_line_sted_tpu/kernels/rescan_banded_fused.py:244",
         (SIZE, IRRATIONAL, 1, WIDE_SIGMA)),
 }
+K1_FFMA_REL = 7.4e-7      # K1's worst error with its fp32 FFMA engine
 PEAK_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores
+PEAK_TF32 = 495e12        # H100 SXM TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
 
@@ -333,9 +343,12 @@ def host_key(generator) -> tuple[int, int]:
 
 
 def no_sync(dev) -> None:
-    """K2b and K2c with a CUDA generator under
-    ``torch.cuda.set_sync_debug_mode("error")``: their key words stay on
-    the card, so nothing synchronises (a sync raises)."""
+    """K2b and K2c with a CUDA generator, and a second per-step line image
+    on K3 (512^2, ``use_pallas=True``, a CUDA generator), under
+    ``torch.cuda.set_sync_debug_mode("error")``: the key words stay on
+    the card and K3's plan comes from the line engine's cache, so nothing
+    synchronises (a sync raises)."""
+    from rescan_line_sted_torch.kernels import _build
     from rescan_line_sted_torch.kernels.poisson import (
         poisson_flat, poisson_rows_tiered)
 
@@ -351,8 +364,32 @@ def no_sync(dev) -> None:
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-    log("K2b and K2c with a CUDA generator under sync-debug mode 'error': "
-        "no sync")
+    # K3 through the line engine: the second image of one set of params
+    # takes its rows, weights and tap run from the engine's cache
+    from rescan_line_sted_torch import line_sted_image
+    from rescan_line_sted_torch.data import siemens_star
+
+    params, geom = line_setup(512)
+    star = siemens_star((512, 512), device=dev)
+    gen = torch.Generator(dev).manual_seed(4)
+    before = _build.LAUNCHES["line_sted_fused"]
+
+    def k3_image():
+        return line_sted_image(star, params, geom, gen, method="scan",
+                               noise_mode="per_step", use_pallas=True).image
+
+    k3_image()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        k3_image()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(_build.LAUNCHES["line_sted_fused"] == before + 2,
+          "the K3 line image must launch K3")
+    log("K2b and K2c with a CUDA generator, and K3's second line image, "
+        "under sync-debug mode 'error': no sync")
 
 
 def k2b_ragged(dev) -> float:
@@ -502,25 +539,47 @@ def k1_inputs(case, dev):
     return args, kw
 
 
-def k1_bound(args, kw) -> tuple[float, str]:
-    """Least time (ms) of one K1 call on this card, and what bounds it:
-    the conv FMAs (and spreading taps) at the fp32 peak, against the
-    sample read once and the canvas written once."""
+def k1_counts(args, kw) -> dict:
+    """K1's work on these inputs: the convolution's fp32 FMAs (on the
+    tensor cores, three TF32 passes each), the spreading taps' FMAs (FFMA)
+    and the frame elements it places."""
     sample_y = args[0]
     h, w = sample_y.shape
     b = kw.get("binning", 1)
     dob, hb = kw["d_out"] // b, h // b
-    fma = w * dob * kw["d_in"] * hb
-    q = kw.get("q", 1)
+    n = {"tc_fma": w * dob * kw["d_in"] * hb, "conv_fma": 0,
+         "placed": w * dob * hb}
     if "spread_weights" in kw:
-        fma += w * dob * hb * kw["spread_weights"].shape[1]
-        q = 2
-    nbytes = 4 * ((w + kw["d_in"]) * h + q * kw["wc"] * hb)
-    return roofline(2 * fma, nbytes)
+        taps = kw["spread_weights"].shape[1]          # 2 parities x n_spread
+        n["conv_fma"] = w * dob * hb * taps
+        n["placed"] = w * (2 * dob + taps - 2) * hb
+    return n
 
 
-def roofline(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def k1_bound(args, kw) -> tuple[float, str, float]:
+    """Least time (ms) of one K1 call on this card, and what bounds it:
+    the convolution's three TF32 passes at the tensor cores' TF32 peak
+    plus the spreading taps at the fp32 peak, against the sample read once
+    and the canvas written once; and the same bound with the convolution
+    in fp32 FFMA (what bounded K1 before its tensor-core engine)."""
+    sample_y = args[0]
+    h, w = sample_y.shape
+    b = kw.get("binning", 1)
+    n = k1_counts(args, kw)
+    q = 2 if "spread_weights" in kw else kw.get("q", 1)
+    nbytes = 4 * ((w + kw["d_in"]) * h + q * kw["wc"] * (h // b))
+    tc = roofline(2.0 * n["conv_fma"], nbytes, tc_flops=6.0 * n["tc_fma"])
+    fp32 = roofline(2.0 * (n["conv_fma"] + n["tc_fma"]), nbytes)
+    return tc[0], tc[1], fp32[0]
+
+
+def roofline(flops: float, nbytes: float,
+             tc_flops: float = 0.0) -> tuple[float, str]:
+    """Least time (ms): fp32 ``flops`` at the fp32 peak plus TF32
+    ``tc_flops`` at the tensor cores' peak, or ``nbytes`` at the memory
+    rate, whichever is longer; and which."""
+    t_ops = flops / PEAK_FLOPS + tc_flops / PEAK_TF32
+    t_bytes = nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -531,6 +590,9 @@ def phase_k1(dev) -> dict:
     from rescan_line_sted_torch.kernels import _build
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
         rescan_banded_fused, rescan_banded_fused_reference)
+
+    from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+        LAUNCH_SHAPE)
 
     worst = {}
     for case in K1_CASES:
@@ -545,15 +607,26 @@ def phase_k1(dev) -> dict:
         log(f"K1 {mode} vs plain {case[0]}^2 R={case[1]:.6f} b={case[2]} "
             f"sigma_exc={case[3]} q={got.shape[0]} d_in={kw['d_in']} "
             f"d_out={kw['d_out']}: max abs err {err:.3e}, "
-            f"max rel err {rel:.3e}")
+            f"max rel err {rel:.3e} (three TF32 passes; the fp32 FFMA "
+            f"engine before them: <= {K1_FFMA_REL:.1e}); launch "
+            f"{json.dumps(LAUNCH_SHAPE[mode])}")
         check(got.shape == want.shape and rel <= 1e-5,
               f"K1 {mode} vs plain at {case}: rel err {rel}")
         w0 = worst.setdefault(mode, {"abs": 0.0, "rel": 0.0})
         worst[mode] = {"abs": max(w0["abs"], err), "rel": max(w0["rel"], rel)}
+        # the same key twice: the same canvas bit for bit
+        twice = [rescan_banded_fused(
+            *args, **kw, generator=torch.Generator().manual_seed(21))
+            for _ in range(2)]
+        check(torch.equal(twice[0], twice[1]),
+              f"K1 {mode} at {case}: two launches with one key differ")
+        del twice
         if case in (K1_CASES[0], K1_CASES[3]):
             k1_noisy_total(args, kw, want, mode)
     missing = set(K1_MODES) - set(worst)
     check(not missing, f"K1 modes never taken: {missing}")
+    log("K1: every case's noisy canvas the same bit for bit over two "
+        "launches with one key")
     return worst
 
 
@@ -794,7 +867,7 @@ def phase_times(dev) -> dict:
     from rescan_line_sted_torch.imaging.boundary import default_margin
     from rescan_line_sted_torch.kernels.poisson import poisson_rows_tiered
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
-        rescan_banded_fused, rescan_banded_fused_reference)
+        LAUNCH_SHAPE, rescan_banded_fused, rescan_banded_fused_reference)
 
     cpu_gen = torch.Generator().manual_seed(1)
     dev_gen = torch.Generator(dev).manual_seed(1)
@@ -809,7 +882,7 @@ def phase_times(dev) -> dict:
     t = {"e2e": {"flagship": per_step(*flagship())}}
     for mode, (_, case) in K1_MODES.items():
         args, kw = k1_inputs(case, dev)
-        bound, by = k1_bound(args, kw)
+        bound, by, fp32_bound = k1_bound(args, kw)
         t[mode] = {
             "ms": cuda_ms(lambda: rescan_banded_fused(
                 *args, **kw, generator=cpu_gen)),
@@ -818,7 +891,9 @@ def phase_times(dev) -> dict:
             "noise_free_ms": cuda_ms(lambda: rescan_banded_fused(*args, **kw)),
             "noise_free_plain_ms": cuda_ms(
                 lambda: rescan_banded_fused_reference(*args, **kw)),
-            "bound_ms": bound, "bound_by": by}
+            "bound_ms": bound, "bound_by": by,
+            "bound_kind": "three TF32 passes at 495 TFLOP/s",
+            "bound_fp32_ms": fp32_bound, "launch": dict(LAUNCH_SHAPE[mode])}
     canvas = image(sample, *flagship(), method="scan").image
     k2c = k2c_times("the flagship canvas", canvas, dev)
     k2c["draws"] = draw_checks("the flagship canvas", canvas, dev, True)
@@ -1345,7 +1420,7 @@ def phase_times_descanned(dev, k1_times) -> dict:
     from rescan_line_sted_torch.data import siemens_star
     from rescan_line_sted_torch.imaging import line_sted, point_sted
     from rescan_line_sted_torch.kernels.line_fused import (
-        line_sted_fused, line_sted_fused_reference)
+        LAUNCH_SHAPE, line_plan, line_sted_fused, line_sted_fused_reference)
 
     cpu_gen = torch.Generator().manual_seed(3)
     dev_gen = torch.Generator(dev).manual_seed(3)
@@ -1389,19 +1464,24 @@ def phase_times_descanned(dev, k1_times) -> dict:
 
     args = k3_inputs(line_setup(SIZE)[0], stars[SIZE])
     bound, by, counts = k3_bound(args, K3_SUPPORT)
-    k3 = {"ms": cuda_ms(lambda: line_sted_fused(*args, cpu_gen,
-                                                 slit_support=K3_SUPPORT)),
+    # the line engine hands K3 its cached plan: time the call it makes
+    plan = line_plan(*args[1:], K3_SUPPORT)
+    k3 = {"ms": cuda_ms(lambda: line_sted_fused(
+              *args, cpu_gen, slit_support=K3_SUPPORT, plan=plan)),
+          "no_plan_ms": cuda_ms(lambda: line_sted_fused(
+              *args, cpu_gen, slit_support=K3_SUPPORT)),
           "plain_ms": cuda_ms(lambda: line_sted_fused_reference(
               *args, dev_gen, slit_support=K3_SUPPORT)),
           "noise_free_ms": cuda_ms(lambda: line_sted_fused(
-              *args, slit_support=K3_SUPPORT)),
+              *args, slit_support=K3_SUPPORT, plan=plan)),
           "noise_free_plain_ms": cuda_ms(lambda: line_sted_fused_reference(
               *args, slit_support=K3_SUPPORT)),
           "bound_ms": bound, "bound_by": by,
           "noise_free_bound_ms": k3_bound(args, K3_SUPPORT, noisy=False)[0],
           **counts}
     k3["device_ms"] = device_busy(lambda: line_sted_fused(
-        *args, cpu_gen, slit_support=K3_SUPPORT))[0]
+        *args, cpu_gen, slit_support=K3_SUPPORT, plan=plan))[0]
+    k3["launch"] = dict(LAUNCH_SHAPE)
     log(f"time line_sted_fused {json.dumps(k3)}")
 
     k2b = {
@@ -2101,7 +2181,7 @@ def phase_ism(dev) -> dict:
 
 PRIM_SOURCES = {"fma": 117, "uniform": 133, "uniform_block": 133,
                 "exp": 151, "inv_term": 167, "knuth_round": 194,
-                "place_add": 219, "sgemm": 237}
+                "place_add": 219, "sgemm": 237, "tf32x3": 237}
 
 
 def prim_checks(dev) -> tuple[dict, dict]:
@@ -2137,13 +2217,17 @@ def prim_bound(name, rate) -> tuple[float, str]:
     entry of ``primitive_rates``): its arithmetic steps at the fp32 peak
     (a Philox-10 block as PHILOX_OPS, an exp as one), against its output
     written once (place_add: the canvases read and written once, sgemm:
-    A and B read, C written)."""
+    A and B read, C written; tf32x3 the same, its three TF32 passes at the
+    tensor cores' TF32 peak)."""
     from rescan_line_sted_torch.kernels import primitives as prim
 
     reps = rate["reps"]
-    if name == "sgemm":
+    if name in ("sgemm", "tf32x3"):
         m, k, n = prim.GEMM_SHAPE
-        return roofline(2.0 * m * k * n * reps, 4 * (m * k + k * n + m * n))
+        nbytes = 4 * (m * k + k * n + m * n)
+        if name == "tf32x3":      # three TF32 passes per product
+            return roofline(0.0, nbytes, tc_flops=6.0 * m * k * n * reps)
+        return roofline(2.0 * m * k * n * reps, nbytes)
     if name == "place_add":
         elems = prim.PLACE_CANVASES * prim.CANVAS_ROWS * prim.COLS
         return roofline(float(prim.PLACE_CANVASES * reps * prim.WINDOW),
@@ -2158,7 +2242,9 @@ def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
     """K6: every microkernel against its plain version; the rates
     (``primitive_rates``, counters reset before and read after); reps
     cuBLAS products against sgemm; the composite bound of K1 (flagship,
-    its frames' tiers counted per element), K3 (line_2048), K4
+    its frames' tiers counted per element, in each of its four modes: the
+    convolution at the tf32x3 rate, the spreading taps at the FFMA one), K3
+    (line_2048), K4
     (nobands_2048), K2c (``k2c``: its timing dicts on the flagship
     canvas and nobands_512_scatter's frames, with their counts) and K2b
     (``k2b``: on each caller's frames) from those
@@ -2177,32 +2263,38 @@ def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
     a = (torch.randint(0, 8, (m, k), generator=g) / 8).to(dev)
     b = (torch.randint(0, 8, (k, n), generator=g) / 8).to(dev)
     c = torch.empty((m, n), device=dev)
-    reps = rates["sgemm"]["reps"]
+    library_ms = {}
+    for name in ("sgemm", "tf32x3"):     # the same product, each its reps
+        reps = rates[name]["reps"]
 
-    def products():
-        for _ in range(reps):
-            torch.mm(a, b, out=c)
+        def products():
+            for _ in range(reps):
+                torch.mm(a, b, out=c)
 
-    library_ms = cuda_ms(products)
-    log(f"{reps} cuBLAS fp32 products {m}x{k}x{n} (TF32 off): "
-        f"{library_ms:.4f} ms = {reps * m * k * n / (library_ms * 1e-3):.4e} "
-        f"FMA/s, against K6 sgemm {rates['sgemm']['rate']:.4e}")
+        library_ms[name] = cuda_ms(products)
+        log(f"{reps} cuBLAS fp32 products {m}x{k}x{n} (TF32 off): "
+            f"{library_ms[name]:.4f} ms = "
+            f"{reps * m * k * n / (library_ms[name] * 1e-3):.4e} FMA/s, "
+            f"against K6 {name} {rates[name]['rate']:.4e}")
 
-    args, kw = k1_inputs(K1_MODES["rescan_banded_fused"][1], dev)
-    h, w = args[0].shape
-    dob = kw["d_out"] // kw.get("binning", 1)
-    frames = k1_frames(args, kw)
-    k1_sampler = prim.tiered_counts(frames)
-    del frames
     # K1, K2b, K2c and K4 take four elements' uniforms from one Philox
-    # block; K3's draws are in its Knuth rounds
-    counts = {
-        "rescan_banded_fused": {
-            "conv_fma": w * dob * kw["d_in"] * h, "exps": k1_sampler["exps"],
-            "philox_blocks": k1_sampler["uniforms"] / 4,
-            "inv_terms": k1_sampler["inv_terms"],
-            "knuth_rounds": k1_sampler["knuth_rounds"],
-            "windows": w * dob * h / prim.WINDOW},
+    # block; K3's draws are in its Knuth rounds. K1's convolution runs on
+    # the tensor cores (tc_fma), its spreading taps in FFMA (conv_fma).
+    counts, measured = {}, {}
+    for mode, (_, case) in K1_MODES.items():
+        args, kw = k1_inputs(case, dev)
+        work = k1_counts(args, kw)
+        frames = k1_frames(args, kw)
+        sampler = prim.tiered_counts(frames)
+        del frames
+        counts[mode] = {
+            "tc_fma": work["tc_fma"], "conv_fma": work["conv_fma"],
+            "exps": sampler["exps"], "philox_blocks": sampler["uniforms"] / 4,
+            "inv_terms": sampler["inv_terms"],
+            "knuth_rounds": sampler["knuth_rounds"],
+            "windows": work["placed"] / prim.WINDOW}
+        measured[mode] = k1[mode]["ms"]
+    counts.update({
         "line_sted_fused": {"conv_fma": k3["fma"], "exps": k3["exps"],
                             "inv_terms": k3["inv_terms"],
                             "knuth_rounds": k3["knuth_rounds"]},
@@ -2210,9 +2302,8 @@ def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
                          "philox_blocks": k4["uniforms"] / 4,
                          "inv_terms": k4["inv_terms"],
                          "knuth_rounds": k4["knuth_rounds"],
-                         "windows": k4["placed"] / prim.WINDOW}}
-    measured = {"rescan_banded_fused": k1["ms"], "line_sted_fused": k3["ms"],
-                "rescan_fused": k4["ms"]}
+                         "windows": k4["placed"] / prim.WINDOW}})
+    measured.update({"line_sted_fused": k3["ms"], "rescan_fused": k4["ms"]})
     for kernel, by_caller in (("poisson_flat", k2c),
                               ("poisson_rows_tiered", k2b)):
         for where, t in by_caller.items():
@@ -2241,9 +2332,10 @@ def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
                          "bound_by": by, "plain_ms": plain_ms[name],
                          "plain_at": "the rate call's inputs, the check's "
                                      "reps",
-                         "library_ms": library_ms if name == "sgemm"
-                         else None}
-    entries["sgemm"]["library_call"] = f"{reps} torch.mm, TF32 off"
+                         "library_ms": library_ms.get(name)}
+    for name in library_ms:
+        entries[name]["library_call"] = (
+            f"{rates[name]['reps']} torch.mm, TF32 off")
     return {"errs": errs, "rates": rates, "launches": launches,
             "bounds": bounds, "entries": entries, "library_ms": library_ms}
 
@@ -2287,7 +2379,7 @@ def main() -> int:
            "nobands_512_scatter frames": nob["k2c"]}
     k2b = {**desc["poisson_rows_tiered"], "nobands_512_subpixel": nob["k2b"],
            "ism_256": ism["k2b"]}
-    k6 = phase_primitives(dev, times["rescan_banded_fused"],
+    k6 = phase_primitives(dev, {m: times[m] for m in K1_MODES},
                           desc["line_sted_fused"], nob["rescan_fused"], k2c,
                           k2b)
     log(f"after timing: {clocks()}")
@@ -2305,10 +2397,9 @@ def main() -> int:
          "max_abs_err": k1_err[mode]["abs"],
          "max_rel_err": k1_err[mode]["rel"],
          "err_kind": "noise-free, against the plain version",
-         **times[mode], "library_ms": None}
+         **times[mode], "library_ms": None,
+         "composite_bound_ms": k6["bounds"][mode]["total_ms"]}
         for mode, (replaces, _) in K1_MODES.items()]
-    kernels[0]["composite_bound_ms"] = \
-        k6["bounds"]["rescan_banded_fused"]["total_ms"]
 
     def launched(kernel):
         return {p: n[kernel] for p, n in paths.items() if n.get(kernel)}
@@ -2409,6 +2500,22 @@ def main() -> int:
             c = k6["bounds"][composite]["total_ms"]
             rule2[name].update(cuda_gen_ms=t["cuda_gen_ms"], composite_ms=c,
                                device_over_composite=t["device_ms"] / c)
+    for mode, path in k1_path.items():
+        t = times[mode]
+        rule2[f"{mode} ({path})"] = {
+            "ms": t["ms"], "noise_free_ms": t["noise_free_ms"],
+            "bound_ms": t["bound_ms"], "bound_fp32_ms": t["bound_fp32_ms"],
+            "composite_ms": k6["bounds"][mode]["total_ms"],
+            "over_composite": t["ms"] / k6["bounds"][mode]["total_ms"],
+            "launch": t["launch"]}
+    k3 = desc["line_sted_fused"]
+    rule2["line_sted_fused (line_2048)"] = {
+        "ms": k3["ms"], "noise_free_ms": k3["noise_free_ms"],
+        "device_ms": k3["device_ms"], "bound_ms": k3["bound_ms"],
+        "composite_ms": k6["bounds"]["line_sted_fused"]["total_ms"],
+        "over_composite": k3["ms"]
+        / k6["bounds"]["line_sted_fused"]["total_ms"],
+        "launch": k3["launch"]}
     k4 = nob["rescan_fused"]
     rule2["rescan_fused (nobands_2048)"] = {
         "ms": k4["ms"], "noise_free_ms": k4["noise_free_ms"],
@@ -2427,7 +2534,7 @@ def main() -> int:
                             "device_busy_ms": {k: v["device_ms"] for k, v
                                                in ism["busy"].items()}}}))
     log(json.dumps({"primitive_rates": k6["rates"],
-                    "sgemm_library_ms": k6["library_ms"],
+                    "gemm_library_ms": k6["library_ms"],
                     "composite_bounds": {k: {q: v[q] for q in (
                         "conv_ms", "sampler_ms", "placement_ms", "total_ms")}
                         for k, v in k6["bounds"].items()}}))

@@ -16,31 +16,37 @@
 // which its matrix unit makes cheap: 2048^4 = 17.6 T FMA per 2048^2 image.
 // Here the work is the slit rows' correlations over their nonzero taps:
 // gx and eff underflow to 0 in float32 a few dozen columns from their
-// centres, so K_r is nonzero on a short run of offsets. The wrapper finds
-// the shortest circular run of offsets j0 .. j0 + n_taps - 1 (centred
-// index j = d + W/2) that holds every nonzero tap of every computed row,
-// and the kernel sweeps only it: 9 rows x 63 taps at the line settings
-// (depletion 8) instead of 9 x W. Skipping a zero tap is exact for finite samples, since
+// centres, so K_r is nonzero on a short run of offsets. The host finds,
+// once per set of profiles (the line engine caches it per params, width
+// and window: no host round trip per image), the shortest circular run of
+// offsets j0 .. j0 + n_taps - 1 (centred index j = d + W/2) that holds
+// every nonzero tap of every computed row, and the kernel sweeps only it:
+// 9 rows x 63 taps at the line settings (depletion 8) instead of 9 x W.
+// Skipping a zero tap is exact for finite samples, since
 // fma(0, x, acc) = acc.
-// One CTA owns kPositions scan positions x kLanes camera lanes. It keeps
-// eff and gx resident in shared memory (2 W floats, 16 KB at W = 2048, no
-// [W, W] circulant) and the kLanes sample rows it reads, as columns
-// (p0 - W/2 + j0 + t) mod W for t < kPositions + n_taps (no modular index
-// in the inner loop). Per slit row it forms K_r over the run in shared
-// memory, then each thread sweeps the run for its kPer consecutive
-// positions of one lane: per 16 taps it reads 31 staged sample values (a
-// sliding window: position e at tap m reads column e + m) and 16 K_r
-// values (a broadcast, as float4), for 256 FFMA. After the sweep a row
-// inside the sampled window is drawn with K2a's Knuth + PTRS sampler
-// (sample_poisson, Philox keyed by the global index (pos * n_rows + k) * H
-// + y of the element) and weighted; a row outside it adds its weighted
-// mean. Each thread writes its out[y, pos] once: no atomics, and the sums
-// run in a fixed order.
+// A CTA owns P scan positions (16 per thread x its position groups) x
+// kLanes camera lanes. It first forms K_r for every computed row over the
+// run, [n_rows, n_taps rounded to 16], from only the gx and eff values the
+// run reads, and stages the kLanes sample rows it reads, as columns
+// (p0 - W/2 + j0 + t) mod W for t < P + n_taps; then ONE barrier, and the
+// row loop runs with no barrier and no modular index: each thread sweeps
+// the run for its 16 consecutive positions of one lane, per 16 taps 31
+// staged sample values (a sliding window: position e at tap m reads column
+// e + m) and 16 K_r values (broadcast float4s), for 256 FFMA. After a
+// row's sweep a row inside the sampled window is drawn with K2a's Knuth +
+// PTRS sampler (sample_poisson_at, its Knuth branch inline; Philox keyed
+// by the global index (pos * n_rows + k) * H + y of the element) and
+// weighted; a row outside it adds
+// its weighted mean. Each thread writes its out[y, pos] once: no atomics,
+// and the sums run in a fixed order. The C entry asks the occupancy API,
+// for 16, 8 and 4 position groups per CTA, how many CTAs an SM runs, and
+// takes the one whose last wave is fullest (the larger CTA on a tie).
 //
-// Bound on the card: fp32 FFMA over the taps (no tensor cores: TF32 would
-// break the engine's 1e-5 parity bar) and the sampler's Philox rounds (5-6
-// blocks per drawn element). A row's correlation re-reads the staged
-// sample from shared memory, not from device memory.
+// Bound on the card: fp32 FFMA over the taps (2.21 G FMA at 2048^2: 0.066
+// ms at 67 TFLOP/s; no tensor cores, K3 is small) and the sampler's Philox
+// rounds (a quarter block per Knuth round, its loop ending once the count
+// is settled). A row's correlation re-reads the staged sample from shared
+// memory, not from device memory.
 //
 // Frame rows outside the slit's span are skipped, where the TPU kernel
 // multiplied them by 0: a skipped row that overflowed to infinity gave NaN
@@ -53,10 +59,9 @@
 namespace {
 
 constexpr int kLanes = 8;                     // camera lanes (y) per CTA
-constexpr int kGroups = 16;                   // position groups per CTA
 constexpr int kPer = 16;                      // consecutive positions per thread
-constexpr int kThreads = kLanes * kGroups;
-constexpr int kPositions = kGroups * kPer;    // scan positions per CTA
+constexpr int kMaxGroups = 16;                // position groups per CTA, at most
+constexpr int kGroupChoices[3] = {16, 8, 4};
 
 struct K3Args {
   const float* s;     // [h, w] y-convolved sample
@@ -73,8 +78,8 @@ struct K3Args {
 __host__ __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
 
 // staged sample columns per lane: the CTA's positions plus the tap run
-__host__ __device__ __forceinline__ int span(int n_taps) {
-  return kPositions + round16(n_taps);
+__host__ __device__ __forceinline__ int span(int positions, int n_taps) {
+  return positions + round16(n_taps);
 }
 
 // Staged column t of lane y. Eight lanes per column, plus one 8-float step
@@ -84,58 +89,73 @@ __device__ __forceinline__ int saddr(int t, int y) {
   return t * kLanes + y + kLanes * (t >> 4);
 }
 
-// Bytes of dynamic shared memory: K_r, the staged sample, gx and eff.
-size_t line_smem_bytes(int w, int n_taps) {
-  const size_t t = static_cast<size_t>(span(n_taps));
-  return (static_cast<size_t>(round16(n_taps)) + kLanes * t + kLanes * ((t + 15) / 16) +
-          2 * static_cast<size_t>(w)) * sizeof(float);
+// Bytes of dynamic shared memory: K_r of every row, and the staged sample.
+size_t line_smem_bytes(int positions, int n_rows, int n_taps) {
+  const size_t t = static_cast<size_t>(span(positions, n_taps));
+  return (static_cast<size_t>(n_rows) * round16(n_taps) + kLanes * t +
+          kLanes * ((t + 15) / 16)) * sizeof(float);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One draw of K2a's Knuth + PTRS sampler, as sample_poisson_at draws it:
+// the Knuth branch (every rate below the cut) inline, on the element's
+// multi-draw stream, so that no call saves the row loop's registers;
+// brighter rates, zeros and NaN call the sampler.
+__device__ __forceinline__ float draw(float lam, unsigned long long index, uint2 key) {
+  if (!(lam > 0.0f) || !(lam < rls::kCut)) return rls::sample_poisson_at(lam, index, key);
+  rls::Uniforms u(key, index);
+  const float threshold = expf(-lam);
+  float prod = 1.0f, small = 0.0f;
+  for (int k = 0; k < rls::kKnuthRounds; ++k) {
+    prod *= u.next();
+    if (prod < threshold) break;
+    small += 1.0f;
+  }
+  return small;
+}
+
+__global__ void __launch_bounds__(kLanes * kMaxGroups)
 line_sted_fused_kernel(const K3Args a) {
   extern __shared__ __align__(16) float smem[];
   const uint2 key = rls::load_key(a.key, a.key_dev);
-  const int w = a.w, tp = round16(a.n_taps), t_len = span(a.n_taps);
-  float* krow = smem;                                  // [tp], zero-padded
-  float* sbuf = krow + tp;                             // skewed [t_len][kLanes]
-  float* gx = sbuf + kLanes * t_len + kLanes * ((t_len + 15) / 16);
-  float* eff = gx + w;
+  const int w = a.w, tp = round16(a.n_taps);
+  const int n_threads = blockDim.x, positions = (n_threads / kLanes) * kPer;
+  const int t_len = span(positions, a.n_taps);
+  float* kr = smem;                                    // [n_rows][tp], zero-padded
+  float* sbuf = kr + a.n_rows * tp;                    // skewed [t_len][kLanes]
   const int tid = threadIdx.x;
   const int yl = tid % kLanes, g = tid / kLanes;
   const int y = blockIdx.y * kLanes + yl;
-  const int p0 = blockIdx.x * kPositions;
+  const int p0 = blockIdx.x * positions;
   const int pos0 = p0 + g * kPer;                      // this thread's first position
 
-  for (int i = tid; i < w; i += kThreads) {
-    gx[i] = a.gx[i];
-    eff[i] = a.eff[i];
+  // K_r(j) = gx[(c_r - j) mod w] * eff[j] over the run, c_r = i0 + r + w/2
+  for (int idx = tid; idx < a.n_rows * tp; idx += n_threads) {
+    const int k = idx / tp, m = idx - k * tp;
+    float v = 0.0f;
+    if (m < a.n_taps) {
+      const int j = a.j0 + m < w ? a.j0 + m : a.j0 + m - w;
+      const int c = (a.i0 + k + w / 2) % w;
+      v = a.gx[c >= j ? c - j : c - j + w] * a.eff[j];
+    }
+    kr[idx] = v;
   }
-  for (int idx = tid; idx < kLanes * t_len; idx += kThreads) {
+  for (int idx = tid; idx < kLanes * t_len; idx += n_threads) {
     const int l = idx / t_len, t = idx - l * t_len;
     const int yy = blockIdx.y * kLanes + l;
     const int col = (p0 - w / 2 + a.j0 + t + w) % w;
     sbuf[saddr(t, l)] = yy < a.h ? a.s[static_cast<long long>(yy) * w + col] : 0.0f;
   }
+  __syncthreads();
 
   float res[kPer];
 #pragma unroll
   for (int e = 0; e < kPer; ++e) res[e] = 0.0f;
+  const int tb = g * kPer;
   for (int k = 0; k < a.n_rows; ++k) {
-    __syncthreads();  // staging done / the previous row's K_r read
-    const int c = (a.i0 + k + w / 2) % w;  // K_r(j) = gx[(c - j) mod w] * eff[j]
-    for (int m = tid; m < tp; m += kThreads) {
-      float v = 0.0f;
-      if (m < a.n_taps) {
-        const int j = a.j0 + m < w ? a.j0 + m : a.j0 + m - w;
-        v = gx[c >= j ? c - j : c - j + w] * eff[j];
-      }
-      krow[m] = v;
-    }
-    __syncthreads();
+    const float* krow = kr + k * tp;
     float acc[kPer];
 #pragma unroll
     for (int e = 0; e < kPer; ++e) acc[e] = 0.0f;
-    const int tb = g * kPer;
     for (int jb = 0; jb < tp; jb += 16) {
       float win[2 * kPer - 1];
 #pragma unroll
@@ -161,7 +181,7 @@ line_sted_fused_kernel(const K3Args a) {
         if (y < a.h && pos < w) {
           const unsigned long long index =
               (static_cast<unsigned long long>(pos) * a.n_rows + k) * a.h + y;
-          res[e] += wsk * rls::sample_poisson_at(acc[e], index, key) + wmk * acc[e];
+          res[e] += wsk * draw(acc[e], index, key) + wmk * acc[e];
         }
       }
     } else {
@@ -180,32 +200,73 @@ line_sted_fused_kernel(const K3Args a) {
 }  // namespace
 
 // Launches K3 over all w scan positions, sweeping the n_taps offsets from
-// j0 (mod w); returns a cudaError_t code. smem[0] gets the bytes of shared
-// memory a block needs and smem[1] the most this device allows: when the
-// need exceeds it, nothing is launched (and 0 is returned).
+// j0 (mod w); returns a cudaError_t code. info[0] gets the bytes of shared
+// memory a block needs and info[1] the most this device allows: when the
+// need exceeds it, nothing is launched (and 0 is returned). info[2] gets
+// the threads per CTA, info[3] the CTAs, info[4] the CTAs an SM runs,
+// info[5] the positions per thread.
 extern "C" int rls_line_sted_fused(const float* s, const float* eff, const float* gx,
                                    const float* ws, const float* wm, float* out,
                                    int h, int w, int i0, int n_rows, int j0, int n_taps,
                                    int noisy, unsigned seed0, unsigned seed1,
-                                   const long long* key_dev, void* stream, int* smem) {
-  int device = 0, optin = 0;
+                                   const long long* key_dev, void* stream, int* info) {
+  int device = 0, optin = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t need = line_smem_bytes(w, n_taps);
-  smem[0] = static_cast<int>(need < 0x7fffffff ? need : 0x7fffffff);
-  smem[1] = optin;
-  if (need > static_cast<size_t>(optin)) return 0;
+  // the fewest groups need the least shared memory: the limit check
+  const size_t least = line_smem_bytes(4 * kPer, n_rows, n_taps);
+  info[0] = static_cast<int>(least < 0x7fffffff ? least : 0x7fffffff);
+  info[1] = optin;
+  info[2] = info[3] = info[4] = 0;
+  info[5] = kPer;
+  if (least > static_cast<size_t>(optin)) return 0;
+  const int lane_tiles = (h + kLanes - 1) / kLanes;
+  double best = -1.0;
+  int groups = 0, per_sm = 0;
+  size_t need = least;
+  for (int choice : kGroupChoices) {   // the fullest last wave, larger CTAs first
+    const size_t bytes = line_smem_bytes(choice * kPer, n_rows, n_taps);
+    if (bytes > static_cast<size_t>(optin)) continue;
+    err = cudaFuncSetAttribute(line_sted_fused_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int fit = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, line_sted_fused_kernel,
+                                                        kLanes * choice, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (fit < 1) continue;
+    const long long ctas =
+        static_cast<long long>((w + choice * kPer - 1) / (choice * kPer)) * lane_tiles;
+    const long long slots = static_cast<long long>(fit) * sms;
+    const long long waves = (ctas + slots - 1) / slots;
+    const double full = static_cast<double>(ctas) / static_cast<double>(waves * slots);
+    if (full > best + 1e-9) {
+      best = full;
+      groups = choice;
+      per_sm = fit;
+      need = bytes;
+    }
+  }
+  if (groups == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   err = cudaFuncSetAttribute(line_sted_fused_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(need));
   if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((w + groups * kPer - 1) / (groups * kPer), lane_tiles);
+  info[0] = static_cast<int>(need);
+  info[2] = kLanes * groups;
+  info[3] = static_cast<int>(grid.x * grid.y);
+  info[4] = per_sm;
   if (h > 0 && w > 0) {
     const K3Args a{s, eff, gx, ws, wm, out, h, w, i0, n_rows, j0, n_taps, noisy,
                    make_uint2(seed0, seed1), key_dev};
-    const dim3 grid((w + kPositions - 1) / kPositions, (h + kLanes - 1) / kLanes);
-    line_sted_fused_kernel<<<grid, kThreads, need, static_cast<cudaStream_t>(stream)>>>(a);
+    line_sted_fused_kernel<<<grid, kLanes * groups, need,
+                             static_cast<cudaStream_t>(stream)>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,6 +30,13 @@
 //                register tile (no tensor cores, no TF32), B perturbed by
 //                rep * 1e-9 per rep as the TPU body did, so no rep is
 //                hoisted
+//   tf32x3       the same product on the tensor cores in three TF32 passes
+//                (mma.sync m16n8k8: hi*hi into one fp32 accumulator, hi*lo
+//                + lo*hi into a second; x_hi = x & 0xffffe000, x_lo = (x -
+//                x_hi) & 0xffffe000), K1's convolution engine, its tiles
+//                resident in shared memory and every operand split per use
+//                as K1 splits them: its rate counts the fp32 FMAs of the
+//                product, not the three passes
 //
 // Bound on the card: each is bound by what it measures (FFMA issue, the
 // integer multiplier, the special-function unit, L2 read-modify-write);
@@ -211,6 +218,93 @@ sgemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
       c[static_cast<long long>(bm + ty * kTM + i) * n + bn + tx * kTN + j] = acc[i][j];
 }
 
+constexpr int kTcBM = 64, kTcBN = 64, kTcMaxK = 128;
+constexpr int kTcThreads = 128;   // 4 warps, each a 32 x 32 tile of C
+constexpr int kTcAs = kTcMaxK + 4, kTcBs = kTcBN + 8;   // padded row strides
+constexpr uint32_t kTf32Mask = 0xffffe000u;
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & kTf32Mask;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & kTf32Mask;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// sgemm's product on the tensor cores, as K1's convolution runs: the CTA's
+// A [64, K] and B [K, 64] tiles staged once in shared memory (rows padded
+// against bank conflicts), each rep's B perturbed as its fragments are
+// read, every operand split per use, each warp a 32 x 32 tile of C as
+// 2 x 4 m16n8 fragments, three passes per k-step of 8.
+__global__ void __launch_bounds__(kTcThreads)
+tf32x3_kernel(const float* __restrict__ a, const float* __restrict__ b,
+              float* __restrict__ c, int m, int n, int k, int reps) {
+  extern __shared__ __align__(16) float tc_smem[];
+  float* as = tc_smem;                   // [64][kTcAs]
+  float* bs = tc_smem + kTcBM * kTcAs;   // [K][kTcBs]
+  const int bm = blockIdx.y * kTcBM, bn = blockIdx.x * kTcBN;
+  const int tid = threadIdx.x, warp = tid >> 5, grp = (tid & 31) >> 2, tig = tid & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  for (int e = tid; e < kTcBM * k; e += kTcThreads) {
+    const int row = e / k, kk = e % k;
+    as[row * kTcAs + kk] = a[static_cast<long long>(bm + row) * k + kk];
+  }
+  for (int e = tid; e < k * kTcBN; e += kTcThreads) {
+    const int kk = e / kTcBN, col = e % kTcBN;
+    bs[kk * kTcBs + col] = b[static_cast<long long>(kk) * n + bn + col];
+  }
+  __syncthreads();
+  float big[2][4][4], small[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) big[i][j][e] = small[i][j][e] = 0.0f;
+  for (int rep = 0; rep < reps; ++rep) {
+    const float pert = static_cast<float>(rep) * 1e-9f;
+    for (int ks = 0; ks < k; ks += 8) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* r0 = as + (wm + 16 * i + grp) * kTcAs + ks + tig;
+        split_tf32(r0[0], ah[i][0], al[i][0]);
+        split_tf32(r0[8 * kTcAs], ah[i][1], al[i][1]);
+        split_tf32(r0[4], ah[i][2], al[i][2]);
+        split_tf32(r0[8 * kTcAs + 4], ah[i][3], al[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* c0 = bs + (ks + tig) * kTcBs + wn + 8 * j + grp;
+        uint32_t bh[2], bl[2];
+        split_tf32(c0[0] + pert, bh[0], bl[0]);
+        split_tf32(c0[4 * kTcBs] + pert, bh[1], bl[1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma_tf32(small[i][j], ah[i], bl);
+          mma_tf32(big[i][j], ah[i], bh);
+          mma_tf32(small[i][j], al[i], bh);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = bm + wm + 16 * i + grp, col = bn + wn + 8 * j + 2 * tig;
+      c[static_cast<long long>(r) * n + col] = big[i][j][0] + small[i][j][0];
+      c[static_cast<long long>(r) * n + col + 1] = big[i][j][1] + small[i][j][1];
+      c[static_cast<long long>(r + 8) * n + col] = big[i][j][2] + small[i][j][2];
+      c[static_cast<long long>(r + 8) * n + col + 1] = big[i][j][3] + small[i][j][3];
+    }
+}
+
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -272,5 +366,19 @@ extern "C" int rls_prim_sgemm(const float* a, const float* b, float* c, int m, i
   const dim3 grid(n / kBN, m / kBM);
   sgemm_kernel<<<grid, kGemmThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, c, m, n, k,
                                                                              reps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same product as rls_prim_sgemm on the tensor cores (tf32x3_kernel):
+// m % 64 == 0, n % 64 == 0, k % 8 == 0, k <= 128.
+extern "C" int rls_prim_tf32x3(const float* a, const float* b, float* c, int m, int n, int k,
+                               int reps, void* stream) {
+  const size_t bytes = static_cast<size_t>(kTcBM * kTcAs + k * kTcBs) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(n / kTcBN, m / kTcBM);
+  tf32x3_kernel<<<grid, kTcThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a, b, c, m, n,
+                                                                               k, reps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,48 +14,84 @@
 // into parity canvas pi at sa_lo[pi] / sa_hi[pi]; the caller merges the two
 // parities and deconvolves the window once per image.
 //
-// Design. One CTA owns kLanes canvas lanes (H/b columns) for the whole
+// Design. One CTA owns kLanes = 16 canvas lanes (H/b columns) for the whole
 // scan and walks every chunk in order, so the canvas needs no atomics and
-// its sums are deterministic. The canvas [q, wc, H/b] stays in device
-// memory (50 MB at 2048^2, R = 1.5: it can never sit in shared memory the
-// way the TPU kept it in VMEM); each CTA touches only its lanes.
-// The conv table of the TPU kernel, swb[c, r, d] = G[r, d] * ill[c, d],
-// is kept as its two factors, both resident in shared memory for the whole
-// scan: the binned detection window G [dob, D_in] (64 KB at the flagship)
-// and the illumination window ill [C, D_in]. Streaming the [C, dob, D_in]
-// table itself (2 MB) from L2 for every chunk would cost 17 GB of L2 reads
-// per 2048^2 image and bound the kernel. Where G does not fit beside the
-// rest (D_in = D_out = 256 at chunk 32 needs 368 KB of the 227 KB a block
-// may have), the "wide" layout keeps G as what it is, a Toeplitz matrix
-// (a window of the detection circulant, binned: G[d, R] depends on b*R - d
-// alone), i.e. as its generator of b*(dob - 1) + D_in values (2 KB there):
-// no table is streamed, and the GEMM reads one generator value instead of
-// one G value per FMUL. The C entry picks the layout and reports it.
-// Per chunk the sample window [D_in, lanes] is staged in shared memory with
-// the b-lane binning folded in (the TPU kernel's bcol matmul). Each thread
-// holds a 2 frame row x 16 lane register tile: per d it forms G * ill for
-// its rows (2 FMUL) and reads the 16 window values (a warp-wide broadcast),
-// for 32 FFMA. The frames of a pass (512 frame rows) overlap on
-// the canvas; rather than placing them one by one, each canvas row they hit
-// is gathered from shared memory and read-modify-written once, in position
-// order (deterministic sums, no atomics). In the spreading mode each canvas
-// row of either parity gathers its window taps straight from the pass's
-// unspread frame rows, so the spread frames are never stored.
+// its sums are deterministic; the canvas [q, wc, H/b] stays in device
+// memory (50 MB at 2048^2, R = 1.5), each CTA touching only its lanes.
+// The conv table swb[c, r, d] = G[r, d] * ill[c, d] is never formed or
+// streamed: frame c is F_c^T = (win ⊙ ill[c]) G^T, a [16 lanes, D_in] x
+// [D_in, dob] product on the tensor cores (mma.sync m16n8k8, TF32). The
+// binned detection window G stays in shared memory for the whole scan,
+// resident [D_in, dob] or, where that does not fit (D_in = D_out = 256 at
+// chunk 32), as its Toeplitz generator (G[d, R] depends on b*R - d alone:
+// b*(dob - 1) + D_in values); the illumination window ill [C, D_in] too.
+// A single TF32 pass keeps 11 significant bits and would miss the 1e-5
+// parity bar, so each operand x splits into x_hi = x & 0xffffe000 and
+// x_lo = (x - x_hi) & 0xffffe000 (exact bit masks, no cvt) and the product
+// takes three passes, hi*hi into one fp32 accumulator and hi*lo + lo*hi
+// into a second, summed once at the end (the products of two TF32 values
+// are exact; the dropped lo*lo is ~2^-21 of the product; the small terms
+// accumulate apart from the large ones, so the tensor cores' rounding of
+// the sums costs ~1e-6 at D_in = 256, where one accumulator for all three
+// would cost several times that).
+// A warp takes 32 frame rows (four n8 tiles) of one frame: per k-step of 8
+// it forms its A fragment (four window values times two ill values, split)
+// once for the four tiles, and each tile's B fragment (two G values,
+// split): 12 mma per 66 issued instructions. 16 warps (512 threads) run
+// on each SM, one CTA per SM (the occupancy API in the C entry confirms
+// it). (Measured on the card against this layout: a third accumulator, the
+// next k-step's operands read ahead, or 8 warps of 255 registers were each
+// slower: spills, or fewer warps in flight.)
+// Staging is asynchronous: while a chunk computes, cp.async brings the next
+// chunk's sample window (b*16 raw columns a row; the b-lane binning is
+// summed in shared memory) and its placement scalars (sa_lo, sa_hi, cls,
+// m0 and, in NUFFT mode, its taps) into a second buffer, so placement reads
+// only shared memory. The frames of a pass (512 frame rows, whole 32-row
+// groups: dob is padded to a multiple of 32 with rows nobody places) land
+// in a two-slot ring in shared memory, rows 20 floats apart where the
+// layout has room (the gathers' 16-byte reads of consecutive rows then
+// fall on different banks: 16 floats apart they collide 16-fold, which
+// cost the spreading placement a quarter of its time). In a noisy run the
+// warp that computed a group then draws its 32 rows, one a lane (16 lanes,
+// four per Philox block, the tier from the warp's max), with no barrier
+// between, so one warp's draws overlap another's products. After one
+// barrier each canvas row the pass hits is gathered from the ring and
+// read-modify-written once, in position order. In the spreading mode each
+// canvas row of either parity gathers its window taps straight from the
+// pass's unspread frame rows (only the taps that land in the pass's rows).
+// (Measured on the card: placing a pass while the next one convolves,
+// whether by the same warps or by a second half of them through named
+// barriers, gained nothing: both phases are issue-bound, so their
+// instructions add up whichever warps issue them. A wgmma engine, m64n16k8
+// with A formed in registers per k-step and the window's TF32 halves in
+// shared memory, ran the convolution slower, 3.3 ms against 2.6 at the
+// flagship: at N = 16 lanes each k-step's small wgmma group waits on the
+// A fragments formed between them.)
+// Windows whose double-buffered staging does not fit beside the generator
+// (D_in above ~600 at chunk 32) take a third layout with the same engine
+// and the footprint of the FFMA engine before it: one binned window staged
+// synchronously, placement scalars read from device memory. The host bound
+// (kernels/rescan_banded_fused.py banded_fits) is that layout's bytes.
 //
-// Bound on the card: fp32 FFMA (68.7 G FMA per 2048^2 image at D_in = 128,
-// 4.3 G more for spreading; no tensor cores, since TF32 would break the
-// engine's 1e-5 parity bar), then the Philox draws of the sampler and the
-// canvas read-modify-write.
+// Bound on the card: the three TF32 passes on the tensor cores (3 x 68.7 G
+// FMA per 2048^2 image at D_in = dob = 128: 0.83 ms at 495 TFLOP/s,
+// against 2.05 ms for the same product in fp32 FFMA), the spreading taps
+// in FFMA (4.3 G), the Philox draws of the sampler and the canvas
+// read-modify-write (L2-resident).
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "poisson.cuh"
 
 namespace {
 
-constexpr int kLanes = 16;                    // canvas lanes per CTA
-constexpr int kThreads = 256;
-constexpr int kRows = 2;                      // frame rows per thread
-constexpr int kPassRows = kRows * kThreads;   // frame rows per pass
+constexpr int kLanes = 16;                  // canvas lanes per CTA: the mma's M
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPassRows = 512;              // frame rows per pass (one ring slot)
+constexpr int kGroupRows = 32;              // frame rows per warp task
+constexpr int kTiles = kGroupRows / 8;      // n8 tiles per warp task
+constexpr uint32_t kTf32Mask = 0xffffe000u;
 
 struct K1Args {
   const float* g_t;         // [d_in, dob] binned detection window
@@ -72,47 +108,242 @@ struct K1Args {
   const long long* key_dev;  // null, or the two key words drawn on the card
 };
 
-// acc[i][l] += sum_d G(d, r_i) * ill[c_i][d] * win[d][l] for this thread's
-// frame rows (c_i, r_i). G(d, r) is g_s[d * dob + r] when resident, or
-// g_s[b * r + d_in - 1 - d] from its generator (kGen). kPair: the two rows
-// are one frame's (one ill value), resident ones r, r+1 with r even (one
-// float2 read of G).
-template <bool kPair, bool kGen>
-__device__ __forceinline__ void frame_rows_gemm(float (&acc)[kRows][kLanes],
-                                                const float* g_s, const float* i_s,
-                                                const float* b_s, int d_in, int dob,
-                                                int b, const int (&c)[kRows],
-                                                const int (&r)[kRows]) {
-  const float* gen0 = g_s + b * r[0] + d_in - 1;
-  const float* gen1 = g_s + b * r[1] + d_in - 1;
-#pragma unroll 8
-  for (int d = 0; d < d_in; ++d) {
-    float a[kRows];
-    if (kGen) {
-      const float il0 = i_s[c[0] * d_in + d];
-      a[0] = gen0[-d] * il0;
-      a[1] = gen1[-d] * (kPair ? il0 : i_s[c[1] * d_in + d]);
-    } else if (kPair) {
-      const float2 gg = *reinterpret_cast<const float2*>(g_s + d * dob + r[0]);
-      const float il = i_s[c[0] * d_in + d];
-      a[0] = gg.x * il;
-      a[1] = gg.y * il;
+// Offsets (floats) of one layout's shared-memory arrays. variant 0: G
+// resident, asynchronous staging; 1: G as its generator, asynchronous;
+// 2: generator, synchronous (one binned window, scalars in device memory).
+struct Layout {
+  int variant, dobp, fs, gs, ws, rs;   // dob padded to 32; strides of ring, G, window, raw
+  int raw0, raw1, bin, g, ill, scal0, scal1, taps0, taps1, floats;
+};
+
+// G's row stride when resident: dob rounded up to 8 (mod 32), so that the
+// four k-rows of a B fragment fall on four bank octets.
+__host__ __device__ inline int resident_stride(int dob) {
+  return dob + ((8 - dob % 32) + 32) % 32;
+}
+
+// Length of G's generator, rounded to 4 floats.
+__host__ __device__ inline int gen_len(int d_in, int dob, int b) {
+  return (b * (dob - 1) + d_in + 3) / 4 * 4;
+}
+
+__host__ __device__ inline Layout make_layout(int variant, int d_in, int dob, int chunk, int b,
+                                              int n_spread) {
+  Layout L{};
+  L.variant = variant;
+  L.dobp = (dob + kGroupRows - 1) / kGroupRows * kGroupRows;
+  L.gs = resident_stride(dob);
+  const bool async = variant != 2;
+  L.rs = 16 * b + 8;            // raw window row: 16 lanes x b columns, padded
+  L.ws = async ? 24 : 16;       // binned window row (24: conflict-free A reads)
+  // ring rows of 20 floats where the async layouts have room: the gathers'
+  // 16-byte reads of consecutive rows then miss each other's banks
+  L.fs = async ? 20 : kLanes;
+  int at = 2 * kPassRows * L.fs;
+  if (async) {
+    L.raw0 = at;
+    at += d_in * L.rs;
+    L.raw1 = at;
+    at += d_in * L.rs;
+    if (b > 1) {
+      L.bin = at;
+      at += d_in * L.ws;
     } else {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) a[i] = g_s[d * dob + r[i]] * i_s[c[i] * d_in + d];
+      L.bin = -1;                 // the raw window is already binned
     }
-    const float4* bv = reinterpret_cast<const float4*>(b_s + d * kLanes);
+  } else {
+    L.raw0 = L.raw1 = -1;
+    L.bin = at;
+    at += d_in * L.ws;
+  }
+  L.g = at;
+  at += variant == 0 ? d_in * L.gs : gen_len(d_in, dob, b);
+  L.ill = at;
+  at += chunk * d_in;
+  const int scal = 5 * chunk + 4;   // lo[2C], hi[2C], cls[C], m0
+  const int taps = chunk * 2 * n_spread;
+  if (async) {
+    L.scal0 = at;
+    at += scal;
+    L.scal1 = at;
+    at += scal;
+    L.taps0 = at;
+    at += taps;
+    L.taps1 = at;
+    at += taps;
+  } else {
+    L.scal0 = L.scal1 = -1;
+    L.taps0 = L.taps1 = at;
+    at += taps;
+  }
+  L.floats = at;
+  return L;
+}
+
+size_t layout_bytes(const Layout& L) { return static_cast<size_t>(L.floats) * sizeof(float); }
+
+__device__ __forceinline__ void cp_async4(float* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n"); }
+
+// x = hi + lo, both TF32 (low 13 bits zero): exact masks, no rounding.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & kTf32Mask;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & kTf32Mask;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The raw operands of one k-step of 8 of a warp's 32 frame rows: four
+// window values (lanes grp, grp + 8; d = k0 + tig, k0 + tig + 4), their two
+// ill values, and per tile t the two G values of its column grp. kTail: d
+// may pass d_in (a clamped read, its ill taken as 0).
+struct KOperands {
+  float w[4], i[2], g[kTiles][2];
+};
+
+template <bool kGen, bool kTail>
+__device__ __forceinline__ void k_load(KOperands& o, const float* win, int ws, const float* il,
+                                       const float* const (&gcol)[kTiles], int gs, int k0,
+                                       int d_in, int grp, int tig) {
+  int d0 = k0 + tig, d1 = d0 + 4;
+  bool ok0 = true, ok1 = true;
+  if (kTail) {
+    ok0 = d0 < d_in;
+    ok1 = d1 < d_in;
+    d0 = min(d0, d_in - 1);
+    d1 = min(d1, d_in - 1);
+  }
+  o.i[0] = ok0 ? il[d0] : 0.0f;
+  o.i[1] = ok1 ? il[d1] : 0.0f;
+  o.w[0] = win[d0 * ws + grp];
+  o.w[1] = win[d0 * ws + grp + 8];
+  o.w[2] = win[d1 * ws + grp];
+  o.w[3] = win[d1 * ws + grp + 8];
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) {
+    o.g[t][0] = kGen ? gcol[t][-d0] : gcol[t][d0 * gs];
+    o.g[t][1] = kGen ? gcol[t][-d1] : gcol[t][d1 * gs];
+  }
+}
+
+// The k-step's three passes: A[lane, d] = win[d, lane] * ill[d], B[d, r] =
+// G(d, r); hi*hi into acc[0], the two cross terms into acc[1], issued
+// apart so that they do not wait on each other.
+__device__ __forceinline__ void k_mma(float (&acc)[2][kTiles][4], const KOperands& o) {
+  uint32_t ah[4], al[4];
+  split_tf32(o.w[0] * o.i[0], ah[0], al[0]);
+  split_tf32(o.w[1] * o.i[0], ah[1], al[1]);
+  split_tf32(o.w[2] * o.i[1], ah[2], al[2]);
+  split_tf32(o.w[3] * o.i[1], ah[3], al[3]);
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) {
+    uint32_t bh[2], bl[2];
+    split_tf32(o.g[t][0], bh[0], bl[0]);
+    split_tf32(o.g[t][1], bh[1], bl[1]);
+    mma_tf32(acc[1][t], ah, bl);
+    mma_tf32(acc[0][t], ah, bh);
+    mma_tf32(acc[1][t], al, bh);
+  }
+}
+
+// The warp's 32 frame rows r0 .. r0 + 31 of one frame (illumination il)
+// into the ring rows f (16 lanes each, fs floats apart), in three TF32
+// passes.
+template <bool kGen>
+__device__ __forceinline__ void group_mma(float* f, int fs, const float* win, int ws,
+                                          const float* il, const float* g_s, int gs, int d_in,
+                                          int dob, int b, int r0, int grp, int tig) {
+  float acc[2][kTiles][4];
+  const float* gcol[kTiles];
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) {
+    const int r = min(r0 + 8 * t + grp, dob - 1);  // padding rows read row dob - 1
+    gcol[t] = kGen ? g_s + b * r + d_in - 1 : g_s + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[0][t][j] = acc[1][t][j] = 0.0f;
+  }
+  const int d_full = d_in & ~7;
+  KOperands cur;
+#pragma unroll 2
+  for (int k0 = 0; k0 < d_full; k0 += 8) {
+    k_load<kGen, false>(cur, win, ws, il, gcol, gs, k0, d_in, grp, tig);
+    k_mma(acc, cur);
+  }
+  if (d_full < d_in) {
+    k_load<kGen, true>(cur, win, ws, il, gcol, gs, d_full, d_in, grp, tig);
+    k_mma(acc, cur);
+  }
+  // C fragment: rows (lanes) grp, grp + 8; columns (frame rows) 2 tig, 2 tig + 1
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) {
+    float* row = f + (8 * t + 2 * tig) * fs;
+    row[grp] = acc[0][t][0] + acc[1][t][0];
+    row[fs + grp] = acc[0][t][1] + acc[1][t][1];
+    row[grp + 8] = acc[0][t][2] + acc[1][t][2];
+    row[fs + grp + 8] = acc[0][t][3] + acc[1][t][3];
+  }
+}
+
+// K2a's draws on one frame row of the ring (16 lanes, in place): element
+// (position p0 + c, frame row r, lane) takes single-draw index ((p0 + c) *
+// dob + r) * hb + lane, four lanes per Philox block; the tier comes from
+// the warp's 32 rows. Every lane of the warp calls it; rows that are not
+// frame rows (rok false) draw zeros and are not written.
+__device__ __forceinline__ void draw_row(float* fr, bool rok, int p0, int c, int r, int dob,
+                                         int hb, int lane0, uint2 key) {
+  if (!rok) c = r = 0;
+  float lam[kLanes];
+#pragma unroll
+  for (int j4 = 0; j4 < kLanes / 4; ++j4) {
+    const float4 v = *reinterpret_cast<const float4*>(fr + 4 * j4);
+    lam[4 * j4 + 0] = v.x;
+    lam[4 * j4 + 1] = v.y;
+    lam[4 * j4 + 2] = v.z;
+    lam[4 * j4 + 3] = v.w;
+  }
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j)
+    if (!(rok && lane0 + j < hb)) lam[j] = 0.0f;
+  const unsigned long long e0 =
+      (static_cast<unsigned long long>(p0 + c) * dob + r) * hb + lane0;
+  float u[kLanes];
+  if ((e0 & 3) == 0) {  // one Philox block per four lanes
 #pragma unroll
     for (int j4 = 0; j4 < kLanes / 4; ++j4) {
-      const float4 bb = bv[j4];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        acc[i][4 * j4 + 0] = fmaf(a[i], bb.x, acc[i][4 * j4 + 0]);
-        acc[i][4 * j4 + 1] = fmaf(a[i], bb.y, acc[i][4 * j4 + 1]);
-        acc[i][4 * j4 + 2] = fmaf(a[i], bb.z, acc[i][4 * j4 + 2]);
-        acc[i][4 * j4 + 3] = fmaf(a[i], bb.w, acc[i][4 * j4 + 3]);
-      }
+      const uint4 bits = rls::single_draw_block((e0 >> 2) + j4, key);
+      u[4 * j4 + 0] = rls::bits_to_uniform(bits.x);
+      u[4 * j4 + 1] = rls::bits_to_uniform(bits.y);
+      u[4 * j4 + 2] = rls::bits_to_uniform(bits.z);
+      u[4 * j4 + 3] = rls::bits_to_uniform(bits.w);
     }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) u[j] = rls::single_draw(e0 + j, key);
+  }
+  rls::poisson_tiered(lam, u, e0, key);
+  if (rok) {
+#pragma unroll
+    for (int j4 = 0; j4 < kLanes / 4; ++j4)
+      *reinterpret_cast<float4*>(fr + 4 * j4) =
+          make_float4(lam[4 * j4], lam[4 * j4 + 1], lam[4 * j4 + 2], lam[4 * j4 + 3]);
   }
 }
 
@@ -148,32 +379,71 @@ __device__ __forceinline__ void axpy_row(float (&sum)[kLanes], float wv, const f
   }
 }
 
-// Length of G's generator (kGen), rounded to 4 floats so what follows
-// stays 16-byte aligned.
-__host__ __device__ inline int gen_len(int d_in, int dob, int b) {
-  return (b * (dob - 1) + d_in + 3) / 4 * 4;
+// Chunk ic's raw sample window and placement scalars into buffer `buf`
+// (asynchronous layouts), one cp.async group.
+__device__ __forceinline__ void stage_async(const K1Args& p, const Layout& L, float* smem,
+                                            int ic, int buf, int lane0, int tid) {
+  const int h = p.h, b = p.b, d_in = p.d_in, chunk = p.chunk, hb = h / b;
+  const int p0 = ic * chunk;
+  float* raw = smem + (buf ? L.raw1 : L.raw0);
+  const int cols = kLanes * b;                    // raw columns of the tile
+  const float* src0 = p.sample_ext + static_cast<long long>(lane0) * b;
+  if (h % 4 == 0 && lane0 + kLanes <= hb) {       // whole 16-byte pieces
+    const int per_row = cols / 4;
+    for (int i = tid; i < d_in * per_row; i += kThreads) {
+      const int d = i / per_row, k = i - d * per_row;
+      cp_async16(raw + d * L.rs + 4 * k, src0 + static_cast<long long>(p0 + d) * h + 4 * k);
+    }
+  } else {                                        // ragged tile: zero past the lanes
+    for (int i = tid; i < d_in * cols; i += kThreads) {
+      const int d = i / cols, k = i - d * cols;
+      const bool ok = lane0 + k / b < hb;
+      cp_async4(raw + d * L.rs + k,
+                ok ? src0 + static_cast<long long>(p0 + d) * h + k : p.sample_ext, ok);
+    }
+  }
+  int* sc = reinterpret_cast<int*>(smem + (buf ? L.scal1 : L.scal0));
+  const int parities = p.n_spread ? 2 : 1;
+  for (int i = tid; i < parities * chunk; i += kThreads) {
+    const int pi = i / chunk, c = i - pi * chunk;
+    cp_async4(reinterpret_cast<float*>(sc + i), p.sa_lo + pi * p.w + p0 + c, true);
+    cp_async4(reinterpret_cast<float*>(sc + 2 * chunk + i), p.sa_hi + pi * p.w + p0 + c, true);
+  }
+  for (int c = tid; c < chunk; c += kThreads)
+    cp_async4(reinterpret_cast<float*>(sc + 4 * chunk + c), p.cls + p0 + c, true);
+  if (tid == 0) cp_async4(reinterpret_cast<float*>(sc + 5 * chunk), p.m0 + ic, true);
+  if (p.n_spread) {
+    float* taps = smem + (buf ? L.taps1 : L.taps0);
+    const int n = chunk * 2 * p.n_spread;
+    for (int i = tid; i < n; i += kThreads)
+      cp_async4(taps + i, p.wt + static_cast<long long>(p0) * 2 * p.n_spread + i, true);
+  }
+  cp_async_commit();
 }
 
-template <bool kSpread, bool kGen>
+template <bool kSpread, bool kGen, bool kAsync>
 __global__ void __launch_bounds__(kThreads, 1)
-rescan_banded_fused_kernel(const K1Args p) {
+rescan_banded_fused_kernel(const K1Args p, const Layout L) {
   const int h = p.h, w = p.w, chunk = p.chunk, d_in = p.d_in, dob = p.dob, b = p.b;
   const uint2 key = rls::load_key(p.key, p.key_dev);
   const int wc = p.wc, n_spread = p.n_spread;
   extern __shared__ __align__(16) float smem[];
-  float* f_ring = smem;                      // [2][kPassRows][kLanes] frame rows
-  float* b_s = f_ring + 2 * kPassRows * kLanes;  // [d_in][kLanes] window
-  float* g_s = b_s + d_in * kLanes;          // G [d_in][dob], or its generator
-  float* i_s = g_s + (kGen ? gen_len(d_in, dob, b) : d_in * dob);  // [C][d_in]
-  float* w_s = i_s + chunk * d_in;           // [C][2][n_spread] chunk's taps
+  float* ring = smem;                        // [2][kPassRows][fs] frame rows
+  const int fs = L.fs;
+  float* g_s = smem + L.g;                   // G [d_in][gs], or its generator
+  float* i_s = smem + L.ill;                 // [C][d_in]
   const int hb = h / b;
   const int lane0 = blockIdx.x * kLanes;
   const int tid = threadIdx.x;
-  const int rows_used = chunk * dob;
+  const int warp = tid >> 5, grp = (tid & 31) >> 2, tig = tid & 3;
+  const int dobp = L.dobp;
+  const int rows_used = chunk * dobp;
   const int n_pass = (rows_used + kPassRows - 1) / kPassRows;
   const bool full_tile = lane0 + kLanes <= hb && hb % 4 == 0;
   const int lanes_left = hb - lane0;
+  const int n_chunks = w / chunk;
 
+  if (kAsync) stage_async(p, L, smem, 0, 0, lane0, tid);
   if (kGen) {
     // generator value k = b*R + d_in - 1 - d, read from one (d, R) of G
     for (int k = tid; k < b * (dob - 1) + d_in; k += kThreads) {
@@ -181,7 +451,10 @@ rescan_banded_fused_kernel(const K1Args p) {
       g_s[k] = p.g_t[(b * rr + d_in - 1 - k) * dob + rr];
     }
   } else {
-    for (int i = tid; i < d_in * dob; i += kThreads) g_s[i] = p.g_t[i];
+    for (int i = tid; i < d_in * dob; i += kThreads) {
+      const int d = i / dob;
+      g_s[d * L.gs + i - d * dob] = p.g_t[i];
+    }
   }
   for (int i = tid; i < chunk * d_in; i += kThreads) i_s[i] = p.ill[i];
   for (long long i = tid; i < static_cast<long long>(p.q) * wc * kLanes; i += kThreads) {
@@ -190,104 +463,65 @@ rescan_banded_fused_kernel(const K1Args p) {
     if (lane0 + l < hb) p.out[row * hb + lane0 + l] = 0.0f;
   }
 
-  const int n_chunks = w / chunk;
-  int pass_no = 0;  // passes so far: picks the f_ring slot
+  int pass_no = 0;  // passes so far: picks the ring slot
   for (int ic = 0; ic < n_chunks; ++ic) {
     const int p0 = ic * chunk;
-    __syncthreads();  // canvas zeroed / previous window no longer read
-    for (int i = tid; i < d_in * kLanes; i += kThreads) {
-      const int d = i / kLanes;
-      const int l = i % kLanes;
-      float s = 0.0f;
-      if (lane0 + l < hb) {
-        const float* src = p.sample_ext + static_cast<long long>(p0 + d) * h +
-                           static_cast<long long>(lane0 + l) * b;
-        for (int j = 0; j < b; ++j) s += src[j];
-      }
-      b_s[i] = s;
-    }
-    if (kSpread)
-      for (int i = tid; i < chunk * 2 * n_spread; i += kThreads)
-        w_s[i] = p.wt[p0 * 2 * n_spread + i];
-    __syncthreads();
-    const int split = p.m0[ic];
-
-    for (int ps = 0; ps < n_pass; ++ps, ++pass_no) {
-      float* f_s = f_ring + (pass_no & 1) * kPassRows * kLanes;
-      float acc[kRows][kLanes];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kLanes; ++j) acc[i][j] = 0.0f;
-      {
-        int c[kRows], r[kRows];
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int row = min(ps * kPassRows + kRows * tid + i, rows_used - 1);
-          c[i] = row / dob;
-          r[i] = row - c[i] * dob;
+    const int cur = ic & 1;
+    // [phase staging]
+    if (kAsync) cp_async_wait_all();
+    __syncthreads();  // this chunk's window landed / the previous chunk is done
+    if (kAsync) {
+      if (ic + 1 < n_chunks) stage_async(p, L, smem, ic + 1, cur ^ 1, lane0, tid);
+      if (b > 1) {    // bin the raw window: b adjacent columns per lane, in order
+        const float* raw = smem + (cur ? L.raw1 : L.raw0);
+        for (int i = tid; i < d_in * kLanes; i += kThreads) {
+          const int d = i / kLanes, l = i - d * kLanes;
+          float s = 0.0f;
+          for (int j = 0; j < b; ++j) s += raw[d * L.rs + l * b + j];
+          smem[L.bin + d * L.ws + l] = s;
         }
-        if (c[0] == c[1] && (kGen || (r[0] % 2 == 0 && dob % 2 == 0)))
-          frame_rows_gemm<true, kGen>(acc, g_s, i_s, b_s, d_in, dob, b, c, r);
-        else
-          frame_rows_gemm<false, kGen>(acc, g_s, i_s, b_s, d_in, dob, b, c, r);
+        __syncthreads();
       }
-
-      const int first = ps * kPassRows;
-      if (first >= rows_used) continue;  // padding rows only
-      const int row0 = first + kRows * tid;
-      if (p.noisy) {
-#pragma unroll
-        for (int rr = 0; rr < kRows; ++rr) {
-          const int row = row0 + rr;
-          const bool rok = row < rows_used;
-          const int c = rok ? row / dob : 0;
-          const int r = rok ? row - c * dob : 0;
-          const unsigned long long e0 =
-              (static_cast<unsigned long long>(p0 + c) * dob + r) * hb + lane0;
-          float u[kLanes];
-          if ((e0 & 3) == 0) {  // one Philox block per four lanes
-#pragma unroll
-            for (int j4 = 0; j4 < kLanes / 4; ++j4) {
-              const uint4 bits = rls::single_draw_block((e0 >> 2) + j4, key);
-              u[4 * j4 + 0] = rls::bits_to_uniform(bits.x);
-              u[4 * j4 + 1] = rls::bits_to_uniform(bits.y);
-              u[4 * j4 + 2] = rls::bits_to_uniform(bits.z);
-              u[4 * j4 + 3] = rls::bits_to_uniform(bits.w);
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < kLanes; ++j) u[j] = rls::single_draw(e0 + j, key);
-          }
-#pragma unroll
-          for (int j = 0; j < kLanes; ++j)
-            if (!(rok && lane0 + j < hb)) acc[rr][j] = 0.0f;
-          rls::poisson_tiered(acc[rr], u, e0, key);
+    } else {
+      float* win = smem + L.bin;
+      for (int i = tid; i < d_in * kLanes; i += kThreads) {
+        const int d = i / kLanes, l = i - d * kLanes;
+        float s = 0.0f;
+        if (lane0 + l < hb) {
+          const float* src = p.sample_ext + static_cast<long long>(p0 + d) * h +
+                             static_cast<long long>(lane0 + l) * b;
+          for (int j = 0; j < b; ++j) s += src[j];
         }
+        win[d * L.ws + l] = s;
       }
-
-      // Placement. The pass's frame rows go to shared memory; then each
-      // canvas row they hit is read, summed over those frames in position
-      // order, and written once. Rows below the split belong to this camera
-      // period, the rest wrap into the next (placed W/b earlier). The ring
-      // has two slots, so one barrier per pass orders everything: every
-      // thread passes it only after finishing the previous pass's gather
-      // (which read the other slot and wrote canvas rows this gather may
-      // read).
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) {
-#pragma unroll
-        for (int j4 = 0; j4 < kLanes / 4; ++j4) {
-          *reinterpret_cast<float4*>(f_s + (kRows * tid + rr) * kLanes + 4 * j4) =
-              make_float4(acc[rr][4 * j4], acc[rr][4 * j4 + 1],
-                          acc[rr][4 * j4 + 2], acc[rr][4 * j4 + 3]);
-        }
-      }
+      if (kSpread)
+        for (int i = tid; i < chunk * 2 * n_spread; i += kThreads)
+          smem[L.taps0 + i] = p.wt[static_cast<long long>(p0) * 2 * n_spread + i];
       __syncthreads();
-      const int end = min(first + kPassRows, rows_used);
-      const int c_first = first / dob;
-      const int c_last = (end - 1) / dob;
+    }
+    // [end staging]
+    const float* win = smem + (kAsync && b == 1 ? (cur ? L.raw1 : L.raw0) : L.bin);
+    // placement scalars of the chunk: shared memory, or device memory
+    const int* sc = reinterpret_cast<const int*>(smem + (cur ? L.scal1 : L.scal0));
+    const int* lo = kAsync ? sc : p.sa_lo + p0;
+    const int* hi = kAsync ? sc + 2 * chunk : p.sa_hi + p0;
+    const int* cls = kAsync ? sc + 4 * chunk : p.cls + p0;
+    const int pstride = kAsync ? chunk : w;     // between the parities' scalars
+    const float* w_s = smem + (kAsync && cur ? L.taps1 : L.taps0);
+    const int split = kAsync ? sc[5 * chunk] : p.m0[ic];
 
+    // Places the chunk's frame rows [first, end), held in ring slot f_s.
+    // Each canvas row they hit is read, summed over those frame rows in
+    // position order, and written once. Rows below the split belong to this
+    // camera period, the rest wrap into the next (placed W/b earlier). The
+    // ring has two slots, so the one barrier after the next pass's
+    // convolution orders this gather (which reads this slot and writes
+    // canvas rows) before that pass's gather, and before the slot is
+    // written again.
+    auto place = [&](const int first, const int end, const float* f_s) {
+      // [phase placement]
+      const int c_first = first / dobp;
+      const int c_last = (end - 1) / dobp;
       if (kSpread) {
         // Canvas rows of parity pi hit by the pass: the lo placements of
         // its positions cover [base_lo, base_lo + len) (offsets grow with
@@ -297,8 +531,8 @@ rescan_banded_fused_kernel(const K1Args p) {
         // - u] over both parts, the part decided on the unspread row.
         const int span = dob + n_spread - 1;
         for (int pi = 0; pi < 2; ++pi) {
-          const int* slo = p.sa_lo + pi * w + p0;
-          const int* shi = p.sa_hi + pi * w + p0;
+          const int* slo = lo + pi * pstride;
+          const int* shi = hi + pi * pstride;
           const int base_lo = slo[c_first];
           const int base_hi = shi[c_first];
           int diff = slo[c_last] - base_lo;
@@ -319,16 +553,19 @@ rescan_banded_fused_kernel(const K1Args p) {
             bool hit = false;
             for (int c2 = c_first; c2 <= c_last; ++c2) {
               const float* wgt = w_s + (c2 * 2 + pi) * n_spread;
+              // c2's frame rows in this pass
+              const int f_lo = max(0, first - c2 * dobp), f_hi = min(dob, end - c2 * dobp);
+              const float* f2 = f_s + (c2 * dobp - first) * fs;
               for (int ph = 0; ph < 2; ++ph) {
                 int rs = t - (ph ? shi[c2] : slo[c2]);  // spread-frame row
                 if (rs < 0) rs += wc;
-                for (int u = 0; u < n_spread; ++u) {
-                  const int r2 = rs - u;  // frame row before spreading
-                  if (r2 < 0 || r2 >= dob || (ph ? r2 < split : r2 >= split)) continue;
-                  const int row2 = c2 * dob + r2;
-                  if (row2 < first || row2 >= end) continue;
+                // the part's rows r2 = rs - u: [split, dob) hi, [0, split) lo
+                const int lo_r = ph ? max(f_lo, split) : f_lo;
+                const int hi_r = ph ? f_hi : min(f_hi, split);
+                const int u1 = min(n_spread - 1, rs - lo_r);
+                for (int u = max(0, rs - hi_r + 1); u <= u1; ++u) {
                   hit = true;
-                  axpy_row(sum, wgt[u], f_s + (row2 - first) * kLanes);
+                  axpy_row(sum, wgt[u], f2 + (rs - u) * fs);
                 }
               }
             }
@@ -337,93 +574,118 @@ rescan_banded_fused_kernel(const K1Args p) {
                       full_tile, lanes_left);
           }
         }
-        continue;
-      }
-
-      // frame row of frame c2 (phase hi or lo) landing on canvas row t,
-      // or -1 when that row is not in this pass
-      auto frame_row = [&](int c2, bool hi, int t) {
-        const int pos2 = p0 + c2;
-        const int start = hi ? p.sa_hi[pos2] : p.sa_lo[pos2];
-        int r2 = t - start;  // t, start in [0, wc)
-        if (r2 < 0) r2 += wc;
-        const bool phase_ok = hi ? (r2 >= split && r2 < dob)
-                                 : (r2 < split && r2 < dob);
-        const int row2 = c2 * dob + r2;
-        return phase_ok && row2 >= first && row2 < end ? row2 : -1;
-      };
-      for (int rr = 0; rr < kRows; ++rr) {
-        const int row = row0 + rr;
-        if (row >= end) continue;
-        const int c = row / dob;
-        const int r = row - c * dob;
-        const bool hi = r >= split;
-        const int k = p.cls[p0 + c];
-        int t = (hi ? p.sa_hi[p0 + c] : p.sa_lo[p0 + c]) + r;  // r < dob < wc
-        if (t >= wc) t -= wc;
-        // the first frame row that hits canvas row t writes it
-        bool owner = true;
-        for (int c2 = c_first; c2 <= c && owner; ++c2) {
-          if (p.cls[p0 + c2] != k) continue;
-          if (frame_row(c2, false, t) >= 0 && (c2 < c || hi)) owner = false;
-          if (c2 < c && frame_row(c2, true, t) >= 0) owner = false;
-        }
-        if (!owner) continue;
-        float sum[kLanes];
-#pragma unroll
-        for (int j = 0; j < kLanes; ++j) sum[j] = 0.0f;
-        for (int c2 = c; c2 <= c_last; ++c2) {
-          if (p.cls[p0 + c2] != k) continue;
-          for (int ph = 0; ph < 2; ++ph) {
-            const int row2 = frame_row(c2, ph == 1, t);
-            if (row2 >= 0) axpy_row(sum, 1.0f, f_s + (row2 - first) * kLanes);
+      } else {
+        // frame row of frame c2 (phase hi or lo) landing on canvas row t,
+        // or -1 when that row is not in this pass
+        auto frame_row = [&](int c2, bool ph_hi, int t) {
+          const int start = ph_hi ? hi[c2] : lo[c2];
+          int r2 = t - start;  // t, start in [0, wc)
+          if (r2 < 0) r2 += wc;
+          const bool phase_ok = ph_hi ? (r2 >= split && r2 < dob) : (r2 < split && r2 < dob);
+          const int row2 = c2 * dobp + r2;
+          return phase_ok && row2 >= first && row2 < end ? row2 : -1;
+        };
+        for (int i = tid; i < end - first; i += kThreads) {
+          const int row = first + i;
+          const int c = row / dobp;
+          const int r = row - c * dobp;
+          if (r >= dob) continue;  // padding row
+          const bool is_hi = r >= split;
+          const int k = cls[c];
+          int t = (is_hi ? hi[c] : lo[c]) + r;  // r < dob < wc
+          if (t >= wc) t -= wc;
+          // the first frame row that hits canvas row t writes it
+          bool owner = true;
+          for (int c2 = c_first; c2 <= c && owner; ++c2) {
+            if (cls[c2] != k) continue;
+            if (frame_row(c2, false, t) >= 0 && (c2 < c || is_hi)) owner = false;
+            if (c2 < c && frame_row(c2, true, t) >= 0) owner = false;
           }
+          if (!owner) continue;
+          float sum[kLanes];
+#pragma unroll
+          for (int j = 0; j < kLanes; ++j) sum[j] = 0.0f;
+          for (int c2 = c; c2 <= c_last; ++c2) {
+            if (cls[c2] != k) continue;
+            for (int ph = 0; ph < 2; ++ph) {
+              const int row2 = frame_row(c2, ph == 1, t);
+              if (row2 >= 0) axpy_row(sum, 1.0f, f_s + (row2 - first) * fs);
+            }
+          }
+          add_row(p.out + (static_cast<long long>(k) * wc + t) * hb + lane0, sum, full_tile,
+                  lanes_left);
         }
-        add_row(p.out + (static_cast<long long>(k) * wc + t) * hb + lane0, sum,
-                full_tile, lanes_left);
       }
+      // [end placement]
+    };
+
+    for (int ps = 0; ps < n_pass; ++ps, ++pass_no) {
+      float* f_s = ring + (pass_no & 1) * kPassRows * fs;
+      const int first = ps * kPassRows;
+      const int end = min(first + kPassRows, rows_used);
+      // Each warp convolves whole 32-row groups and, in a noisy run, draws
+      // their rows itself (one row a lane), so no barrier parts the two.
+      for (int g = warp; g < (end - first) / kGroupRows; g += kWarps) {
+        const int row = first + g * kGroupRows;
+        const int c = row / dobp;
+        float* f = f_s + g * kGroupRows * fs;
+        // [phase convolution]
+        group_mma<kGen>(f, fs, win, L.ws, i_s + c * d_in, g_s, L.gs, d_in, dob, b,
+                        row - c * dobp, grp, tig);
+        // [end convolution]
+        // [phase draws]
+        if (p.noisy) {
+          __syncwarp();
+          const int r = row - c * dobp + (tid & 31);
+          draw_row(f + (tid & 31) * fs, r < dob, p0, c, r, dob, hb, lane0, key);
+        }
+        // [end draws]
+      }
+      __syncthreads();
+      place(first, end, f_s);
     }
   }
 }
 
-// Dynamic shared memory of one CTA: the two-slot frame-row ring, the
-// sample window, G (resident, or its generator), ill and the chunk's taps.
-size_t banded_smem_bytes(bool gen, int d_in, int dob, int chunk, int b,
-                         int n_spread) {
-  const size_t g = gen ? static_cast<size_t>(gen_len(d_in, dob, b))
-                       : static_cast<size_t>(d_in) * dob;
-  return (static_cast<size_t>(2 * kPassRows + d_in) * kLanes + g +
-          static_cast<size_t>(chunk) * (d_in + 2 * n_spread)) * sizeof(float);
-}
-
-template <bool kSpread, bool kGen>
-cudaError_t launch(const K1Args& a, size_t smem, cudaStream_t stream) {
-  auto kernel = rescan_banded_fused_kernel<kSpread, kGen>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <bool kSpread, bool kGen, bool kAsync>
+cudaError_t launch(const K1Args& a, const Layout& L, cudaStream_t stream, int* info) {
+  auto kernel = rescan_banded_fused_kernel<kSpread, kGen, kAsync>;
+  const size_t bytes = layout_bytes(L);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int grid = (a.h / a.b + kLanes - 1) / kLanes;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  info[2] = grid;
+  info[3] = per_sm;
+  kernel<<<grid, kThreads, bytes, stream>>>(a, L);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The bytes of both layouts, bytes[0] resident and bytes[1] generator, so
-// that the host's bound (kernels/rescan_banded_fused.py banded_fits) can be
-// held to this file's formula. Launches nothing; returns 0.
+// The bytes of K1's three layouts, bytes[0] G resident, bytes[1] generator,
+// bytes[2] generator with synchronous staging (the smallest), so that the
+// host's bound (kernels/rescan_banded_fused.py banded_fits) can be held to
+// this file's formula. Launches nothing; returns 0.
 extern "C" int rls_rescan_banded_fused_smem(int d_in, int dob, int chunk, int b,
                                             int n_spread, long long* bytes) {
-  bytes[0] = static_cast<long long>(banded_smem_bytes(false, d_in, dob, chunk, b, n_spread));
-  bytes[1] = static_cast<long long>(banded_smem_bytes(true, d_in, dob, chunk, b, n_spread));
+  for (int v = 0; v < 3; ++v)
+    bytes[v] = static_cast<long long>(layout_bytes(make_layout(v, d_in, dob, chunk, b, n_spread)));
   return 0;
 }
 
-// Launches K1. *variant reports the shared-memory layout it took: 0 with G
+// Launches K1. info[0] reports the shared-memory layout it took: 0 with G
 // resident, 1 with G as its Toeplitz generator (band windows too wide for
-// the resident layout), -1 when neither fits (nothing is launched; the
-// rescan engine's host bound banded_fits keeps such windows away).
-// n_spread > 0 selects NUFFT spreading placement (q must be 2).
+// the resident layout), 2 the generator with synchronous staging (wider
+// still), -1 when none fits (nothing is launched; the rescan engine's host
+// bound banded_fits keeps such windows away); info[1] its bytes of shared
+// memory per CTA, info[2] the CTAs, info[3] the CTAs an SM runs at once,
+// info[4] the threads per CTA. n_spread > 0 selects NUFFT spreading
+// placement (q must be 2).
 extern "C" int rls_rescan_banded_fused(const float* g_t, const float* ill,
                                        const float* sample_ext, const int* sa_lo,
                                        const int* sa_hi, const int* m0,
@@ -431,25 +693,38 @@ extern "C" int rls_rescan_banded_fused(const float* g_t, const float* ill,
                                        int h, int w, int chunk, int d_in, int dob,
                                        int b, int q, int wc, int n_spread, int noisy,
                                        unsigned seed0, unsigned seed1,
-                                       const long long* key_dev, void* stream,
-                                       int* variant) {
+                                       const long long* key_dev, void* stream, int* info) {
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t resident = banded_smem_bytes(false, d_in, dob, chunk, b, n_spread);
-  const size_t gen = banded_smem_bytes(true, d_in, dob, chunk, b, n_spread);
   const size_t limit = static_cast<size_t>(optin);
-  *variant = resident <= limit ? 0 : gen <= limit ? 1 : -1;
-  if (*variant < 0) return 0;
+  info[0] = -1;
+  info[1] = info[2] = info[3] = 0;
+  info[4] = kThreads;
+  Layout L{};
+  for (int v = 0; v < 3; ++v) {
+    L = make_layout(v, d_in, dob, chunk, b, n_spread);
+    if (layout_bytes(L) <= limit) {
+      info[0] = v;
+      break;
+    }
+  }
+  if (info[0] < 0) return 0;
+  info[1] = static_cast<int>(layout_bytes(L));
   const K1Args a{g_t, ill, sample_ext, sa_lo, sa_hi, m0, cls, wt, out,
                  h, w, chunk, d_in, dob, b, q, wc, n_spread, noisy,
                  make_uint2(seed0, seed1), key_dev};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_spread)
-    err = *variant ? launch<true, true>(a, gen, s) : launch<true, false>(a, resident, s);
-  else
-    err = *variant ? launch<false, true>(a, gen, s) : launch<false, false>(a, resident, s);
+  if (n_spread) {
+    err = info[0] == 0   ? launch<true, false, true>(a, L, s, info)
+          : info[0] == 1 ? launch<true, true, true>(a, L, s, info)
+                         : launch<true, true, false>(a, L, s, info);
+  } else {
+    err = info[0] == 0   ? launch<false, false, true>(a, L, s, info)
+          : info[0] == 1 ? launch<false, true, true>(a, L, s, info)
+                         : launch<false, true, false>(a, L, s, info);
+  }
   return static_cast<int>(err);
 }

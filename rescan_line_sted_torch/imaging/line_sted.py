@@ -36,6 +36,7 @@ Boundaries: ``"circular"``, ``"padded"`` and ``"apodized"``
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -151,8 +152,16 @@ def _scan(sample, params, geom, generator, noise_mode="collapsed",
     band = _line_band(params, w, chunk)
     if (slit_fits and w <= line_fused.MAX_WIDTH and use_pallas is not False
             and (use_pallas is True or band is None)):
-        return line_fused.line_sted_fused(sample_y.contiguous(), bright * eff,
-                                          gx, slit, generator, slit_support)
+        eff_scaled = bright * eff
+        try:
+            hash(params)
+        except TypeError:   # a model that cannot key the cache: no cache
+            plan = line_fused.line_plan(eff_scaled, gx, slit, slit_support)
+        else:
+            plan = _k3_plan(params, w, slit_support, dev)
+        return line_fused.line_sted_fused(sample_y.contiguous(), eff_scaled,
+                                          gx, slit, generator, slit_support,
+                                          plan=plan)
 
     img = torch.empty((h, w), dtype=torch.float32, device=dev)
     sample_t = sample_y.T                                        # [W, H]
@@ -193,6 +202,18 @@ def _scan(sample, params, geom, generator, noise_mode="collapsed",
             cam = maybe_poisson(generator, bright * (emitted_y @ gx_mat))
             img[:, p0:p0 + chunk] = torch.einsum("chw,cw->hc", cam, slits)
     return img
+
+
+@functools.lru_cache(maxsize=8)
+def _k3_plan(params, w: int, slit_support: int,
+             device: torch.device) -> line_fused.LinePlan:
+    """K3's rows, weights and tap run (``line_fused.line_plan``) for the
+    profiles ``_scan`` hands it, worked out once per params, width,
+    sampled window and device: a later image makes no host round trip."""
+    eff = params.brightness * effective_line_profile(w, params, device)
+    gx = psfs.detection_profile(w, params.sigma_det, device)
+    slit = psfs.slit_profile(w, params.slit_halfwidth, device)
+    return line_fused.line_plan(eff, gx, slit, slit_support)
 
 
 def _line_band(params, w: int, chunk: int) -> tuple[int, int] | None:

@@ -40,7 +40,7 @@ LAUNCHES = {"rescan_banded_fused": 0, "rescan_banded_fused_spread": 0,
             "rescan_fused": 0, "rescan_accumulate": 0,
             **{f"primitives_{k}": 0 for k in (
                 "fma", "uniform", "uniform_block", "exp", "inv_term",
-                "knuth_round", "place_add", "sgemm")}}
+                "knuth_round", "place_add", "sgemm", "tf32x3")}}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,6 +66,7 @@ _SIGNATURES = {
     "rls_prim_knuth_round": [_P, _I, _I, ctypes.c_float, _U, _U, _P],
     "rls_prim_place_add": [_P, _P, _P, _I, _I, _P],
     "rls_prim_sgemm": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "rls_prim_tf32x3": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib = None

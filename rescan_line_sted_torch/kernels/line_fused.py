@@ -13,16 +13,19 @@ first and last nonzero values (``_rows``); the rest are multiplied by 0.
 The frame row ``r`` of position ``pos`` is a circular correlation of the
 sample along x with ``K_r(d) = gx(r - d) eff(d)``, the same for every
 position. The plain version runs it over every offset, as one matrix
-product per chunk of positions. Kernel K3 (``csrc/line_fused.cu``) forms
-``K_r`` from ``gx`` and ``eff`` kept in shared memory and sweeps only the
-shortest circular run of offsets holding every nonzero tap (``_taps``,
-``_span``): the profiles underflow to 0 in float32 a few dozen columns
-from their centres, so that run is 63 offsets at the line settings
-(depletion 8), whatever the width. It never forms the [W, W] circulant
-the TPU kernel kept resident. Its shared memory holds ``gx``, ``eff``
-and the sample over the run: the line engine takes K3 up to
-``MAX_WIDTH`` columns, and the C entry raises where a block's shared
-memory is too small.
+product per chunk of positions. Kernel K3 (``csrc/line_fused.cu``) sweeps
+only the shortest circular run of offsets holding every nonzero tap
+(``_taps``, ``_span``): the profiles underflow to 0 in float32 a few dozen
+columns from their centres, so that run is 63 offsets at the line
+settings (depletion 8), whatever the width. It never forms the [W, W]
+circulant the TPU kernel kept resident: each CTA forms ``K_r`` over the
+run once, from only the profile values the run reads. ``line_plan``
+works out the rows, their weights (left on the profiles' device) and the
+run on the host, once per set of profiles: the line engine caches it
+(``imaging/line_sted._k3_plan``), so an image makes no host round trip.
+Its shared memory holds ``K_r`` and the sample over the run; the line
+engine takes K3 up to ``MAX_WIDTH`` columns, and the C entry raises where
+a block's shared memory is too small for the run.
 
 The TPU kernel multiplied every frame row by its slit weight, 0 outside
 the slit, so a row that overflowed to infinity there gave NaN; here rows
@@ -35,6 +38,7 @@ over every output of its lane). Parity holds on finite inputs.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -42,12 +46,13 @@ import torch
 from rescan_line_sted_torch.kernels import _build
 from rescan_line_sted_torch.kernels.poisson import poisson_reference
 
-# The widest frame the line engine hands K3: its resident gx and eff take
-# 2 W floats (128 KB here) of a Hopper block's 227 KB of shared memory,
-# leaving the rest for the sample over the tap run. Wider frames take the
+# The widest frame the line engine hands K3; wider frames take the
 # engine's other routes, as frames beyond the TPU's VMEM did.
 MAX_WIDTH = 16384
 _CHUNK = 256               # positions per matrix product of the plain version
+# K3's last launch: shared memory per CTA, threads, CTAs, CTAs per SM,
+# positions per thread
+LAUNCH_SHAPE: dict[str, int] = {}
 
 
 def _rows(slit: torch.Tensor, w: int, slit_support: int):
@@ -89,6 +94,32 @@ def _span(taps: np.ndarray) -> tuple[int, int]:
     gaps = np.diff(np.r_[nz, nz[0] + w])     # to the next nonzero offset
     i = int(np.argmax(gaps))
     return int(nz[(i + 1) % nz.size]), int(w - gaps[i] + 1)
+
+
+class LinePlan(NamedTuple):
+    """What K3 needs besides the sample, from the profiles alone: the
+    computed rows ``i0 .. i0 + n_rows - 1``, the weights of each row's
+    draw (``ws``) and mean (``wm``) as float32 tensors on the profiles'
+    device, and the tap run ``j0 .. j0 + n_taps - 1`` (mod W)."""
+
+    i0: int
+    n_rows: int
+    j0: int
+    n_taps: int
+    ws: torch.Tensor
+    wm: torch.Tensor
+
+
+def line_plan(eff_scaled: torch.Tensor, gx: torch.Tensor, slit: torch.Tensor,
+              slit_support: int = 64) -> LinePlan:
+    """``_rows`` and ``_span`` of these profiles (reads them on the host:
+    one round trip), the weights moved back to the profiles' device."""
+    w = eff_scaled.shape[0]
+    i0, ws, wm = _rows(slit, w, slit_support)
+    j0, n_taps = _span(_taps(eff_scaled, gx, i0, ws.size))
+    dev = eff_scaled.device
+    return LinePlan(i0, int(ws.size), j0, n_taps,
+                    torch.from_numpy(ws).to(dev), torch.from_numpy(wm).to(dev))
 
 
 def _check(sample_y, eff_scaled, gx, slit):
@@ -136,7 +167,8 @@ def line_sted_fused_reference(sample_y: torch.Tensor,
 def line_sted_fused(sample_y: torch.Tensor, eff_scaled: torch.Tensor,
                     gx: torch.Tensor, slit: torch.Tensor,
                     generator: torch.Generator | None = None,
-                    slit_support: int = 64) -> torch.Tensor:
+                    slit_support: int = 64, *,
+                    plan: LinePlan | None = None) -> torch.Tensor:
     """Per-step descanned line-STED scan over all W column positions.
 
     sample_y: [H, W] y-convolved sample; eff_scaled: [W] centered
@@ -144,39 +176,43 @@ def line_sted_fused(sample_y: torch.Tensor, eff_scaled: torch.Tensor,
     detection x-profile (the TPU kernel took its [W, W] circulant); slit:
     [W] centered slit profile; ``slit_support``: the sampled-window
     height. ``generator`` draws per-camera-frame shot noise; None =
-    noise-free. Returns the descanned image [H, W].
+    noise-free. ``plan``: ``line_plan`` of these profiles and window, as
+    the line engine caches it; None works it out here (one host round
+    trip). Returns the descanned image [H, W].
 
     A CUDA ``sample_y`` launches kernel K3 (``LAUNCHES["line_sted_fused"]``)
-    or raises (profiles and tap run beyond a block's shared memory, a
-    build or CUDA error); a CPU one runs ``line_sted_fused_reference``.
+    or raises (a tap run beyond a block's shared memory, a build or CUDA
+    error); a CPU one runs ``line_sted_fused_reference``.
     """
     if not sample_y.is_cuda:
         return line_sted_fused_reference(sample_y, eff_scaled, gx, slit,
-                                         generator, slit_support)
+                                          generator, slit_support)
     _check(sample_y, eff_scaled, gx, slit)
     h, w = sample_y.shape
     dev = sample_y.device
-    i0, ws, wm = _rows(slit, w, slit_support)
-    j0, n_taps = _span(_taps(eff_scaled, gx, i0, ws.size))
+    if plan is None:
+        plan = line_plan(eff_scaled, gx, slit, slit_support)
     s = sample_y.contiguous()
     eff = eff_scaled.contiguous()
     gx = gx.contiguous()
-    ws_t, wm_t = torch.from_numpy(ws).to(dev), torch.from_numpy(wm).to(dev)
-    _build.require_cuda_f32("line_sted_fused", s, eff, gx, ws_t, wm_t)
+    _build.require_cuda_f32("line_sted_fused", s, eff, gx, plan.ws, plan.wm)
     out = torch.empty((h, w), dtype=torch.float32, device=dev)
     s0, s1, keys = _build.key_words(generator, dev)
-    smem = (ctypes.c_int * 2)()
+    info = (ctypes.c_int * 6)()
     code = _build.lib().rls_line_sted_fused(
-        s.data_ptr(), eff.data_ptr(), gx.data_ptr(), ws_t.data_ptr(),
-        wm_t.data_ptr(), out.data_ptr(), h, w, i0, ws.size, j0, n_taps,
-        int(generator is not None), s0, s1,
+        s.data_ptr(), eff.data_ptr(), gx.data_ptr(), plan.ws.data_ptr(),
+        plan.wm.data_ptr(), out.data_ptr(), h, w, plan.i0, plan.n_rows,
+        plan.j0, plan.n_taps, int(generator is not None), s0, s1,
         None if keys is None else keys.data_ptr(), _build.stream_handle(dev),
-        smem)
+        info)
     _build.check(code, "line_sted_fused")
-    if smem[0] > smem[1]:
+    if info[0] > info[1]:
         raise ValueError(
-            f"line_sted_fused: width {w} with a run of {n_taps} taps needs "
-            f"{smem[0]} bytes of shared memory per block, above the "
-            f"{smem[1]} this card allows")
+            f"line_sted_fused: width {w} with a run of {plan.n_taps} taps "
+            f"over {plan.n_rows} rows needs {info[0]} bytes of shared memory "
+            f"per block, above the {info[1]} this card allows")
     _build.LAUNCHES["line_sted_fused"] += 1
+    LAUNCH_SHAPE.update(smem_bytes=info[0], threads=info[2], ctas=info[3],
+                        ctas_per_sm=info[4], positions_per_thread=info[5],
+                        rows=plan.n_rows, taps=plan.n_taps)
     return out

@@ -12,6 +12,10 @@ wrapper launches its kernel on a CUDA tensor (adding one to
 CPU tensor. The plain versions are the float32 chains (the fma chain
 rounded once per step as ``fmaf`` rounds), the exp chain in float64, or
 the same float32 steps on the same Philox stream (``kernels.poisson``).
+The TPU's matrix-unit body is measured twice too: in fp32 FFMA
+(``sgemm``) and on the tensor cores in three TF32 passes (``tf32x3``,
+K1's convolution engine); both compute the same product, whose plain
+version is its closed form in float64.
 
 ``calls(device, check=True)`` gives every kernel and its plain version on
 the inputs the rates use, with constants at which each rep moves the
@@ -20,7 +24,8 @@ result, so ``CHECKS``' comparisons see how many reps a kernel ran.
 until a call lasts about 1 ms, median of 7) and ``composite_bound(counts,
 rates)`` mirrors ``perf_vpu_bound.composite_bound``:
 
-    T >= conv FMAs / max(fma, sgemm rate) + exps / exp rate
+    T >= conv FMAs / max(fma, sgemm rate) + tensor-core conv FMAs / tf32x3
+         rate + exps / exp rate
          + single draws / uniform rate + Philox blocks / uniform_block rate
          + inversion terms / inv_term rate + Knuth rounds / knuth_round rate
          + placement windows / place_add rate
@@ -63,7 +68,7 @@ KNUTH_THRESHOLD = float(np.float32(np.exp(-0.3)))
 KNUTH_ROUNDS = 24               # Knuth rounds of an element below the cut
 PTRS_DRAWS = 2                  # a bright element's least draws: one attempt
 NAMES = ("fma", "uniform", "uniform_block", "exp", "inv_term", "knuth_round",
-         "place_add", "sgemm")
+         "place_add", "sgemm", "tf32x3")
 TARGET_MS, REPEATS = 1.0, 7     # a rate call's least length; timings per rate
 # The checks' constants. exp(-x) / 2 reaches its float32 fixed point within
 # 16 steps, so the check runs x = 2 exp(-x) (fixed point 0.85, slope -0.85:
@@ -79,7 +84,7 @@ CHECK_INV_LAM = math.factorial(UNROLL) ** (1.0 / UNROLL)
 # result by more than its tolerance.
 CHECKS = {"fma": (32, 0.0), "uniform": (32, 0.0), "uniform_block": (16, 0.0),
           "exp": (32, 1e-5), "inv_term": (48, 0.0), "knuth_round": (32, 0.0),
-          "place_add": (48, 0.0), "sgemm": (2, 1e-6)}
+          "place_add": (48, 0.0), "sgemm": (2, 1e-6), "tf32x3": (2, 1e-6)}
 
 
 def _reps(reps: int) -> int:
@@ -336,6 +341,26 @@ def sgemm(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     return out
 
 
+def tf32x3(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
+    """``sgemm``'s product on the tensor cores, each k-step of 8 in three
+    TF32 passes (hi * hi + hi * lo + lo * hi, fp32 accumulation); M % 64,
+    N % 64 and K % 8 zero, K <= 128 (the tiles stay in shared memory)."""
+    (m, k), (k2, n) = a.shape, b.shape
+    if k != k2 or m % 64 or n % 64 or k % 8 or k > 128 or reps <= 0:
+        raise ValueError("tf32x3 takes a [M, K] and b [K, N] with M % 64, "
+                         "N % 64 and K % 8 zero, K <= 128, and reps > 0")
+    if not a.is_cuda:
+        return sgemm_reference(a, b, reps)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    _build.require_cuda_f32("primitives_tf32x3", a, b, out)
+    code = _build.lib().rls_prim_tf32x3(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, reps,
+        _build.stream_handle(a.device))
+    _build.check(code, "primitives_tf32x3")
+    _build.LAUNCHES["primitives_tf32x3"] += 1
+    return out
+
+
 # ---- rates and the composite bound ---------------------------------------
 
 def place_offsets(reps: int, device=None) -> torch.Tensor:
@@ -393,6 +418,8 @@ def calls(device, key=(12345, 678), check: bool = False) -> dict[str, Call]:
             PLACE_CANVASES),
         "sgemm": Call(lambda r: sgemm(a, b, r),
                       lambda r: sgemm_reference(a, b, r), m * k * n),
+        "tf32x3": Call(lambda r: tf32x3(a, b, r),
+                       lambda r: sgemm_reference(a, b, r), m * k * n),
     }
 
 
@@ -412,9 +439,9 @@ def _event_ms(fn, repeats: int) -> list[float]:
 def primitive_rates(device=None) -> dict:
     """Each primitive's rate on the card (units per second: operations for
     fma, exp, inv_term and knuth_round, uniforms, Philox blocks for
-    uniform_block, windows for place_add, FMAs for sgemm): reps grow until
-    a call lasts ``TARGET_MS``, then the median of ``REPEATS`` CUDA-event
-    timings. Raises without a card."""
+    uniform_block, windows for place_add, FMAs for sgemm and tf32x3): reps
+    grow until a call lasts ``TARGET_MS``, then the median of ``REPEATS``
+    CUDA-event timings. Raises without a card."""
     from rescan_line_sted_torch.device import resolve
 
     device = resolve(device)
@@ -475,8 +502,10 @@ def knuth_counts(lam: torch.Tensor) -> dict:
 def composite_bound(counts: dict, rates: dict) -> dict:
     """The least time (ms) of a kernel from its counts and the measured
     primitive rates (``primitive_rates``). ``counts`` may hold ``conv_fma``
-    (charged at the faster FFMA rate, the fma chain's or sgemm's),
-    ``exps``, ``philox_blocks`` (single-draw blocks whose four words all
+    (FFMA work, charged at the faster FFMA rate, the fma chain's or
+    sgemm's), ``tc_fma`` (a convolution's fp32 FMAs done on the tensor
+    cores in three TF32 passes, charged at the tf32x3 rate), ``exps``,
+    ``philox_blocks`` (single-draw blocks whose four words all
     serve: a quarter block per draw of K1, K2b, K2c and K4), ``inv_terms``,
     ``knuth_rounds`` and ``windows``
     (placed elements / 69632, the [136, 512] window). Returns each term and
@@ -486,7 +515,9 @@ def composite_bound(counts: dict, rates: dict) -> dict:
         return r["rate"] if isinstance(r, dict) else r
 
     t = {"conv_ms": counts.get("conv_fma", 0) / max(rate("fma"),
-                                                    rate("sgemm")),
+                                                    rate("sgemm"))
+         + (counts["tc_fma"] / rate("tf32x3") if counts.get("tc_fma")
+            else 0.0),
          "sampler_ms": counts.get("exps", 0) / rate("exp")
          + counts.get("philox_blocks", 0) / rate("uniform_block")
          + counts.get("inv_terms", 0) / rate("inv_term")

@@ -40,25 +40,45 @@ import torch
 from rescan_line_sted_torch.kernels import _build, fftconv
 from rescan_line_sted_torch.kernels.poisson import poisson_reference
 
-# K1's shared-memory layout (csrc/rescan_banded_fused.cu: kLanes, kPassRows,
-# gen_len, banded_smem_bytes); a card test holds this mirror to the C entry
+# K1's shared-memory layouts (csrc/rescan_banded_fused.cu: kLanes,
+# kPassRows, make_layout); a card test holds this mirror to the C entry
 # rls_rescan_banded_fused_smem
 _LANES = 16
 _PASS_ROWS = 512
+_RING_STRIDE = 20          # floats per ring row in the asynchronous layouts
 # dynamic shared memory a block may opt into on Hopper (H100, H200): a
 # constant, not a device query, so the route never depends on the card
 SMEM_OPTIN = 232448
 
 
+def layout_smem_bytes(d_in: int, dob: int, chunk: int, binning: int = 1,
+                      n_spread: int = 0) -> tuple[int, int, int]:
+    """Dynamic shared memory (bytes) of K1's three layouts: (G resident,
+    G as its Toeplitz generator, the generator with synchronous staging).
+    Each holds the two-slot frame-row ring (rows of 16 floats; 20 in the
+    first two) and the illumination window; the first two the raw sample
+    window twice (16 b + 8 floats a row, for the copy of the next chunk),
+    a binned one when b > 1 (24 a row) and two buffers of placement
+    scalars (5 C + 4 ints) and spreading taps; the third one binned window
+    (16 a row) and one buffer of taps."""
+    b = binning
+    gen = (b * (dob - 1) + d_in + 3) // 4 * 4
+    g_res = d_in * (dob + (8 - dob % 32) % 32)
+    ill, taps = chunk * d_in, chunk * 2 * n_spread
+    staged = (2 * _PASS_ROWS * _RING_STRIDE + 2 * d_in * (16 * b + 8)
+              + (d_in * 24 if b > 1 else 0) + 2 * (5 * chunk + 4) + 2 * taps)
+    lean = 2 * _PASS_ROWS * _LANES + d_in * 16 + gen + ill + taps
+    return (4 * (staged + g_res + ill), 4 * (staged + gen + ill), 4 * lean)
+
+
 def banded_smem_bytes(d_in: int, dob: int, chunk: int, binning: int = 1,
                       n_spread: int = 0) -> int:
-    """Dynamic shared memory (bytes) of K1's smaller layout, which keeps
-    the binned detection window as its Toeplitz generator: the two-slot
-    frame-row ring, the sample window, the generator (rounded to 4
-    floats), the illumination window and the chunk's spreading taps."""
-    gen = (binning * (dob - 1) + d_in + 3) // 4 * 4
-    return 4 * ((2 * _PASS_ROWS + d_in) * _LANES + gen
-                + chunk * (d_in + 2 * n_spread))
+    """Dynamic shared memory (bytes) of K1's smallest layout, which keeps
+    the binned detection window as its Toeplitz generator and stages one
+    binned sample window at a time: the two-slot frame-row ring, the
+    sample window, the generator (rounded to 4 floats), the illumination
+    window and the chunk's spreading taps."""
+    return layout_smem_bytes(d_in, dob, chunk, binning, n_spread)[2]
 
 
 def banded_fits(d_in: int, dob: int, chunk: int, binning: int = 1,
@@ -70,13 +90,45 @@ def banded_fits(d_in: int, dob: int, chunk: int, binning: int = 1,
 
 
 def kernel_smem_bytes(d_in: int, dob: int, chunk: int, binning: int = 1,
-                      n_spread: int = 0) -> tuple[int, int]:
-    """The C entry's own byte counts of K1's (resident, generator)
-    layouts; builds the kernel library (needs nvcc, no card)."""
-    out = (ctypes.c_longlong * 2)()
+                      n_spread: int = 0) -> tuple[int, int, int]:
+    """The C entry's own byte counts of K1's three layouts (as
+    ``layout_smem_bytes``); builds the kernel library (needs nvcc, no
+    card)."""
+    out = (ctypes.c_longlong * 3)()
     _build.lib().rls_rescan_banded_fused_smem(d_in, dob, chunk, binning,
                                               n_spread, out)
-    return int(out[0]), int(out[1])
+    return int(out[0]), int(out[1]), int(out[2])
+
+
+# The launch shape of K1's last launch in each mode (LAUNCHES' names): the
+# layout (0 G resident, 1 generator, 2 generator with synchronous staging),
+# its bytes of shared memory per CTA, CTAs, CTAs per SM, threads per CTA
+LAUNCH_SHAPE: dict[str, dict] = {}
+LAYOUTS = ("resident", "generator", "generator, synchronous staging")
+
+
+_TF32_MASK = -8192     # 0xffffe000 as int32: the TF32 bits of a float32
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's operand split (plain version): ``hi = x & 0xffffe000`` and
+    ``lo = (x - hi) & 0xffffe000``, both float32 holding TF32 values (low
+    13 mantissa bits zero), as the kernel forms them before its three
+    tensor-core passes."""
+    x = x.to(torch.float32)
+    hi = (x.view(torch.int32) & _TF32_MASK).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & _TF32_MASK).view(torch.float32)
+    return hi, lo
+
+
+def three_pass_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as K1's engine computes it (plain version): hi * hi in
+    one float32 accumulation, hi * lo + lo * hi in a second, summed at the
+    end. The products of two TF32 values are exact in float32; the card
+    differs only in the order and rounding of its float32 sums."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return ah @ bh + (al @ bh + ah @ bl)
 
 
 def _check(h, w, *, wc, d_in, d_out, chunk, binning, n_spread=0):
@@ -270,23 +322,27 @@ def rescan_banded_fused(
     out = torch.empty((q, wc, hb), dtype=torch.float32,
                       device=sample_y.device)
     s0, s1, keys = _build.key_words(generator, sample_y.device)
-    variant = ctypes.c_int(-1)
+    info = (ctypes.c_int * 5)()
     code = _build.lib().rls_rescan_banded_fused(
         g_t.data_ptr(), ill_w.data_ptr(), sample_ext.data_ptr(),
         sa_lo.data_ptr(), sa_hi.data_ptr(), m0.data_ptr(), cls.data_ptr(),
         taps[0].data_ptr() if taps else None, out.data_ptr(), h, w, chunk,
         d_in, dob, b, q, wc, n_spread, int(generator is not None), s0, s1,
         None if keys is None else keys.data_ptr(),
-        _build.stream_handle(sample_y.device), ctypes.byref(variant))
+        _build.stream_handle(sample_y.device), info)
     _build.check(code, "rescan_banded_fused")
-    if variant.value < 0:
+    if info[0] < 0:
         raise RuntimeError(
             f"rescan_banded_fused: internal error: the host bound "
             f"banded_fits and K1's layout disagree (band windows d_in="
-            f"{d_in}, d_out={d_out} at chunk {chunk} fit neither layout of "
+            f"{d_in}, d_out={d_out} at chunk {chunk} fit no layout of "
             "this card's shared memory); the rescan engine routes such "
             "windows around K1")
     name = "rescan_banded_fused" + ("_spread" if n_spread else "") + (
-        "_wide" if variant.value == 1 else "")
+        "_wide" if info[0] >= 1 else "")
     _build.LAUNCHES[name] += 1
+    LAUNCH_SHAPE[name] = {"layout": LAYOUTS[info[0]], "smem_bytes": info[1],
+                          "ctas": info[2], "ctas_per_sm": info[3],
+                          "threads": info[4], "d_in": d_in, "dob": dob,
+                          "chunk": chunk, "binning": b}
     return out

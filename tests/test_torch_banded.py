@@ -197,3 +197,67 @@ def test_over_bound_windows_take_the_full_frame_scan(rf, b, monkeypatch):
         jnp.asarray(s), J.RescanParams.create(**kw), jg, method="scan").image
     assert calls == [1]
     assert _rel(got, want) <= 1e-5
+
+
+# ---- K1's three-pass TF32 engine and its host bound -------------------------
+
+def _ffma_layout_bytes(d_in, dob, chunk, b, n_spread):
+    """The bound the port held K1 to before its tensor-core engine: a
+    ring of 2 x 512 frame rows and the binned sample window, 16 lanes
+    each, the generator of b (dob - 1) + d_in values rounded to 4, the
+    illumination window and the spreading taps."""
+    gen = (b * (dob - 1) + d_in + 3) // 4 * 4
+    return 4 * ((2 * 512 + d_in) * 16 + gen + chunk * (d_in + 2 * n_spread))
+
+
+def test_banded_fits_admits_every_window_the_ffma_engine_admitted():
+    """Over a grid of (d_in, dob, chunk, b, n_spread) that crosses the
+    limit, every window the FFMA engine's formula admitted fits K1's
+    smallest layout, and the three layouts are ordered resident >=
+    generator >= synchronous generator."""
+    from rescan_line_sted_torch.kernels import rescan_banded_fused as k1
+
+    admitted = 0
+    for d_in in range(32, 1345, 40):
+        for dob in sorted({max(1, d_in // 4), d_in // 2 + 3, d_in,
+                           d_in + 96, d_in + 131}):
+            for chunk, b, n_spread in ((8, 1, 0), (32, 1, 0), (32, 1, 4),
+                                       (16, 2, 0), (64, 1, 0), (8, 4, 4),
+                                       (32, 3, 4)):
+                if _ffma_layout_bytes(d_in, dob, chunk, b,
+                                      n_spread) <= 232448:
+                    admitted += 1
+                    assert k1.banded_fits(d_in, dob, chunk, b, n_spread)
+                res, gen, lean = k1.layout_smem_bytes(d_in, dob, chunk, b,
+                                                      n_spread)
+                assert res >= gen >= lean
+    assert admitted > 500
+
+
+@pytest.mark.parametrize("d_in,dob", [(128, 128), (256, 256)])
+def test_three_pass_split_holds_the_parity_bar(d_in, dob):
+    """K1's hi/lo split rule at the flagship's (D_in = dob = 128) and the
+    wide layout's (256) shapes: one frame's [16 lanes, D_in] x [D_in, dob]
+    product of a y-convolved star window scaled by the illumination and
+    the binned detection window, against float64. Three passes stay far
+    under 1e-5 (max relative); a single TF32 pass misses it."""
+    from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+        tf32_split, three_pass_matmul)
+
+    rng = np.random.default_rng(d_in)
+    x = np.arange(d_in) - d_in // 2
+    ill = np.exp(-0.5 * (x / (d_in / 10)) ** 2)
+    win = rng.random((16, d_in)) * (1.0 + rng.random(d_in))
+    a = torch.from_numpy((win * ill).astype(np.float32))
+    r = np.arange(dob)[None, :] - np.arange(d_in)[:, None] \
+        + (d_in - dob) // 2
+    g = torch.from_numpy(np.exp(-0.5 * (r / 3.0) ** 2).astype(np.float32))
+    exact = a.double() @ g.double()
+    three = three_pass_matmul(a, g)
+    single = tf32_split(a)[0] @ tf32_split(g)[0]
+    assert _rel(three, exact) <= 1e-6
+    assert _rel(single, exact) > 1e-5
+    hi, lo = tf32_split(a)
+    bits = torch.cat([hi, lo]).view(torch.int32) & 0x1FFF
+    assert not bits.any()
+    assert _rel(hi.double() + lo.double(), a.double()) <= 2.0 ** -20

@@ -277,6 +277,94 @@ def test_banded_kernel_partial_lane_tile(cuda, h):
     assert abs(float(noisy[0].double().sum()) - ref) <= 5 * np.sqrt(ref)
 
 
+@pytest.mark.parametrize("h,b,wide,spread", [
+    (18, 1, False, False), (74, 2, False, False), (40, 1, True, False),
+    (70, 1, False, True), (54, 2, True, True)])
+def test_banded_kernel_ragged_tiles_every_layout(cuda, h, b, wide, spread):
+    """Lane tiles that end mid-tile (H/b off the 16-lane tile, and off the
+    16-byte copies where H % 4 != 0) in each layout (resident; generator,
+    or at b = 2 with D_in = 320 the synchronous one), integer and spreading
+    placement, against the plain version."""
+    from rescan_line_sted_torch.kernels import rescan_banded_fused as k1
+
+    w = 512 if wide else 64
+    g = torch.Generator().manual_seed(h + b)
+    args = (torch.rand((h, w), generator=g).to(cuda),
+            _profile(w, 12.0 if wide else 1.6, cuda),
+            _profile(w, 12.0 if wide else 1.4, cuda),
+            torch.arange(w, device=cuda).int() // 2)
+    d = 320 if wide else 32
+    kw = dict(wc=w // b + 96, d_in=d, d_out=(d + 16) // (2 * b) * 2 * b,
+              chunk=16, binning=b)
+    if spread:
+        kw.update(_spread(w, 0.29, b, cuda))
+    want = rescan_banded_fused_reference(*args, **kw)
+    got = rescan_banded_fused(*args, **kw)
+    torch.cuda.synchronize()
+    name = "rescan_banded_fused" + ("_spread" if spread else "") + (
+        "_wide" if wide else "")
+    fits = [v <= k1.SMEM_OPTIN for v in k1.layout_smem_bytes(
+        d, kw["d_out"] // b, 16, b, 4 if spread else 0)]
+    assert k1.LAUNCH_SHAPE[name]["layout"] == k1.LAYOUTS[fits.index(True)]
+    assert (k1.LAUNCH_SHAPE[name]["layout"] == "resident") == (not wide)
+    assert got.shape == want.shape and _rel(got, want) <= 1e-5
+
+
+def test_banded_kernel_lean_layout_matches_plain(cuda):
+    """Windows too wide for the double-buffered generator layout (D_in =
+    dob = 640 at chunk 32) take the synchronous one, integer and
+    spreading placement, against the plain version; its bytes are the
+    host bound's."""
+    from rescan_line_sted_torch.kernels import rescan_banded_fused as k1
+
+    w, d = 1024, 640
+    g = torch.Generator().manual_seed(9)
+    args = (torch.rand((32, w), generator=g).to(cuda),
+            _profile(w, 40.0, cuda), _profile(w, 30.0, cuda),
+            torch.arange(w, device=cuda).int() // 2)
+    for spread in (False, True):
+        kw = dict(wc=w + 160, d_in=d, d_out=d, chunk=32)
+        if spread:
+            kw.update(_spread(w, 0.29, 1, cuda))
+        want = rescan_banded_fused_reference(*args, **kw)
+        got = rescan_banded_fused(*args, **kw)
+        torch.cuda.synchronize()
+        name = "rescan_banded_fused" + ("_spread" if spread else "") + "_wide"
+        shape = k1.LAUNCH_SHAPE[name]
+        assert shape["layout"] == "generator, synchronous staging"
+        assert shape["smem_bytes"] == k1.banded_smem_bytes(
+            d, d, 32, 1, 4 if spread else 0)
+        assert got.shape == want.shape and _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["class", "spread", "wide", "spread_wide",
+                                  "lean"])
+def test_banded_kernel_repeatable_in_every_mode(cuda, mode):
+    """Two noisy launches with the same key give the same canvas bit for
+    bit (no atomics, sums in a fixed order), in every mode and layout; a
+    third with another key differs."""
+    if mode == "class":
+        args, kw = _case(2, 1, 1.5, 32, cuda)
+    else:
+        w, d = (1024, 640) if mode == "lean" else (512, 320)
+        g = torch.Generator().manual_seed(10)
+        args = (torch.rand((48, w), generator=g).to(cuda),
+                _profile(w, 12.0, cuda), _profile(w, 12.0, cuda),
+                torch.arange(w, device=cuda).int() // 2)
+        kw = dict(wc=w + 160, d_in=d, d_out=d, chunk=32)
+        if mode == "spread":
+            kw.update(d_in=32, d_out=48)
+        if "spread" in mode:
+            kw.update(_spread(w, 0.29, 1, cuda))
+    s, e, gx, offs = args
+    runs = [rescan_banded_fused(40.0 * s, 30.0 * e, gx, offs, **kw,
+                                generator=torch.Generator().manual_seed(k))
+            for k in (5, 5, 6)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
+    assert torch.isfinite(runs[0]).all() and (runs[0] >= 0).all()
+
+
 def test_banded_kernel_noise(cuda):
     args, kw = _case(2, 1, 1.5, 8, cuda)
     s, e, gx, offs = args
@@ -412,9 +500,60 @@ def test_line_fused_noise(cuda):
     assert not torch.equal(draws[0], draws[1])
 
 
+def test_line_fused_second_image_makes_no_sync(cuda):
+    """The line engine caches K3's plan per params, width and window: a
+    second per-step image on K3 (CUDA generator) makes no host-device sync
+    under sync-debug mode "error", and equals K3 called without a plan."""
+    from rescan_line_sted_torch.imaging import line_sted
+
+    params, geom = _line(64, 256)
+    s = torch.rand((64, 256), generator=torch.Generator().manual_seed(3)
+                   ).to(cuda)
+
+    def image(seed):
+        return T.line_sted_image(s, params, geom,
+                                 torch.Generator(cuda).manual_seed(seed),
+                                 method="scan", noise_mode="per_step",
+                                 use_pallas=True).image
+
+    first = image(1)
+    torch.cuda.synchronize()
+    before = _build.LAUNCHES["line_sted_fused"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = image(1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["line_sted_fused"] == before + 1
+    assert torch.equal(first, again)
+    assert line_sted._k3_plan.cache_info().hits >= 1
+
+
+@pytest.mark.parametrize("shift,h", [(250, 48), (-240, 30), (262, 8)])
+def test_line_fused_wrapped_run_with_plan(cuda, shift, h):
+    """K3 with a tap run that wraps past the last offset (eff and gx
+    rolled), given its plan as the engine gives it, against the plain
+    version noise-free; noisy, the same key gives the same image."""
+    from rescan_line_sted_torch.kernels.line_fused import (
+        line_plan, line_sted_fused, line_sted_fused_reference)
+
+    s, eff, gx, slit = _line_inputs(h, 512, 4.0, cuda)
+    args = s, eff.roll(shift), gx.roll(shift), slit
+    plan = line_plan(*args[1:], 18)
+    assert plan.j0 + plan.n_taps > 512
+    want = line_sted_fused_reference(*args, slit_support=18)
+    got = line_sted_fused(*args, slit_support=18, plan=plan)
+    torch.cuda.synchronize()
+    assert got.shape == (h, 512) and _rel(got, want) <= 1e-5
+    noisy = [line_sted_fused(*args, torch.Generator().manual_seed(2),
+                             slit_support=18, plan=plan) for _ in range(2)]
+    assert torch.equal(noisy[0], noisy[1])
+
+
 def test_line_fused_limits(cuda):
-    """K3 takes the widest frame the line engine hands it; a frame whose
-    profiles overflow a block's shared memory, or a sample K3 cannot read,
+    """K3 takes the widest frame the line engine hands it; a tap run that
+    overflows a block's shared memory, or a sample K3 cannot read,
     raises."""
     from rescan_line_sted_torch.kernels import line_fused
 
@@ -422,9 +561,11 @@ def test_line_fused_limits(cuda):
     want = line_fused.line_sted_fused_reference(*args, slit_support=18)
     assert _rel(line_fused.line_sted_fused(*args, slit_support=18),
                 want) <= 1e-5
-    args = _line_inputs(8, 32768, 4.0, cuda)
+    # flat profiles: every offset is a tap, a run too long for shared memory
+    s, eff, gx, slit = _line_inputs(8, line_fused.MAX_WIDTH, 4.0, cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        line_fused.line_sted_fused(*args)
+        line_fused.line_sted_fused(s, torch.ones_like(eff),
+                                   torch.ones_like(gx), slit)
     s, eff, gx, slit = _line_inputs(8, 64, 4.0, cuda)
     with pytest.raises(ValueError, match="float32"):
         line_fused.line_sted_fused(s.double(), eff, gx, slit)
@@ -795,7 +936,7 @@ def test_ism_on_card_matches_cpu(cuda, rf, b, monkeypatch):
 
 @pytest.mark.parametrize("name", ["fma", "uniform", "uniform_block", "exp",
                                   "inv_term", "knuth_round", "place_add",
-                                  "sgemm"])
+                                  "sgemm", "tf32x3"])
 def test_primitive_matches_plain(cuda, name):
     """Each K6 microkernel against its plain version at the reps, constants
     and tolerances of ``primitives.CHECKS`` (where one rep more or less
@@ -826,7 +967,7 @@ def test_primitive_matches_plain(cuda, name):
         a = torch.randint(0, 8, (256, 64), generator=g) / 8
         b = torch.randint(0, 8, (64, 128), generator=g) / 8
         want = prim.sgemm_reference(a, b, reps)
-        run = lambda: prim.sgemm(a.to(cuda), b.to(cuda), reps)
+        run = lambda: getattr(prim, name)(a.to(cuda), b.to(cuda), reps)
     before = _build.LAUNCHES[f"primitives_{name}"]
     got = run()
     torch.cuda.synchronize()
@@ -863,13 +1004,15 @@ def test_banded_fits_matches_the_kernel_layout(cuda):
             for chunk, b, n_spread in ((32, 1, 0), (32, 1, 4), (16, 2, 0),
                                        (64, 1, 0), (8, 4, 4)):
                 dob = (d_in + extra) // b
-                resident, gen = k1.kernel_smem_bytes(d_in, dob, chunk, b,
-                                                     n_spread)
-                assert gen == k1.banded_smem_bytes(d_in, dob, chunk, b,
-                                                   n_spread)
-                assert gen <= resident
+                layouts = k1.kernel_smem_bytes(d_in, dob, chunk, b, n_spread)
+                assert layouts == k1.layout_smem_bytes(d_in, dob, chunk, b,
+                                                       n_spread)
+                resident, gen, lean = layouts
+                assert lean == k1.banded_smem_bytes(d_in, dob, chunk, b,
+                                                    n_spread)
+                assert lean <= gen <= resident
                 fits = k1.banded_fits(d_in, dob, chunk, b, n_spread)
-                assert fits == (gen <= k1.SMEM_OPTIN)
+                assert fits == (lean <= k1.SMEM_OPTIN)
                 crossed.add(fits)
     assert crossed == {True, False}
     assert torch.cuda.get_device_properties(0).shared_memory_per_block_optin \

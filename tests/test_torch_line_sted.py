@@ -313,3 +313,42 @@ def test_arguments_and_devices(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         T.line_sted_image(s, tp, tg)
+
+
+@pytest.mark.parametrize("kw,w,support", [
+    ({}, 128, 18), (dict(slit_halfwidth=3.0), 128, 16),
+    (dict(sigma_det=1.5, depletion=8.0), 96, 18),
+    (dict(sigma_exc=3.0, brightness=2.0), 128, 4),
+    (dict(stripe_period=12.0), 200, 64)])
+def test_k3_cached_plan_matches_fresh(kw, w, support):
+    """The K3 plan the line engine caches (rows, weights on the profiles'
+    device, tap run) equals ``_rows`` and ``_span`` worked out afresh on
+    the profiles ``_scan`` hands K3; the same key hits the cache, and a
+    changed param, width or window misses it."""
+    params = T.LineSTEDParams.create(**{**KW, **kw})
+    dev = torch.device("cpu")
+    tline._k3_plan.cache_clear()
+    plan = tline._k3_plan(params, w, support, dev)
+    eff = params.brightness * tline.effective_line_profile(w, params, dev)
+    gx = tpsf.detection_profile(w, params.sigma_det, dev)
+    slit = tpsf.slit_profile(w, params.slit_halfwidth, dev)
+    i0, ws, wm = tfused._rows(slit, w, support)
+    j0, n = tfused._span(tfused._taps(eff, gx, i0, ws.size))
+    assert (plan.i0, plan.n_rows, plan.j0, plan.n_taps) == (i0, ws.size,
+                                                            j0, n)
+    assert np.array_equal(plan.ws.numpy(), ws)
+    assert np.array_equal(plan.wm.numpy(), wm)
+    assert plan.ws.device == dev and plan.ws.dtype == torch.float32
+    assert tline._k3_plan(params, w, support, dev) is plan
+    assert tline._k3_plan.cache_info().misses == 1
+    other = dataclasses.replace(params, sigma_det=params.sigma_det + 0.5)
+    assert tline._k3_plan(other, w, support, dev) is not plan
+    tline._k3_plan(params, w + 8, support, dev)
+    tline._k3_plan(params, w, support + 8, dev)
+    assert tline._k3_plan.cache_info().misses == 4
+    # the wrapper given the plan computes what it computes without one
+    s = torch.from_numpy(_sample(16, w, 3))
+    assert torch.equal(
+        tfused.line_sted_fused(s, eff, gx, slit, slit_support=support,
+                               plan=plan),
+        tfused.line_sted_fused(s, eff, gx, slit, slit_support=support))

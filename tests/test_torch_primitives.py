@@ -115,6 +115,17 @@ def test_sgemm_matches_jax_mxu():
     assert _rel(prim.sgemm(a, b, 3)[:128], want) <= 1e-5
 
 
+def test_tf32x3_matches_jax_mxu():
+    """The tensor-core body (three TF32 passes) computes the TPU matrix
+    body's product: its plain version (what a CPU tensor runs) against
+    ``_k_mxu`` as for sgemm."""
+    want = _jax_body(pvb._k_mxu, 3,
+                     [(4096, 128), (128, pvb.COLS), (4096, pvb.COLS)], 1)
+    a = torch.full((4096, 128), 0.01)
+    b = torch.full((128, pvb.COLS), 0.02)
+    assert _rel(prim.tf32x3(a, b, 3)[:128], want) <= 1e-5
+
+
 def test_sgemm_reference_sums_the_perturbed_products():
     g = torch.Generator().manual_seed(1)
     a, b = torch.rand((128, 16), generator=g), torch.rand((16, 64),
@@ -221,6 +232,11 @@ def test_counts_and_composite_bound():
     assert math.isclose(t["total_ms"], 9.0)
     rates["fma"] = 4e12
     assert math.isclose(prim.composite_bound(counts, rates)["conv_ms"], 1.0)
+    # a convolution on the tensor cores: its FMAs at the tf32x3 rate
+    rates["tf32x3"] = {"rate": 8e12}
+    tc = prim.composite_bound(dict(counts, conv_fma=0, tc_fma=4e10), rates)
+    assert math.isclose(tc["conv_ms"], 5.0)
+    assert math.isclose(tc["total_ms"], 5.0 + 4.0 + 3.0)
 
 
 def _chain_plain(name, n, reps):
@@ -269,6 +285,10 @@ def test_arguments_and_cpu_launches():
         prim.place_add(canvas, window[:8], torch.tensor([0]))
     with pytest.raises(ValueError, match="sgemm"):
         prim.sgemm(torch.ones((100, 8)), torch.ones((8, 64)), 1)
+    with pytest.raises(ValueError, match="tf32x3"):
+        prim.tf32x3(torch.ones((64, 12)), torch.ones((12, 64)), 1)
+    with pytest.raises(ValueError, match="tf32x3"):
+        prim.tf32x3(torch.ones((64, 136)), torch.ones((136, 64)), 1)
     prim.place_add(canvas, window, torch.tensor([2944, 0, 5]))
     assert float(canvas[0, 2944:].sum()) == 136 * 512
     assert float(canvas[0, 5:136].min()) == 2.0
