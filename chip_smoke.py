@@ -123,7 +123,28 @@ sm_90a), then:
    passes at 495 TFLOP/s, and in fp32 FFMA; K4's also with one Philox
    block per draw), of K2c on the flagship canvas and the scatter frames
    and of K2b on each caller's frames, failing if a kernel runs under its
-   composite.
+   composite;
+13. drives the dose-matched sweep (``sweeps/dose.py``): the bench cell
+   (``bench.py:413-459``: 256^2, POINT_KW / LINE_KW, 8 powers over [0,
+   16], budget 100, point and line arms, a CUDA generator) with the
+   counters reset before and read after (K2c once per arm and point, 16,
+   nothing else), its noise-free columns on the card against
+   ``device="cpu"`` (max relative error <= 1e-5 on every image, FWHM,
+   emitted-signal and exposure column), its noisy totals within 5 sigma,
+   K2c's counts on its second power's point and line images against the
+   host reference (with either generator), the sweep under sync-debug mode (a CPU
+   generator never syncs; a CUDA generator once, for its seed table), its
+   time (CUDA events, median of 7), device-busy share (one profiled
+   sweep) and speedup over the float64 oracle's cost per sweep (timed
+   here as ``bench_oracle_sweep`` times it, ``bench.py:462-509``); then
+   the figure sweep (four arms as ``pipelines/report.py:161-175`` sets
+   them up, without fusion: 2048^2, powers 0, 4, 8, 16, two
+   orientations, ``frc=True``, budget 5000): K2c twice per arm and point,
+   every arm's fwhm_x falling with depletion, exposure times the card's
+   dose ledger equal to the budget within 1e-5 (per orientation for the
+   line arms), finite FRC resolutions >= 2 for point, line and ISM and
+   finite per-axis ones for the rescan arm, every noisy total within 5
+   sigma, and its time.
 
 Prints a ``rule2`` line (K2b's, K2c's and K5's times against their
 library call and their bounds, K1's four modes and K3 against their bounds
@@ -452,7 +473,8 @@ def draw_for_draw(dev, flat: bool = False) -> float:
 
 
 def frames_draw_for_draw(name: str, frames: torch.Tensor,
-                         flat: bool = False, generator=None) -> dict:
+                         flat: bool = False, generator=None,
+                         counts=None) -> dict:
     """K2b (``flat``: K2c) against its host reference on a caller's frames
     (rates varying over the frame, per-warp tiers), count by count under
     one key, on every warp below the bright cut (a bright warp draws Knuth
@@ -460,7 +482,9 @@ def frames_draw_for_draw(name: str, frames: torch.Tensor,
     ``draw_for_draw``, a count may differ by one only where its uniform
     sits within 1e-6 of a CDF value at its own rate, at most 16 per 2^20
     elements. ``generator``: a CUDA generator's seed instead of the CPU
-    one (K2c then reads its key words on the card)."""
+    one (K2c then reads its key words on the card). ``counts``: counts a
+    caller drew on rates ``frames`` with a generator in the state of
+    ``generator()``, held instead of a fresh launch."""
     from scipy import stats
 
     from rescan_line_sted_torch.kernels.poisson import (
@@ -470,7 +494,8 @@ def frames_draw_for_draw(name: str, frames: torch.Tensor,
     kernel = poisson_flat if flat else poisson_rows_tiered
     make = generator or (lambda: torch.Generator().manual_seed(41))
     lam = frames.detach().float().cpu().clamp_min(0)
-    got = kernel(frames.contiguous(), make()).cpu()
+    got = (kernel(frames.contiguous(), make()) if counts is None
+           else counts).cpu()
     key = host_key(make())
     bright = warp_tiers(lam, flat) >= _CUT
     want = poisson_rows_tiered_reference(torch.where(bright, 0.0, lam), key,
@@ -2340,6 +2365,300 @@ def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
             "bounds": bounds, "entries": entries, "library_ms": library_ms}
 
 
+SWEEP_SIZE = 256               # bench.py:71, the dose sweep's grid
+SWEEP_POWERS = 8               # bench.py:72, linspace(0, 16) (:419)
+SWEEP_BUDGET = 100.0           # bench.py:424
+ORACLE_POINT_STEPS = 512       # bench.py:73
+ORACLE_LINE_STEPS = 64         # bench.py:74
+FIGURE_POWERS = (0.0, 4.0, 8.0, 16.0)
+FIGURE_BUDGET = 5000.0         # tests/test_sweeps.py:175-177
+SWEEP_COLUMNS = ("image", "fwhm_x", "fwhm_y", "emitted_signal", "exposure")
+
+
+def bench_sweep_args(dev) -> dict:
+    """``bench_tpu_sweep``'s cell (``bench.py:413-459``): 256^2 siemens
+    star, POINT_KW / LINE_KW, 8 powers over [0, 16], budget 100, the
+    point and line arms."""
+    from rescan_line_sted_torch import (
+        Grid, LineSTEDGeometry, LineSTEDParams, PointSTEDGeometry,
+        PointSTEDParams)
+    from rescan_line_sted_torch.data import siemens_star
+
+    grid = Grid(SWEEP_SIZE, SWEEP_SIZE)
+    return dict(sample=siemens_star((SWEEP_SIZE, SWEEP_SIZE), device=dev),
+                point_base=PointSTEDParams.create(**POINT_KW),
+                line_base=LineSTEDParams.create(**LINE_KW),
+                point_geom=PointSTEDGeometry(grid),
+                line_geom=LineSTEDGeometry(grid),
+                depletion_powers=np.linspace(0.0, 16.0, SWEEP_POWERS),
+                dose_budget=SWEEP_BUDGET)
+
+
+def figure_sweep_args(dev) -> dict:
+    """All four arms as ``pipelines/report.py:161-175`` sets them up,
+    without fusion, at 2048^2: default params at brightness 1, R = 2 for
+    the rescan and ISM arms, two orientations, budget 5000."""
+    from rescan_line_sted_torch import (
+        Grid, LineSTEDGeometry, LineSTEDParams, PointSTEDGeometry,
+        PointSTEDParams, RescanGeometry, RescanPointGeometry)
+    from rescan_line_sted_torch.data import siemens_star
+
+    grid = Grid(SIZE, SIZE)
+    return dict(sample=siemens_star((SIZE, SIZE), device=dev),
+                point_base=PointSTEDParams.create(brightness=1.0),
+                line_base=LineSTEDParams.create(brightness=1.0),
+                point_geom=PointSTEDGeometry(grid),
+                line_geom=LineSTEDGeometry(grid),
+                depletion_powers=FIGURE_POWERS, dose_budget=FIGURE_BUDGET,
+                orientations=2,
+                rescan_geom=RescanGeometry(grid, rescan_factor=2.0),
+                ism_geom=RescanPointGeometry(grid, rescan_factor=2.0))
+
+
+def oracle_sweep_s() -> tuple[float, float, float]:
+    """The float64 numpy oracle's cost of the bench cell's sweep, as
+    ``bench_oracle_sweep`` (``bench.py:462-509``) takes it: per-step costs
+    timed on 512 point and 64 line steps (each subset twice, the minimum
+    kept), times the steps of one point and one line image per power.
+    Returns (seconds per sweep, s per point step, s per line step)."""
+    import importlib.util
+
+    from rescan_line_sted_torch.data import siemens_star
+
+    # by path: an installed package named ``tests`` would shadow the repo's
+    spec = importlib.util.spec_from_file_location(
+        "oracle", os.path.join(ROOT, "tests", "oracle", "oracle.py"))
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    n = SWEEP_SIZE
+    sample = siemens_star((n, n), device="cpu").double().numpy()
+    rng = np.random.default_rng(0)
+    shape = sample.shape
+    exc = oracle.gaussian_psf(shape, POINT_KW["sigma_exc"])
+    dep = oracle.donut_psf(shape, POINT_KW["sigma_dep"])
+    eff = oracle.effective_psf(exc, dep, 8.0)
+    det = oracle.detection_psf(shape, POINT_KW["sigma_det"])
+    pin = oracle.pinhole_mask(shape, POINT_KW["pinhole_radius"])
+    point_per_step = 1e9
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for step in range(ORACLE_POINT_STEPS):
+            y0, x0 = step // n, step % n
+            ill = oracle.shift_to(eff, y0, x0)
+            cam = oracle.fft_convolve(sample * ill, det)
+            cam = rng.poisson(np.maximum(cam, 0.0)).astype(np.float64)
+            _ = np.sum(cam * oracle.shift_to(pin, y0, x0))
+        point_per_step = min(point_per_step, (time.perf_counter() - t0)
+                             / ORACLE_POINT_STEPS)
+    excl = oracle.line_excitation_profile(n, LINE_KW["sigma_exc"])
+    depl = oracle.stripe_depletion_profile(n, LINE_KW["stripe_period"])
+    effl = oracle.effective_psf(excl, depl, 8.0)
+    slit = oracle.slit_profile(n, LINE_KW["slit_halfwidth"])
+    line_per_step = 1e9
+    for _ in range(2):
+        t0 = time.perf_counter()
+        for x0 in range(ORACLE_LINE_STEPS):
+            ill = oracle.shift_profile_to(effl, x0)[None, :]
+            cam = oracle.fft_convolve(sample * ill, det)
+            cam = rng.poisson(np.maximum(cam, 0.0)).astype(np.float64)
+            _ = cam @ oracle.shift_profile_to(slit, x0)
+        line_per_step = min(line_per_step, (time.perf_counter() - t0)
+                            / ORACLE_LINE_STEPS)
+    per_point = n * n * point_per_step + n * line_per_step
+    return per_point * SWEEP_POWERS, point_per_step, line_per_step
+
+
+def sweep_totals(name, noisy, clean, arms) -> None:
+    """Every noisy image total within 5 sigma of its noise-free mean."""
+    worst = 0.0
+    for arm in arms:
+        for img, mean in zip(getattr(noisy, arm).image,
+                             getattr(clean, arm).image):
+            mu = float(mean.clamp_min(0).double().sum())
+            z = (float(img.double().sum()) - mu) / math.sqrt(mu)
+            check(abs(z) <= 5, f"{name} {arm}: noisy total {z:+.2f} sigma "
+                  "from its mean")
+            worst = max(worst, abs(z))
+    log(f"{name}: every noisy total within {worst:.2f} sigma of its mean")
+
+
+def sweep_no_sync(args, dev) -> int:
+    """The bench cell's sweep under sync-debug mode: with a CPU generator
+    nothing synchronises (mode "error" raises on a sync); with a CUDA
+    generator the seed table is read once per sweep (mode "warn",
+    counted). Returns that count."""
+    import warnings
+
+    from rescan_line_sted_torch.sweeps import dose_matched_sweep as sweep
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sweep(generator=torch.Generator().manual_seed(5), **args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sweep(generator=torch.Generator(dev).manual_seed(5), **args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message)]
+    log(f"dose_sweep under sync-debug mode: CPU generator no sync; CUDA "
+        f"generator {len(syncs)} sync(s): {json.dumps(syncs[:3])}")
+    check(len(syncs) <= 1, "the sweep must sync at most once (a CUDA "
+          f"generator's seed table), not per point: {len(syncs)}")
+    return len(syncs)
+
+
+def phase_sweep(dev) -> dict:
+    """The dose-matched sweep (``sweeps/dose.py``) on the card: the bench
+    cell, its launches, time, device-busy share and the oracle's speedup;
+    the 2048^2 four-arm figure sweep with FRC; card against CPU; K2c's
+    counts on a sweep image against its host reference."""
+    from rescan_line_sted_torch.physics.dose import (
+        line_sted_dose, point_sted_dose)
+    from rescan_line_sted_torch.sweeps import dose_matched_sweep as sweep
+    from rescan_line_sted_torch.sweeps.dose import arm_generators
+
+    name_power = card()
+    args = bench_sweep_args(dev)
+    out = {"paths": {}, "e2e": {}}
+
+    # the main path: the bench cell with a CUDA generator
+    noisy, out["paths"]["dose_sweep"] = drive("dose_sweep", lambda: sweep(
+        generator=torch.Generator(dev).manual_seed(100), **args))
+    n_k2c = out["paths"]["dose_sweep"].get("poisson_flat", 0)
+    check(out["paths"]["dose_sweep"] == {"poisson_flat": 2 * SWEEP_POWERS},
+          f"dose_sweep must launch K2c once per arm and point (16) and "
+          f"nothing else: {out['paths']['dose_sweep']}")
+    clean = sweep(**args)
+    cpu = sweep(device="cpu", **args)
+    errs = {}
+    for arm in ("point", "line"):
+        for col in SWEEP_COLUMNS:
+            got, want = getattr(getattr(clean, arm), col), \
+                getattr(getattr(cpu, arm), col)
+            check(got.is_cuda and got.shape == want.shape,
+                  f"dose_sweep {arm}.{col}: on the card, CPU's shape")
+            errs[f"{arm}.{col}"] = float(
+                (got.double().cpu() - want.double()).abs().max()
+                / want.double().abs().max())
+        fx = getattr(clean, arm).fwhm_x
+        check(bool((fx[1:] < fx[:-1]).all()),
+              f"dose_sweep {arm}: fwhm_x must fall with depletion: {fx}")
+    log(f"dose_sweep card vs CPU, noise-free (max rel): {json.dumps(errs)}")
+    check(max(errs.values()) <= 1e-5,
+          f"dose_sweep card vs CPU beyond 1e-5: {errs}")
+    out["errs"] = errs
+    sweep_totals("dose_sweep", noisy, clean, ("point", "line"))
+    # K2c's counts on the sweep's point and line images of its second power
+    # (rates up to ~1.4: every warp below the bright cut; at s = 0 nearly
+    # every warp is bright), with either generator (arm_generators:
+    # [arm][point][draw])
+    out["draws"] = {}
+    for gname, make in (("cpu_generator", lambda: torch.Generator()),
+                        ("cuda_generator", lambda: torch.Generator(dev))):
+        drawn = sweep(generator=make().manual_seed(21), **args)
+        for a, arm in enumerate(("point", "line")):
+            out["draws"][f"{arm} {gname}"] = frames_draw_for_draw(
+                f"dose_sweep {arm} image 1 ({gname})",
+                getattr(clean, arm).image[1], flat=True,
+                counts=getattr(drawn, arm).image[1],
+                generator=lambda a=a: arm_generators(
+                    make().manual_seed(21), SWEEP_POWERS)[a][1][0])
+    out["syncs"] = sweep_no_sync(args, dev)
+    out["k2c"] = k2c_times("dose_sweep point image 0", clean.point.image[0],
+                           dev)
+
+    gen = torch.Generator(dev).manual_seed(101)
+    ms = cuda_ms(lambda: sweep(generator=gen, **args))
+    busy_ms, rows = device_busy(lambda: sweep(generator=gen, **args))
+    oracle_s, point_step, line_step = oracle_sweep_s()
+    out["bench"] = {
+        "ms": ms, "device_busy_ms": busy_ms, "busy_share": busy_ms / ms,
+        "poisson_flat_launches": n_k2c, "oracle_s": oracle_s,
+        "oracle_point_step_s": point_step, "oracle_line_step_s": line_step,
+        "speedup": oracle_s / (ms / 1e3), "device_rows": rows}
+    out["e2e"]["dose_sweep (whole sweep)"] = ms
+    log(f"dose_sweep {SWEEP_SIZE}^2, {SWEEP_POWERS} powers, point + line, "
+        f"budget {SWEEP_BUDGET:g}, CUDA generator: {ms:.3f} ms per sweep "
+        f"(CUDA events, median of {REPEATS}) | {name_power}")
+    log(f"dose_sweep device busy {busy_ms:.3f} ms of {ms:.3f} "
+        f"({busy_ms / ms:.1%}; largest rows {json.dumps(rows[:3])}) | "
+        f"{name_power}")
+    log(f"dose_sweep poisson_flat launches {n_k2c} (16 expected) | "
+        f"{name_power}")
+    log(f"dose_sweep oracle (float64 numpy, this host): {oracle_s:.2f} s "
+        f"per sweep ({point_step * 1e3:.3f} ms per point step, "
+        f"{line_step * 1e3:.3f} ms per line step); speedup "
+        f"{oracle_s / (ms / 1e3):.1f}x | {name_power}")
+
+    # the figure sweep: four arms, FRC, 2048^2
+    fargs = figure_sweep_args(dev)
+    t0 = time.time()
+    fclean = sweep(**fargs)
+    torch.cuda.synchronize()
+    clean_s = time.time() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def figure():
+        start.record()
+        res = sweep(generator=torch.Generator(dev).manual_seed(7), frc=True,
+                    **fargs)
+        end.record()
+        return res
+
+    fnoisy, out["paths"]["dose_sweep_2048"] = drive("dose_sweep_2048",
+                                                    figure)
+    fig_ms = start.elapsed_time(end)
+    arms = ("point", "line", "rescan", "ism")
+    check(out["paths"]["dose_sweep_2048"].get("poisson_flat") ==
+          len(arms) * len(FIGURE_POWERS) * 2,
+          "the figure sweep must draw two images per arm and point on K2c")
+    for arm in arms:
+        fx = getattr(fclean, arm).fwhm_x
+        check(bool((fx[1:] < fx[:-1]).all()),
+              f"figure sweep {arm}: fwhm_x must fall with depletion: {fx}")
+    for i, s in enumerate(FIGURE_POWERS):
+        pd = point_sted_dose(fargs["point_base"].replace(depletion=s),
+                             fargs["point_geom"], dev)
+        ld = line_sted_dose(fargs["line_base"].replace(depletion=s),
+                            fargs["line_geom"], dev)
+        for arm, total in (("point", pd.total_dose), ("ism", pd.total_dose),
+                           ("line", ld.total_dose * 2),
+                           ("rescan", ld.total_dose * 2)):
+            dose = float(getattr(fnoisy, arm).exposure[i] * total)
+            check(abs(dose - FIGURE_BUDGET) <= 1e-5 * FIGURE_BUDGET,
+                  f"figure sweep {arm} at s = {s}: exposure x dose {dose}")
+    frc = {arm: getattr(fnoisy, arm).frc_resolution for arm in arms}
+    frc_xy = (fnoisy.rescan.frc_resolution_x, fnoisy.rescan.frc_resolution_y)
+    for arm in ("point", "line", "ism"):
+        check(bool(torch.isfinite(frc[arm]).all() and (frc[arm] >= 2).all()),
+              f"figure sweep {arm}: FRC resolution {frc[arm]}")
+    check(frc["rescan"] is None and all(
+        bool(torch.isfinite(c).all()) for c in frc_xy),
+        f"figure sweep rescan: radial None, per-axis finite: {frc_xy}")
+    sweep_totals("figure sweep", fnoisy, fclean, arms)
+    out["figure"] = {
+        "ms": fig_ms, "noise_free_wall_s": clean_s,
+        "fwhm_x": {a: getattr(fclean, a).fwhm_x.tolist() for a in arms},
+        "frc": {a: frc[a].tolist() for a in ("point", "line", "ism")},
+        "rescan_frc_xy": [c.tolist() for c in frc_xy]}
+    out["e2e"]["dose_sweep_2048 (four arms, frc, whole sweep)"] = fig_ms
+    log(f"figure sweep {SIZE}^2, powers {list(FIGURE_POWERS)}, four arms, "
+        f"two orientations, frc, budget {FIGURE_BUDGET:g}: {fig_ms:.1f} ms "
+        f"(CUDA events, one sweep; the noise-free sweep before it "
+        f"{clean_s:.2f} s wall, its first) | {name_power}")
+    log(f"figure sweep: {json.dumps(out['figure'])}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2382,6 +2701,8 @@ def main() -> int:
     k6 = phase_primitives(dev, {m: times[m] for m in K1_MODES},
                           desc["line_sted_fused"], nob["rescan_fused"], k2c,
                           k2b)
+    dose = phase_sweep(dev)
+    paths.update(dose["paths"])
     log(f"after timing: {clocks()}")
     log(f"smoke run took {time.time() - t0:.1f} s after the card was named")
 
@@ -2416,7 +2737,9 @@ def main() -> int:
          **times["poisson_flat"],
          "composite_bound_ms": k6["bounds"][
              "poisson_flat on flagship canvas"]["total_ms"],
-         "nobands_512_scatter_frames": nob["k2c"]})
+         "nobands_512_scatter_frames": nob["k2c"],
+         "dose_sweep_point_image": dose["k2c"],
+         "dose_sweep_draws": dose["draws"]})
 
     k3_paths = launched("line_sted_fused")
     kernels.append(
@@ -2529,7 +2852,11 @@ def main() -> int:
     log(json.dumps({"device_busy_ms": {k: v["device_ms"]
                                        for k, v in busy.items()}}))
     log(json.dumps({"e2e_per_step_ms": {**times["e2e"], **desc["e2e"],
-                                        **nob["e2e"]}}))
+                                        **nob["e2e"], **dose["e2e"]}}))
+    log(json.dumps({"dose_sweep": {
+        "bench_cell": dose["bench"], "card_vs_cpu": dose["errs"],
+        "cuda_generator_syncs": dose["syncs"], "figure_2048": dose["figure"],
+        "card": name_power}}))
     log(json.dumps({"ism": {"e2e_ms": ism["e2e"], "errs": ism["errs"],
                             "device_busy_ms": {k: v["device_ms"] for k, v
                                                in ism["busy"].items()}}}))

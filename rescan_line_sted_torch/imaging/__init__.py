@@ -1,13 +1,12 @@
 """Imaging engines: descanned point- and line-STED, rescanned line-STED and
 rescanned point-STED (ISM), with the JAX package's public names.
-
-Not ported yet: ``rescan_system_kernel`` (ROADMAP.md queue 1, slice A).
 """
 
 from rescan_line_sted_torch.imaging.analytic import (
     line_system_kernel,
     point_system_kernel,
     rescan_canvas_mean,
+    rescan_system_kernel,
     rescan_x_kernels_rfft,
 )
 from rescan_line_sted_torch.imaging.boundary import (
@@ -41,5 +40,6 @@ __all__ = ["acquire_padded", "apodize_sample", "line_sted_camera_frames",
            "practical_rescan_factor", "practical_rescan_factor_point",
            "rescan_canvas_mean", "rescan_kernel_sigma",
            "rescan_point_canvas_mean", "rescan_point_system_kernel",
+           "rescan_system_kernel",
            "rescan_x_kernels_rfft", "rescanned_line_sted_image",
            "rescanned_point_sted_image"]

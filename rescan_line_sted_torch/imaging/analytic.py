@@ -1,6 +1,5 @@
 """Closed-form system kernels and the rescanned canvas (port of
-``rescan_line_sted_tpu.imaging.analytic``; ``rescan_system_kernel`` and
-``upsample_x`` are queued in ROADMAP.md open item 8).
+``rescan_line_sted_tpu.imaging.analytic``).
 
 Descanned point- and line-STED collapse to ONE circular correlation of
 the sample with a system kernel: ``img = brightness * corr(sample, K)``
@@ -18,6 +17,8 @@ are zero within ~PSF support of their x-edges.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -70,6 +71,32 @@ def host_table(table: np.ndarray, device=None) -> torch.Tensor:
     return t
 
 
+@functools.lru_cache(maxsize=4)
+def _phase_tables(w: int, wc: int, r: float, b: int, device: torch.device):
+    """The static phase tables of the rescan closed form, built in float64
+    on the host and held as complex64 on ``device``: the detection
+    centring ``center_ph`` [K], the stretched line's phases ``pe`` [W, K],
+    the residue phases ``rho_ph`` [b, K] and the placement ``pm`` [w/b, K]
+    of column m at R*m (K = Wc//2+1). Cached per geometry and device, as
+    the JAX package builds them once per compile (~67 MB on the card at
+    2048^2, R = 2); do not mutate."""
+    kk = np.arange(wc // 2 + 1, dtype=np.float64)
+    t_c = np.arange(w, dtype=np.float64) - w // 2
+    return (_np_phases(-kk * (w // (2 * b)) / wc, device),
+            _np_phases(-kk[None, :] * (r - 1.0) * t_c[:, None] / (b * wc),
+                       device),
+            _np_phases(kk[None, :] * (r - 1.0) * np.arange(b)[:, None]
+                       / (b * wc), device),
+            _np_phases(kk[None, :] * r * np.arange(w // b)[:, None] / wc,
+                       device))
+
+
+def _tables(geom, device):
+    return _phase_tables(geom.grid.width, geom.canvas_shape[1],
+                         float(geom.rescan_factor), geom.binning,
+                         torch.device(device or "cpu"))
+
+
 def rescan_x_kernels_rfft(geom, params, device=None) -> torch.Tensor:
     """rfft-domain column-phase rescan kernels ``H_rho`` [b, Wc//2+1].
 
@@ -79,10 +106,8 @@ def rescan_x_kernels_rfft(geom, params, device=None) -> torch.Tensor:
     Brightness is NOT included.
     """
     b = geom.binning
-    r = float(geom.rescan_factor)
-    h, w = geom.grid.shape
-    hc, wc = geom.canvas_shape
-    kk = np.arange(wc // 2 + 1, dtype=np.float64)
+    w, wc = geom.grid.width, geom.canvas_shape[1]
+    center_ph, pe, rho_ph, _ = _tables(geom, device)
 
     eff = models.effective_line_profile(w, params, device)
     det_x = psfs.detection_profile(w, params.sigma_det, device)
@@ -92,16 +117,8 @@ def rescan_x_kernels_rfft(geom, params, device=None) -> torch.Tensor:
     gather = (b * x_idx[None, :, None] + j_idx[None, None, :]
               - j_idx[:, None, None]) % w                        # [rho, X, j]
     d = det_x[gather].sum(-1)                                    # [b, w/b]
-    rho_idx = np.arange(b)
-    center_ph = _np_phases(-kk * (w // (2 * b)) / wc, device)
     d_hat = torch.fft.rfft(d, n=wc, dim=-1) * center_ph[None, :]
-
-    t_c = np.arange(w, dtype=np.float64) - w // 2
-    pe = _np_phases(-kk[None, :] * (r - 1.0) * t_c[:, None] / (b * wc),
-                    device)                                      # [W, K]
     e_base = eff.to(torch.complex64) @ pe                        # [K]
-    rho_ph = _np_phases(kk[None, :] * (r - 1.0) * rho_idx[:, None]
-                        / (b * wc), device)                      # [b, K]
     return d_hat * e_base[None, :] * rho_ph
 
 
@@ -117,10 +134,8 @@ def rescan_canvas_mean(sample: torch.Tensor, params, geom) -> torch.Tensor:
     ``rescan_factor >= 1`` and any ``binning``."""
     device = sample.device
     b = geom.binning
-    r = float(geom.rescan_factor)
     h, w = geom.grid.shape
     hc, wc = geom.canvas_shape
-    kk = np.arange(wc // 2 + 1, dtype=np.float64)
 
     det_y = psfs.detection_profile(h, params.sigma_det, device)
     gy = _binned_row_matrix(h, b, det_y)                         # [h, hc]
@@ -129,8 +144,60 @@ def rescan_canvas_mean(sample: torch.Tensor, params, geom) -> torch.Tensor:
     s_ph = s_yb.reshape(hc, w // b, b).permute(2, 0, 1)
 
     h_hat = rescan_x_kernels_rfft(geom, params, device)          # [b, K]
-    pm = _np_phases(kk[None, :] * r * np.arange(w // b)[:, None] / wc,
-                    device)                                      # [w/b, K]
+    pm = _tables(geom, device)[3]                                # [w/b, K]
     canvas_rfft = ((s_ph.to(torch.complex64) @ pm)
                    * h_hat[:, None, :]).sum(0)                   # [hc, K]
     return params.brightness * torch.fft.irfft(canvas_rfft, n=wc, dim=-1)
+
+
+def rescan_system_kernel(geom, params, device=None) -> torch.Tensor:
+    """Centered effective rescan kernel H on the canvas grid, [H/b, Wc].
+
+    ``H(vy, vx) = sum_t e_eff(t) det(vy, vx + (R-1) t)``: the detection PSF
+    sheared by the (R-1)-stretched effective excitation line; any
+    ``rescan_factor`` (fractional R via exact phase placement). With
+    ``binning > 1`` the system is b-periodically shift-variant; the
+    returned kernel is the position-aligned average over the b column/row
+    phases (the exact per-phase kernels are ``rescan_x_kernels_rfft``).
+    For b = 1 the noise-free canvas is ``brightness * conv(place_x(sample,
+    R), H)``. Built on ``device`` (None: the CPU); the phases and the y
+    gather are host tables in float64.
+    """
+    b = geom.binning
+    h, w = geom.grid.shape
+    hc, wc = geom.canvas_shape
+    kk = np.arange(wc // 2 + 1, dtype=np.float64)
+    rho = np.arange(b, dtype=np.float64)
+
+    # x: phase rho's response sits at relative offset -rho/b on the canvas
+    # (camera-column quantization); align each before averaging.
+    h_hat = rescan_x_kernels_rfft(geom, params, device)          # [b, K]
+    align = _np_phases(kk[None, :] * rho[:, None] / (b * wc), device)
+    hx = torch.fft.fftshift(torch.fft.irfft((h_hat * align).mean(0), n=wc))
+
+    # y: binned detection profile, phase-aligned the same way.
+    det_y = psfs.detection_profile(h, params.sigma_det, device)
+    y_idx = np.arange(hc)
+    gather = (b * y_idx[None, :, None] + np.arange(b)[None, None, :]
+              - np.arange(b)[:, None, None]) % h                # [b, hc, b]
+    dy = det_y[host_table(gather, device)].sum(-1)               # [b, hc]
+    ky = np.arange(hc // 2 + 1, dtype=np.float64)
+    centery = _np_phases(-ky * (h // (2 * b)) / hc, device)
+    aligny = _np_phases(ky[None, :] * rho[:, None] / (b * hc), device)
+    gy = torch.fft.fftshift(torch.fft.irfft(
+        (torch.fft.rfft(dy, n=hc, dim=-1) * centery[None, :] * aligny
+         ).mean(0), n=hc))                                       # [hc]
+    return torch.outer(gy, hx)
+
+
+def upsample_x(sample: torch.Tensor, factor: int,
+               out_width: int) -> torch.Tensor:
+    """Zero-insertion upsampling along x: pixel a -> column factor * a
+    (columns past ``out_width`` are dropped, as JAX's scatter drops
+    them)."""
+    w = sample.shape[-1]
+    keep = min(w, -(-out_width // factor))
+    out = sample.new_zeros(sample.shape[:-1] + (out_width,))
+    out[..., torch.arange(keep, device=sample.device) * factor] = \
+        sample[..., :keep]
+    return out

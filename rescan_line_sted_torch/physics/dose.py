@@ -47,17 +47,22 @@ def _report(exc, dep, params, geom, device) -> DoseReport:
     )
 
 
-def line_sted_dose(params, geom, device=None) -> DoseReport:
-    """Dose ledger of a line scan over all ``geom.grid.width`` columns."""
-    w = geom.grid.width
-    return _report(*models.profiles(models.line_model(params), w, params,
-                                    device), params, geom, device)
+def line_sted_dose(params, geom, device=None, profiles=None) -> DoseReport:
+    """Dose ledger of a line scan over all ``geom.grid.width`` columns.
+    ``profiles``: the model's ``(excitation, depletion)`` on this grid and
+    device, where the caller holds them (they do not depend on the
+    depletion power); else built here."""
+    if profiles is None:
+        profiles = models.profiles(models.line_model(params),
+                                   geom.grid.width, params, device)
+    return _report(*profiles, params, geom, device)
 
 
-def point_sted_dose(params, geom, device=None) -> DoseReport:
+def point_sted_dose(params, geom, device=None, profiles=None) -> DoseReport:
     """Dose ledger of a point scan over all ``height * width`` pixels: every
     pixel receives ``sum(exc_psf)`` excitation and ``s * sum(dep_psf)``
-    depletion."""
-    shape = geom.grid.shape
-    return _report(*models.profiles(models.point_model(params), shape,
-                                    params, device), params, geom, device)
+    depletion. ``profiles`` as for ``line_sted_dose``."""
+    if profiles is None:
+        profiles = models.profiles(models.point_model(params),
+                                   geom.grid.shape, params, device)
+    return _report(*profiles, params, geom, device)

@@ -21,16 +21,28 @@ import torch
 import rescan_line_sted_torch as T
 import rescan_line_sted_tpu as J
 from rescan_line_sted_torch.convert import geometry_from_jax, params_from_jax
+from rescan_line_sted_torch.algorithms.metrics import ResolutionReport
 from rescan_line_sted_torch.imaging.point_sted import AcquisitionResult
 from rescan_line_sted_torch.physics.dose import DoseReport
+from rescan_line_sted_torch.sweeps.dose import (
+    DoseMatchedComparison,
+    ModalitySweep,
+)
 
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PACKAGES = ("", "imaging", "physics", "kernels", "data")
-# names whose code is still queued: slice A (the sweep's measures) and
-# slice H (the other samples)
-QUEUED = {"imaging": {"rescan_system_kernel"},
-          "data": {"rings", "line_pairs", "sparse_points"}}
+PACKAGES = ("", "imaging", "physics", "kernels", "data", "algorithms",
+            "sweeps")
+# names whose code is still queued (ROADMAP.md queue 1): Richardson-Lucy
+# (slice E), operator fusion (slice F), the FOV sweep (slice H), MAP
+# deconvolution and calibration (slice I)
+QUEUED = {"algorithms": {"richardson_lucy", "richardson_lucy_views",
+                         "richardson_lucy_operator", "rescan_operator",
+                         "multi_orientation_rescan", "rescan_fusion",
+                         "ism_deconvolve", "map_deconvolve_views",
+                         "fit_acquisition_params", "fit_line_sted_params",
+                         "fit_point_sted_params"},
+          "sweeps": {"resolution_fov_sweep"}}
 # the port's own names for renamed functions
 ALIASES = {"poisson_pallas": "poisson_flat"}
 
@@ -96,6 +108,11 @@ def test_poisson_pallas_is_the_flat_sampler():
     assert torch.equal(a, b)
 
 
+def _sweep():
+    col = torch.zeros(2)
+    return ModalitySweep(torch.zeros(2, 4, 4), col, col, col, col, col)
+
+
 def _dose():
     one = torch.tensor(1.0)
     return DoseReport(one, 2 * one, 3 * one, 4 * one)
@@ -119,6 +136,14 @@ INSTANCES = {
                                                     _dose()),
                           dict(image=torch.ones(2, 2))),
     "DoseReport": (_dose, dict(num_steps=torch.tensor(9.0))),
+    "ResolutionReport": (lambda: ResolutionReport(torch.tensor(2.0),
+                                                  torch.tensor(1.0)),
+                         dict(fwhm_x=torch.tensor(3.0))),
+    "ModalitySweep": (lambda: _sweep(), dict(exposure=torch.ones(2))),
+    "DoseMatchedComparison": (
+        lambda: DoseMatchedComparison(torch.zeros(2), torch.tensor(1.0),
+                                      _sweep(), _sweep()),
+        dict(rescan=_sweep())),
 }
 
 

@@ -1166,3 +1166,108 @@ def test_rescan_accumulate_bitwise_in_order(cuda, dtype, n, h, w, wc):
     assert torch.equal(got, want) and torch.equal(got, again)
     assert _rel(got, rescan_accumulate_reference(canvas, frames,
                                                  offsets)) <= 1e-5
+
+
+# ---- the dose-matched sweep and FRC on the card --------------------------------
+
+def _sweep_args(size=64):
+    from rescan_line_sted_torch.data import siemens_star
+
+    grid = T.Grid(size, size)
+    return dict(
+        sample=siemens_star((size, size), spokes=8, device="cpu"),
+        point_base=T.PointSTEDParams.create(
+            sigma_exc=2.0, sigma_det=2.0, sigma_dep=2.0, pinhole_radius=2.5,
+            brightness=1.0),
+        line_base=T.LineSTEDParams.create(
+            sigma_exc=2.0, sigma_det=2.0, stripe_period=8.0,
+            slit_halfwidth=2.5, brightness=1.0),
+        point_geom=T.PointSTEDGeometry(grid), line_geom=T.LineSTEDGeometry(grid),
+        depletion_powers=[0.0, 2.0, 8.0], orientations=2,
+        rescan_geom=T.RescanGeometry(grid, rescan_factor=1.5),
+        ism_geom=T.RescanPointGeometry(grid, rescan_factor=2.0))
+
+
+def _sweep_columns(res):
+    from rescan_line_sted_torch.sweeps.dose import ARMS
+
+    for arm in ARMS:
+        for col in ("image", "fwhm_x", "fwhm_y", "emitted_signal",
+                    "exposure", "num_steps", "frc_resolution",
+                    "frc_resolution_x", "frc_resolution_y"):
+            yield f"{arm}.{col}", getattr(getattr(res, arm), col)
+
+
+def test_sweep_on_card_matches_cpu(cuda):
+    """The noise-free sweep, all four arms, on the card against the same
+    sweep with ``device="cpu"``: every column within 1e-5."""
+    from rescan_line_sted_torch.sweeps import dose_matched_sweep
+
+    args = _sweep_args()
+    got = dose_matched_sweep(dose_budget=100.0, device=cuda, **args)
+    want = dose_matched_sweep(dose_budget=100.0, device="cpu", **args)
+    for (name, g), (_, w) in zip(_sweep_columns(got), _sweep_columns(want)):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.is_cuda and g.shape == w.shape, name
+        assert _rel(g, w) <= 1e-5, name
+
+
+def test_noisy_sweep_launches_k2c(cuda):
+    """A noisy sweep with ``frc=True`` on the card draws every image on K2c
+    (two per arm and point), none on the plain sampler; one CUDA
+    generator state gives one sweep bit for bit; totals within 5 sigma of
+    the noise-free means."""
+    from rescan_line_sted_torch.sweeps import dose_matched_sweep
+
+    args = _sweep_args()
+    clean = dose_matched_sweep(dose_budget=5000.0, device=cuda, **args)
+    _build.reset_launches()
+    got = dose_matched_sweep(dose_budget=5000.0, device=cuda, frc=True,
+                             generator=torch.Generator(cuda).manual_seed(3),
+                             **args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["poisson_flat"] == 4 * 3 * 2
+    assert all(v == 0 for k, v in _build.LAUNCHES.items()
+               if k != "poisson_flat")
+    again = dose_matched_sweep(dose_budget=5000.0, device=cuda, frc=True,
+                               generator=torch.Generator(cuda).manual_seed(3),
+                               **args)
+    for (name, g), (_, w) in zip(_sweep_columns(got), _sweep_columns(again)):
+        assert (g is None and w is None) or torch.equal(g, w), name
+    for arm in ("point", "line", "rescan", "ism"):
+        imgs, means = getattr(got, arm).image, getattr(clean, arm).image
+        for img, mean in zip(imgs, means):
+            mu = float(mean.clamp_min(0).double().sum())
+            assert abs(float(img.double().sum()) - mu) <= 5 * np.sqrt(mu)
+    for col in (got.point.frc_resolution, got.line.frc_resolution,
+                got.ism.frc_resolution, got.rescan.frc_resolution_x,
+                got.rescan.frc_resolution_y):
+        assert torch.isfinite(col).all()
+
+
+def test_frc_on_card_matches_cpu(cuda):
+    """FRC curve, radial and sectored resolutions on the card against the
+    CPU within 1e-5, and the same bits on a repeated call."""
+    from rescan_line_sted_torch.algorithms.frc import (
+        frc_curve, frc_resolution, frc_sectored_resolution)
+    from rescan_line_sted_torch.data import siemens_star
+
+    g = torch.Generator().manual_seed(12)
+    mean = 50.0 * siemens_star((96, 160), device="cpu")
+    a = torch.poisson(mean, generator=g)
+    b = torch.poisson(mean, generator=g)
+    ac, bc = a.to(cuda), b.to(cuda)
+    fw, cw = frc_curve(a, b)
+    fg, cg = frc_curve(ac, bc)
+    assert torch.equal(fg.cpu(), fw) and _rel(cg, cw) <= 1e-5
+    assert torch.equal(frc_curve(ac, bc)[1], cg)
+    for got, want in ((frc_resolution(ac, bc), frc_resolution(a, b)),
+                      *zip(frc_sectored_resolution(ac, bc),
+                           frc_sectored_resolution(a, b))):
+        assert got.is_cuda
+        if torch.isnan(want):
+            assert torch.isnan(got).item()
+        else:
+            assert _rel(got, want) <= 1e-5

@@ -293,7 +293,11 @@ def test_import_leaves_jax_out():
             "rescan_line_sted_torch.kernels.rescan_accumulate, "
             "rescan_line_sted_torch.imaging.frames, "
             "rescan_line_sted_torch.imaging.rescan_point, "
-            "rescan_line_sted_torch.kernels.primitives; "
+            "rescan_line_sted_torch.kernels.primitives, "
+            "rescan_line_sted_torch.algorithms.metrics, "
+            "rescan_line_sted_torch.algorithms.frc, "
+            "rescan_line_sted_torch.sweeps.dose, "
+            "rescan_line_sted_torch.data.samples; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'rescan_line_sted_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
