@@ -144,7 +144,27 @@ sm_90a), then:
    dose ledger equal to the budget within 1e-5 (per orientation for the
    line arms), finite FRC resolutions >= 2 for point, line and ISM and
    finite per-axis ones for the rescan arm, every noisy total within 5
-   sigma, and its time.
+   sigma, and its time;
+14. drives the resolution / FOV sweep (``sweeps/fov.py``, BASELINE config
+   5): ``resolution_fov_sweep`` at 128^2, 256^2, 512^2
+   (``fov_pipeline``'s sizes, ``pipelines/figures.py:403-412``) and
+   2048^2 (``bench.py:321-353``), four orientations, 40 RL iterations,
+   depletion 8, brightness 200, a CUDA generator, with the counters reset
+   before and read after (K2c once per call, two per size, nothing else)
+   and the JAX test's properties at every size (fused FWHM y under the
+   view kernel's, scan steps 4 x FOV); on the card against
+   ``device="cpu"``, noise-free, at 128^2 and 256^2 (max relative error
+   <= 1e-5): the rotation (also at 2048^2), the orientation kernels, the
+   views, the fused image after 40 iterations plain and accelerated, and
+   every FWHM column of the records; K2c count by count against its host
+   reference on the 256^2 views' rates with either generator; the scan
+   method at 512^2 (per-step banded K2b once per chunk of each view,
+   ``use_pallas=True`` K3 once per view, collapsed K2c once per view;
+   noise-free scan views against the analytic ones; noisy totals within
+   5 sigma); RL and one size of the sweep under sync-debug mode "error";
+   and per size ``compile_s``, ``wall_s``, the views + RL time and
+   device-busy share, the acquisition's time, RL's ms per iteration at
+   512^2 and 2048^2, and K2c on the 2048^2 views.
 
 Prints a ``rule2`` line (K2b's, K2c's and K5's times against their
 library call and their bounds, K1's four modes and K3 against their bounds
@@ -2659,6 +2679,247 @@ def phase_sweep(dev) -> dict:
     return out
 
 
+FOV_SIZES = (128, 256, 512, 2048)   # figures.py:403-412 and bench.py:321-353
+FOV_ANGLES = 4
+FOV_ITERS = 40
+FOV_SCAN_SIZE = 512
+FOV_COLUMNS = ("fused_fwhm_y", "fused_fwhm_x", "view_kernel_fwhm_y",
+               "view_kernel_fwhm_x")
+
+
+def fov_setup(size, dev):
+    """The FOV sweep's inputs at one size (``sweeps/fov.py``): params at
+    depletion 8 and brightness 200 (``figures.py:403-412``), the lattice
+    sample, chunk min(32, size), angles ``arange(4) * pi / 4``."""
+    from rescan_line_sted_torch import Grid, LineSTEDGeometry, LineSTEDParams
+    from rescan_line_sted_torch.data import sparse_points
+
+    params = LineSTEDParams.create(depletion=8.0, brightness=200.0)
+    geom = LineSTEDGeometry(Grid(size, size), chunk=min(32, size))
+    angles = torch.arange(FOV_ANGLES, dtype=torch.float32) * (
+        math.pi / FOV_ANGLES)
+    return params, geom, sparse_points((size, size), device=dev), angles
+
+
+def max_rel(got, want) -> float:
+    return float((got.double().cpu() - want.double().cpu()).abs().max()
+                 / want.double().abs().max())
+
+
+def fov_card_vs_cpu(dev) -> dict:
+    """Noise-free at 128^2 and 256^2, on the card against ``device="cpu"``:
+    the rotation, the orientation kernels, the views, the fused image
+    after 40 RL iterations (plain and accelerated) and every FWHM column
+    of the records; the rotation also at 2048^2."""
+    from rescan_line_sted_torch.algorithms import richardson_lucy_views
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.imaging.orientations import (
+        multi_orientation_line_sted, orientation_kernels)
+    from rescan_line_sted_torch.sweeps import resolution_fov_sweep
+    from rescan_line_sted_torch.utils import rotate_image
+
+    errs = {}
+    for n in (128, 256):
+        params, geom, sample, angles = fov_setup(n, "cpu")
+        errs[f"rotate_{n}"] = max_rel(rotate_image(sample.to(dev), angles),
+                                      rotate_image(sample, angles))
+        errs[f"orientation_kernels_{n}"] = max_rel(
+            orientation_kernels((n, n), params, angles, dev),
+            orientation_kernels((n, n), params, angles, "cpu"))
+        on = multi_orientation_line_sted(sample, params, geom, angles,
+                                         device=dev)
+        off = multi_orientation_line_sted(sample, params, geom, angles,
+                                          device="cpu")
+        errs[f"views_{n}"] = max_rel(on[0], off[0])
+        for accel in (False, True):
+            errs[f"fused_{n}{'_accelerate' if accel else ''}"] = max_rel(
+                richardson_lucy_views(*on, FOV_ITERS, accelerate=accel),
+                richardson_lucy_views(*off, FOV_ITERS, accelerate=accel))
+        got = resolution_fov_sweep((n,), params, device=dev)[0]
+        want = resolution_fov_sweep((n,), params, device="cpu")[0]
+        for col in FOV_COLUMNS:
+            errs[f"{col}_{n}"] = abs(got[col] - want[col]) / abs(want[col])
+    img = siemens_star((SIZE, SIZE), device="cpu") + fov_setup(SIZE, "cpu")[2]
+    angles = fov_setup(SIZE, "cpu")[3]
+    errs[f"rotate_{SIZE}"] = max_rel(rotate_image(img.to(dev), angles),
+                                     rotate_image(img, angles))
+    log(f"fov card vs CPU, noise-free (max rel): {json.dumps(errs)}")
+    check(max(errs.values()) <= 1e-5, f"fov card vs CPU beyond 1e-5: {errs}")
+    return errs
+
+
+def fov_scan(dev) -> dict:
+    """``multi_orientation_line_sted(method="scan")`` at 512^2, 4 angles,
+    a CUDA generator: its noise-free views against the analytic ones
+    (relative L2 <= 1e-5), and its noisy call on the JAX package's
+    default, collapsed noise (K2c once per view). The per-step routes on
+    the same rotated samples, through ``line_sted_image`` view after view:
+    the default route (banded K2b, once per chunk of each view) and
+    ``use_pallas=True`` (K3 once per view). Counters are reset before and
+    read after each call; every noisy view's total lies within 5 sigma
+    of its noise-free mean."""
+    from rescan_line_sted_torch.imaging.line_sted import line_sted_image
+    from rescan_line_sted_torch.imaging.orientations import (
+        multi_orientation_line_sted as views)
+    from rescan_line_sted_torch.utils import rotate_image
+
+    params, geom, sample, angles = fov_setup(FOV_SCAN_SIZE, dev)
+    chunks = FOV_SCAN_SIZE // geom.chunk
+    clean = views(sample, params, geom, angles, method="scan")[0]
+    ana = views(sample, params, geom, angles)[0]
+    rel = rel_l2(clean, ana)
+    log(f"fov_scan_{FOV_SCAN_SIZE}: noise-free scan vs analytic views rel "
+        f"err {rel:.3e}")
+    check(rel <= 1e-5, f"fov scan views vs analytic: {rel}")
+    rotated = rotate_image(sample, -angles)
+    clean_rot = torch.stack([
+        line_sted_image(r, params, geom, method="scan").image
+        for r in rotated])
+    out = {"scan_vs_analytic": rel, "paths": {}}
+    gen = torch.Generator(dev).manual_seed(11)
+
+    def per_view(**kw):
+        return torch.stack([
+            line_sted_image(r, params, geom, gen, method="scan",
+                            noise_mode="per_step", **kw).image
+            for r in rotated])
+
+    for mode, run, means, want in (
+            ("collapsed", lambda: views(sample, params, geom, angles, gen,
+                                        method="scan")[0],
+             clean, {"poisson_flat": FOV_ANGLES}),
+            ("per_step", per_view, clean_rot,
+             {"poisson_rows_tiered": FOV_ANGLES * chunks}),
+            ("per_step_k3", lambda: per_view(use_pallas=True), clean_rot,
+             {"line_sted_fused": FOV_ANGLES})):
+        name = f"fov_scan_{FOV_SCAN_SIZE}_{mode}"
+        noisy, launched = drive(name, run)
+        check(launched == want, f"{name} must launch {want}: {launched}")
+        out["paths"][name] = launched
+        for v, (img, mean) in enumerate(zip(noisy, means)):
+            mu = float(mean.clamp_min(0).double().sum())
+            z = (float(img.double().sum()) - mu) / math.sqrt(mu)
+            check(abs(z) <= 5, f"{name} view {v}: total {z:+.2f} sigma")
+        log(f"{name}: launches {json.dumps(launched)}, every view's total "
+            "within 5 sigma")
+    return out
+
+
+def fov_no_sync(dev) -> None:
+    """``richardson_lucy_views`` at 512^2 (plain and accelerated) and the
+    256^2 size of the sweep, all but its record read (``fov.fused_views``
+    with a CUDA generator and ``fov.lattice_fwhm``), under sync-debug mode
+    "error" after a warm-up: nothing in them reads the card."""
+    from rescan_line_sted_torch.algorithms import richardson_lucy_views
+    from rescan_line_sted_torch.imaging.orientations import (
+        multi_orientation_line_sted)
+    from rescan_line_sted_torch.sweeps import fov
+
+    params, geom, sample, angles = fov_setup(512, dev)
+    data, kernels = multi_orientation_line_sted(sample, params, geom, angles)
+    p256, g256, s256, a256 = fov_setup(256, dev)
+    gen = torch.Generator(dev).manual_seed(12)
+
+    def body():
+        for accel in (False, True):
+            richardson_lucy_views(data, kernels, FOV_ITERS, accelerate=accel)
+        fused, ks = fov.fused_views(s256, p256, g256, a256, FOV_ITERS, gen)
+        return fov.lattice_fwhm(fused, ks, 24)
+
+    body()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = body()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(res).all()), f"fov lattice FWHMs: {res}")
+    log("richardson_lucy_views (512^2, plain and accelerated) and the "
+        "256^2 FOV size with a CUDA generator under sync-debug mode "
+        "'error': no sync")
+
+
+def phase_fov(dev) -> dict:
+    """The resolution / FOV sweep (``sweeps/fov.py``, BASELINE config 5)
+    on the card: the main path at 128^2-2048^2 with its launches and the
+    JAX test's properties, card against CPU, K2c count by count on the
+    views, the scan method, the sync checks, and the times."""
+    from rescan_line_sted_torch.algorithms import richardson_lucy_views
+    from rescan_line_sted_torch.imaging.line_sted import analytic_images
+    from rescan_line_sted_torch.imaging.orientations import (
+        multi_orientation_line_sted)
+    from rescan_line_sted_torch.sweeps import fov, resolution_fov_sweep
+    from rescan_line_sted_torch.utils import rotate_image
+
+    name_power = card()
+    params = fov_setup(128, dev)[0]
+    out = {"paths": {}, "e2e": {}}
+
+    # the main path: the sweep at fov_pipeline's sizes and the large FOV
+    recs, out["paths"]["fov_sweep"] = drive("fov_sweep", lambda: (
+        resolution_fov_sweep(FOV_SIZES, params, num_angles=FOV_ANGLES,
+                             rl_iters=FOV_ITERS,
+                             generator=torch.Generator(dev).manual_seed(0))))
+    check(out["paths"]["fov_sweep"] == {"poisson_flat": 2 * len(FOV_SIZES)},
+          "the FOV sweep must launch K2c once per call (two per size) and "
+          f"nothing else: {out['paths']['fov_sweep']}")
+    for r in recs:
+        check(all(math.isfinite(r[c]) for c in FOV_COLUMNS)
+              and r["fused_fwhm_y"] < r["view_kernel_fwhm_y"]
+              and r["scan_steps"] == FOV_ANGLES * r["fov"],
+              f"FOV record {r}")
+        log(f"fov_sweep record: {json.dumps(r)} | {name_power}")
+    out["records"] = recs
+
+    out["errs"] = fov_card_vs_cpu(dev)
+    # K2c on the views' rates (before the derotation), count by count
+    params256, _, s256, a256 = fov_setup(256, dev)
+    rates = analytic_images(rotate_image(s256, -a256), params256)
+    out["draws"] = draw_checks("fov_views_256", rates, dev, flat=True)
+    out["scan"] = fov_scan(dev)
+    out["paths"].update(out["scan"]["paths"])
+    fov_no_sync(dev)
+
+    # times: each size's sweep body, device-busy share, RL iterations,
+    # the acquisition alone
+    out["sizes"] = {}
+    for r in recs:
+        n = r["fov"]
+        p, g, s, a = fov_setup(n, dev)
+        gen = torch.Generator(dev).manual_seed(13)
+        ms = cuda_ms(lambda: fov.fused_views(s, p, g, a, FOV_ITERS, gen))
+        busy, rows = device_busy(
+            lambda: fov.fused_views(s, p, g, a, FOV_ITERS, gen))
+        acq_ms = cuda_ms(lambda: multi_orientation_line_sted(s, p, g, a, gen))
+        t = {"compile_s": r["compile_s"], "wall_s": r["wall_s"],
+             "ms": ms, "device_busy_ms": busy, "busy_share": busy / ms,
+             "acquisition_ms": acq_ms, "device_rows": rows}
+        if n in (512, SIZE):
+            views, ks = multi_orientation_line_sted(s, p, g, a, gen)
+            rl_ms = cuda_ms(lambda: richardson_lucy_views(views, ks,
+                                                          FOV_ITERS))
+            rl_busy = device_busy(lambda: richardson_lucy_views(
+                views, ks, FOV_ITERS))[0]
+            t.update(rl_ms_per_iter=rl_ms / FOV_ITERS,
+                     rl_device_ms_per_iter=rl_busy / FOV_ITERS)
+        if n == SIZE:
+            rates = analytic_images(rotate_image(s, -a), p)
+            t["k2c"] = k2c_times(f"fov_views_{n}", rates, dev)
+            out["k2c"] = t["k2c"]
+        out["sizes"][n] = t
+        out["e2e"][f"fov_{n} (views + {FOV_ITERS} RL iterations)"] = ms
+        log(f"fov_{n}: compile_s {r['compile_s']:.4f} wall_s "
+            f"{r['wall_s']:.4f}; views + RL {ms:.3f} ms (CUDA events, median "
+            f"of {REPEATS}), device busy {busy:.3f} ms ({busy / ms:.1%}), "
+            f"acquisition {acq_ms:.3f} ms"
+            + (f", RL {t['rl_ms_per_iter']:.4f} ms per iteration (device "
+               f"{t['rl_device_ms_per_iter']:.4f})" if "rl_ms_per_iter" in t
+               else "") + f" | {name_power}")
+    log(f"fov_sweep: {json.dumps({k: {q: v for q, v in t.items() if q not in ('device_rows', 'k2c')} for k, t in out['sizes'].items()})}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2703,6 +2964,8 @@ def main() -> int:
                           k2b)
     dose = phase_sweep(dev)
     paths.update(dose["paths"])
+    fov = phase_fov(dev)
+    paths.update(fov["paths"])
     log(f"after timing: {clocks()}")
     log(f"smoke run took {time.time() - t0:.1f} s after the card was named")
 
@@ -2739,7 +3002,8 @@ def main() -> int:
              "poisson_flat on flagship canvas"]["total_ms"],
          "nobands_512_scatter_frames": nob["k2c"],
          "dose_sweep_point_image": dose["k2c"],
-         "dose_sweep_draws": dose["draws"]})
+         "dose_sweep_draws": dose["draws"],
+         "fov_views_2048": fov["k2c"], "fov_views_draws": fov["draws"]})
 
     k3_paths = launched("line_sted_fused")
     kernels.append(
@@ -2852,10 +3116,17 @@ def main() -> int:
     log(json.dumps({"device_busy_ms": {k: v["device_ms"]
                                        for k, v in busy.items()}}))
     log(json.dumps({"e2e_per_step_ms": {**times["e2e"], **desc["e2e"],
-                                        **nob["e2e"], **dose["e2e"]}}))
+                                        **nob["e2e"]}}))
+    log(json.dumps({"e2e_per_call_ms": {**dose["e2e"], **fov["e2e"]}}))
     log(json.dumps({"dose_sweep": {
         "bench_cell": dose["bench"], "card_vs_cpu": dose["errs"],
         "cuda_generator_syncs": dose["syncs"], "figure_2048": dose["figure"],
+        "card": name_power}}))
+    log(json.dumps({"fov_sweep": {
+        "records": fov["records"], "card_vs_cpu": fov["errs"],
+        "sizes": {n: {q: v for q, v in t.items() if q != "k2c"}
+                  for n, t in fov["sizes"].items()},
+        "scan_vs_analytic": fov["scan"]["scan_vs_analytic"],
         "card": name_power}}))
     log(json.dumps({"ism": {"e2e_ms": ism["e2e"], "errs": ism["errs"],
                             "device_busy_ms": {k: v["device_ms"] for k, v

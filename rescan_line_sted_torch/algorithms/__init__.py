@@ -1,7 +1,7 @@
-"""Measurements: resolution metrics and Fourier Ring Correlation.
+"""Measurements and deconvolution: resolution metrics, Fourier Ring
+Correlation and Richardson-Lucy.
 
-Not ported yet (ROADMAP.md queue 1): ``richardson_lucy`` and
-``richardson_lucy_views`` (slice E); ``richardson_lucy_operator``,
+Not ported yet (ROADMAP.md queue 1): ``richardson_lucy_operator``,
 ``rescan_operator``, ``multi_orientation_rescan``, ``rescan_fusion`` and
 ``ism_deconvolve`` (slice F); ``map_deconvolve_views`` and the
 ``fit_*`` calibration (slice I).
@@ -13,6 +13,11 @@ from rescan_line_sted_torch.algorithms.metrics import (
     fwhm_2d,
     system_resolution_report,
 )
+from rescan_line_sted_torch.algorithms.richardson_lucy import (
+    richardson_lucy,
+    richardson_lucy_views,
+)
 
 __all__ = ["frc_curve", "frc_resolution", "fwhm_1d", "fwhm_2d",
+           "richardson_lucy", "richardson_lucy_views",
            "system_resolution_report"]

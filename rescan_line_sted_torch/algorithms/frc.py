@@ -27,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from rescan_line_sted_torch.imaging.analytic import host_table
+from rescan_line_sted_torch.device import host_table
 
 _ROW = 256   # bins summed per row of the first gather
 

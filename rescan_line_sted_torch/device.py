@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -33,3 +34,12 @@ def as_sample(sample, grid_shape, device=None) -> torch.Tensor:
         raise ValueError(f"sample shape {tuple(sample.shape)} does not match "
                          f"the grid {tuple(grid_shape)}")
     return sample
+
+
+def host_table(table: np.ndarray, device=None) -> torch.Tensor:
+    """A host-built numpy table on ``device``; a CUDA copy goes from pinned
+    memory without blocking (the array is copied, never aliased)."""
+    t = torch.from_numpy(np.array(table))
+    if torch.device(device or "cpu").type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t

@@ -23,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from rescan_line_sted_torch.device import host_table
 from rescan_line_sted_torch.imaging.shifts import flip_centered
 from rescan_line_sted_torch.kernels import fftconv
 from rescan_line_sted_torch.physics import models
@@ -60,15 +61,6 @@ def _np_phases(theta: np.ndarray, device=None) -> torch.Tensor:
     """
     z = np.exp(-2j * np.pi * np.asarray(theta, np.float64))
     return host_table(z.astype(np.complex64), device)
-
-
-def host_table(table: np.ndarray, device=None) -> torch.Tensor:
-    """A host-built numpy table on ``device``; a CUDA copy goes from pinned
-    memory without blocking (the array is copied, never aliased)."""
-    t = torch.from_numpy(np.array(table))
-    if torch.device(device or "cpu").type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t
 
 
 @functools.lru_cache(maxsize=4)

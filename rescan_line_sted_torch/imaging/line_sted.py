@@ -102,10 +102,7 @@ def line_sted_image(
             res, dose=line_sted_dose(params, geom, sample.device))
     models.line_model(params)           # raises on a JAX package model
     if method == "analytic":
-        k = analytic.line_system_kernel(geom.grid.shape, params,
-                                        sample.device)
-        image = maybe_poisson(
-            generator, params.brightness * fftconv.fft_correlate(sample, k))
+        image = analytic_images(sample, params, generator)
     elif method == "scan":
         image = _scan(sample, params, geom, generator, noise_mode,
                       use_pallas, slit_support)
@@ -113,6 +110,17 @@ def line_sted_image(
         raise ValueError(f"unknown method {method!r}")
     return AcquisitionResult(
         image=image, dose=line_sted_dose(params, geom, sample.device))
+
+
+def analytic_images(samples: torch.Tensor, params,
+                    generator: torch.Generator | None = None) -> torch.Tensor:
+    """The analytic method on a batch of samples [..., H, W]: one FFT
+    correlation with the closed-form system kernel and ONE draw over the
+    whole batch (K2c on the card), ``brightness * corr(sample, K)``."""
+    k = analytic.line_system_kernel(tuple(samples.shape[-2:]), params,
+                                    samples.device)
+    return maybe_poisson(
+        generator, params.brightness * fftconv.fft_correlate(samples, k))
 
 
 def effective_line_profile(width: int, params, device=None) -> torch.Tensor:

@@ -77,7 +77,7 @@ import numpy as np
 import torch
 
 from rescan_line_sted_torch.config import RescanGeometry, RescanParams
-from rescan_line_sted_torch.device import as_sample
+from rescan_line_sted_torch.device import as_sample, host_table
 from rescan_line_sted_torch.imaging import analytic
 from rescan_line_sted_torch.imaging import boundary as boundaries
 from rescan_line_sted_torch.imaging.line_sted import effective_line_profile
@@ -297,8 +297,8 @@ def _nufft_spread_tables(offs, p: int = _NUFFT_P, device=None):
         taps = n0[:, None] + t0[:, None] + 2 * np.arange(p2)[None, :]
         offsets2[parity] = (n0 + t0 - parity) // 2
         weights[:, parity * p2:(parity + 1) * p2] = phi(taps - fine[:, None])
-    return (analytic.host_table(offsets2.astype(np.int32), device),
-            analytic.host_table(weights.astype(np.float32), device))
+    return (host_table(offsets2.astype(np.int32), device),
+            host_table(weights.astype(np.float32), device))
 
 
 @functools.lru_cache(maxsize=8)
@@ -328,7 +328,7 @@ def _apply_nufft_deconv(folded: torch.Tensor, wc: int,
                              folded.device)                       # [K]
     spec = torch.fft.rfft(folded, n=wc, dim=1)                    # [2, K, H]
     fine = spec[0] + ph[:, None] * spec[1]
-    dinv_t = analytic.host_table(dinv, folded.device)
+    dinv_t = host_table(dinv, folded.device)
     return torch.fft.irfft(fine * dinv_t[:, None], n=wc,
                            dim=0).T.contiguous()
 

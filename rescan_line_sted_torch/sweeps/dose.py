@@ -56,9 +56,8 @@ from rescan_line_sted_torch.algorithms.frc import (
 )
 from rescan_line_sted_torch.algorithms.metrics import fwhm_1d
 from rescan_line_sted_torch.config import Replaceable
-from rescan_line_sted_torch.device import as_sample
+from rescan_line_sted_torch.device import as_sample, host_table
 from rescan_line_sted_torch.imaging import analytic
-from rescan_line_sted_torch.imaging.analytic import host_table
 from rescan_line_sted_torch.imaging.line_sted import line_sted_image
 from rescan_line_sted_torch.imaging.point_sted import point_sted_image
 from rescan_line_sted_torch.imaging.rescan import rescanned_line_sted_image
@@ -193,9 +192,8 @@ def dose_matched_sweep(
     """
     if fuse_orientations:
         raise NotImplementedError(
-            "fuse_orientations=True is not ported yet: it needs rotation, "
-            "Richardson-Lucy and operator fusion (ROADMAP.md queue 1, "
-            "slices D-F)")
+            "fuse_orientations=True is not ported yet: it needs operator "
+            "fusion (ROADMAP.md queue 1, slice F)")
     if frc and generator is None:
         raise ValueError("frc=True needs a generator (two noisy draws)")
     shape = point_geom.grid.shape

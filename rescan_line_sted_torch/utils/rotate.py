@@ -1,0 +1,76 @@
+"""Bilinear image rotation for multi-orientation acquisition (port of the
+JAX package's ``utils/rotate.py``).
+
+The JAX package rotates with ``jax.scipy.ndimage.map_coordinates`` and
+vmaps over the angles; the port takes a batch of angles in one call and
+computes the same four-corner gather, in the same float32 order:
+
+* source coordinates ``cos*y + sin*x + cy`` and ``-sin*y + cos*x + cx``
+  (inverse mapping about ``(h//2, w//2)``);
+* per axis ``lower = floor(c)``, ``upper = c - lower`` and ``1 - upper``;
+* a corner counts only where its index, before any clamp, lies in
+  ``[0, size)``; it adds 0 otherwise (zero fill);
+* the corners summed in the order (y0, x0), (y0, x1), (y1, x0), (y1, x1),
+  each as ``(w_y * w_x) * value``.
+
+``torch.nn.functional.grid_sample`` is not used: its normalisation of the
+coordinates to [-1, 1] and back moves them by ~(W-1)/2 * 6e-8 px in
+float32, which misses the 1e-5 bar at 512^2 and above.
+
+``cos`` and ``sin`` of the angles are taken on the host in float32 with
+numpy, and sent to the device as one pinned table: numpy's float32
+``sin`` agrees with XLA's on the CPU where torch's differs by an ulp (at
+-pi/3), and an ulp moves a coordinate by ~6e-5 px at 2048^2; on the card,
+``cosf`` would be one more implementation. What remains against the JAX
+package is XLA's fused rounding, ~1e-7 of the image's maximum.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rescan_line_sted_torch.device import host_table
+
+
+def rotate_image(img: torch.Tensor, theta) -> torch.Tensor:
+    """Rotate ``img`` [..., H, W] by ``theta`` radians about the grid
+    centre: counter-clockwise in (y-down) array coordinates, bilinear,
+    zero fill outside the input.
+
+    ``theta`` is a number or a tensor of angles; its shape broadcasts
+    against ``img``'s leading dimensions, so [H, W] by [V] angles gives
+    [V, H, W] and [V, H, W] by [V] rotates each image by its own angle.
+    The result lies on ``img``'s device.
+    """
+    h, w = img.shape[-2:]
+    dev = img.device
+    theta = torch.as_tensor(theta, dtype=torch.float32, device="cpu").numpy()
+    trig = host_table(np.stack([np.cos(theta), np.sin(theta)]), dev)
+    cos, sin = trig[0][..., None, None], trig[1][..., None, None]
+    cy, cx = h // 2, w // 2
+    y = (torch.arange(h, dtype=torch.float32, device=dev) - cy)[:, None]
+    x = (torch.arange(w, dtype=torch.float32, device=dev) - cx)[None, :]
+    # inverse rotation: the source coordinates of each output pixel
+    src_y = cos * y + sin * x + cy
+    src_x = -sin * y + cos * x + cx
+    batch = torch.broadcast_shapes(img.shape[:-2], theta.shape)
+    src_y = src_y.expand(*batch, h, w).reshape(-1, h * w)
+    src_x = src_x.expand(*batch, h, w).reshape(-1, h * w)
+    flat = img.expand(*batch, h, w).reshape(-1, h * w)
+
+    def nodes(coord, size):
+        lower = torch.floor(coord)
+        upper = coord - lower
+        index = lower.long()
+        return [(index, 1 - upper, (index >= 0) & (index < size)),
+                (index + 1, upper, (index + 1 >= 0) & (index + 1 < size))]
+
+    out = None
+    for iy, wy, vy in nodes(src_y, h):
+        for ix, wx, vx in nodes(src_x, w):
+            idx = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
+            val = torch.where(vy & vx, flat.gather(1, idx), 0.0)
+            term = (wy * wx) * val
+            out = term if out is None else out + term
+    return out.reshape(*batch, h, w)

@@ -32,17 +32,16 @@ from rescan_line_sted_torch.sweeps.dose import (
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("", "imaging", "physics", "kernels", "data", "algorithms",
-            "sweeps")
-# names whose code is still queued (ROADMAP.md queue 1): Richardson-Lucy
-# (slice E), operator fusion (slice F), the FOV sweep (slice H), MAP
-# deconvolution and calibration (slice I)
-QUEUED = {"algorithms": {"richardson_lucy", "richardson_lucy_views",
-                         "richardson_lucy_operator", "rescan_operator",
+            "sweeps", "utils")
+# names whose code is still queued (ROADMAP.md queue 1): operator fusion
+# (slice F), MAP deconvolution and calibration (slice I), the host side
+# (slice K)
+QUEUED = {"algorithms": {"richardson_lucy_operator", "rescan_operator",
                          "multi_orientation_rescan", "rescan_fusion",
                          "ism_deconvolve", "map_deconvolve_views",
                          "fit_acquisition_params", "fit_line_sted_params",
                          "fit_point_sted_params"},
-          "sweeps": {"resolution_fov_sweep"}}
+          "utils": {"enable_compilation_cache"}}
 # the port's own names for renamed functions
 ALIASES = {"poisson_pallas": "poisson_flat"}
 

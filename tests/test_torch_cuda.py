@@ -1271,3 +1271,64 @@ def test_frc_on_card_matches_cpu(cuda):
             assert torch.isnan(got).item()
         else:
             assert _rel(got, want) <= 1e-5
+
+
+# ---- rotation, multi-orientation line-STED and the FOV sweep on the card ------
+
+def _fov_params():
+    return T.LineSTEDParams.create(depletion=8.0, brightness=200.0)
+
+
+def test_rotate_on_card_matches_cpu(cuda):
+    """512^2 rotations at four angles, batched, on the card against the
+    CPU within 1e-5 (cos and sin come from the host on both)."""
+    from rescan_line_sted_torch.data import siemens_star, sparse_points
+    from rescan_line_sted_torch.utils import rotate_image
+
+    img = (siemens_star((512, 512), device="cpu")
+           + sparse_points((512, 512), device="cpu"))
+    angles = torch.tensor([np.pi / 7, -np.pi / 3, np.pi / 4, 2 * np.pi])
+    got = rotate_image(img.to(cuda), angles)
+    want = rotate_image(img, angles)
+    assert got.is_cuda and got.shape == (4, 512, 512)
+    assert _rel(got, want) <= 1e-5
+
+
+def test_noisy_orientations_launch_k2c_once(cuda):
+    """A noisy analytic multi-orientation call draws its four views in ONE
+    K2c launch and launches nothing else; totals within 5 sigma."""
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.imaging.orientations import (
+        multi_orientation_line_sted)
+
+    params = _fov_params()
+    geom = T.LineSTEDGeometry(T.Grid(128, 128), chunk=32)
+    sample = siemens_star((128, 128), device=cuda) + 0.05
+    angles = torch.arange(4, dtype=torch.float32) * (np.pi / 4)
+    clean, _ = multi_orientation_line_sted(sample, params, geom, angles)
+    _build.reset_launches()
+    views, kernels = multi_orientation_line_sted(
+        sample, params, geom, angles,
+        generator=torch.Generator(cuda).manual_seed(2))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["poisson_flat"] == 1
+    assert all(v == 0 for k, v in _build.LAUNCHES.items()
+               if k != "poisson_flat")
+    assert views.is_cuda and views.shape == kernels.shape == (4, 128, 128)
+    for view, mean in zip(views, clean):
+        mu = float(mean.clamp_min(0).double().sum())
+        assert abs(float(view.double().sum()) - mu) <= 5 * np.sqrt(mu)
+
+
+def test_fov_sweep_on_card_matches_cpu(cuda):
+    """The noise-free FOV sweep at 64^2 (four angles, 40 RL iterations) on
+    the card against ``device="cpu"``: every record column but the times
+    within 1e-5."""
+    from rescan_line_sted_torch.sweeps import resolution_fov_sweep
+
+    got = resolution_fov_sweep((64,), _fov_params(), device=cuda)
+    want = resolution_fov_sweep((64,), _fov_params(), device="cpu")
+    for col in ("fov", "scan_steps", "fused_fwhm_y", "fused_fwhm_x",
+                "view_kernel_fwhm_y", "view_kernel_fwhm_x"):
+        g, w = got[0][col], want[0][col]
+        assert np.isfinite(w) and abs(g - w) <= 1e-5 * abs(w), col
