@@ -164,7 +164,31 @@ sm_90a), then:
    5 sigma); RL and one size of the sweep under sync-debug mode "error";
    and per size ``compile_s``, ``wall_s``, the views + RL time and
    device-busy share, the acquisition's time, RL's ms per iteration at
-   512^2 and 2048^2, and K2c on the 2048^2 views.
+   512^2 and 2048^2, and K2c on the 2048^2 views;
+15. drives operator fusion and the dose sweep's fused protocol
+   (``algorithms/fusion.py``, ``fuse_orientations=True``; ``phase_fusion``)
+   at four configurations, none cut, each with the counters reset before
+   and read after its main call and held to the predicted launches:
+   dose_sweep_fused (``pipelines/figures.py:114-180``: 256^2 star,
+   default params at brightness 1, 16 powers over [0, 16], budget 100,
+   two orientations, rescan R = 2, 30 RL iterations, a CUDA generator:
+   K2c 48, nothing else), report_sweep_fused (``pipelines/report.py:
+   145-175``: 192^2, 6 powers, four arms, ISM R = 2, ``frc=True``: K2c
+   48), fusion_rescan_256 (``fusion_pipeline(modality="rescan")``: four
+   noisy analytic canvases, K2c once, fused by 50 RL iterations) and
+   fusion_rescan_2048_scan (the flagship's params and geometry: two scan
+   views, K1 once each noise-free and K2c once each collapsed, fused by 30
+   RL iterations, then two analytic views, K2c once); for each, the median
+   of three timed calls with its spread, the device-busy share (the
+   sweeps' on two of their powers, traced on the device alone) and the
+   largest device rows; card against ``device="cpu"``, noise-free: every
+   column of every arm of both sweeps (the 256^2 one on every fifth
+   power) and the 256^2 canvases (max relative error <= 1e-5), the
+   50-iteration fused image (relative L2 <= 1e-5, its max relative error
+   printed), the 2048^2 operator's forward and adjoint and its
+   adjointness, and the flagship's fusion at 512^2; noisy totals within 5
+   sigma, FRC columns finite or NaN (no crossing) and above Nyquist; RL's
+   ms per iteration at 2048^2.
 
 Prints a ``rule2`` line (K2b's, K2c's and K5's times against their
 library call and their bounds, K1's four modes and K3 against their bounds
@@ -254,10 +278,8 @@ def clocks() -> str:
         "clocks.sm,clocks.max.sm,clocks.mem")
 
 
-def cuda_ms(fn, repeats: int = REPEATS) -> float:
-    """Median milliseconds of ``fn()`` on the card (CUDA events, warm-up)."""
-    fn()
-    torch.cuda.synchronize()
+def event_ms(fn, repeats) -> list:
+    """CUDA-event milliseconds of ``repeats`` calls of ``fn``."""
     times = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
@@ -267,7 +289,14 @@ def cuda_ms(fn, repeats: int = REPEATS) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return times
+
+
+def cuda_ms(fn, repeats: int = REPEATS) -> float:
+    """Median milliseconds of ``fn()`` on the card (CUDA events, warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    return float(np.median(event_ms(fn, repeats)))
 
 
 def tier_kmax(lam: float) -> int | None:
@@ -1433,18 +1462,22 @@ def sampler_times(lam, cpu_gen, dev_gen, kernel=None) -> dict:
     return t
 
 
-def device_busy(fn) -> tuple[float, list]:
+def device_busy(fn, warm_up=True, host=True) -> tuple[float, list]:
     """Device time (ms) of the kernels and copies of one ``fn()`` under
-    ``torch.profiler`` (after a warm-up call), and its five largest entries
-    as [ms, name, count]; 0.0 where the profiler saw no device activity."""
+    ``torch.profiler`` (after a warm-up call unless the caller warmed it
+    up), and its five largest entries as [ms, name, count]; 0.0 where the
+    profiler saw no device activity. ``host=False`` traces the device
+    alone: the host's op events cost the profiler seconds on long calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if host else [])
     for _ in range(3):      # a short image's trace has come back empty once
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
         rows = sorted(([e.self_device_time_total / 1e3, e.key, e.count]
@@ -2920,6 +2953,285 @@ def phase_fov(dev) -> dict:
     return out
 
 
+FUSED_POWERS = 16          # figures.py:114-180: linspace(0, 16, 16)
+REPORT_SIZE, REPORT_POWERS = 192, 6      # report.py:145-175
+FUSION_ITERS = 30          # the sweeps' fusion_iters; rescan_fusion's too
+FUSION_ANGLES, FUSION_RL = 4, 50         # fusion_pipeline, figures.py:333
+CALL_REPEATS = 3
+
+
+def call_times(fn, profiled=None, warm_up=True) -> dict:
+    """Median, min and max ms of ``CALL_REPEATS`` calls of ``fn`` after a
+    warm-up (CUDA events; ``warm_up=False`` where the caller has just run
+    it), and the device-busy share of one more call, traced on the device
+    alone: of ``profiled`` where given, a shorter call of the same work
+    per sweep point, its share against its own event time."""
+    if warm_up:
+        fn()
+    torch.cuda.synchronize()
+    times = event_ms(fn, CALL_REPEATS)
+    ms = float(np.median(times))
+    busy_ms = ms
+    if profiled is not None:
+        profiled()
+        busy_ms = event_ms(profiled, 1)[0]
+    busy, rows = device_busy(profiled or fn, warm_up=False, host=False)
+    return {"ms": ms, "min_ms": min(times), "max_ms": max(times),
+            "device_busy_ms": busy, "busy_share": busy / busy_ms,
+            "profiled_ms": busy_ms, "device_rows": rows}
+
+
+def fused_sweep_args(dev, size, powers, ism) -> dict:
+    """The fused protocol as the JAX pipelines set it up: siemens star,
+    default params at brightness 1, two orientations, rescan R = 2 (and
+    ISM R = 2), budget 100, 30 RL iterations."""
+    from rescan_line_sted_torch import (
+        Grid, LineSTEDGeometry, LineSTEDParams, PointSTEDGeometry,
+        PointSTEDParams, RescanGeometry, RescanPointGeometry)
+    from rescan_line_sted_torch.data import siemens_star
+
+    grid = Grid(size, size)
+    return dict(sample=siemens_star((size, size), device=dev),
+                point_base=PointSTEDParams.create(brightness=1.0),
+                line_base=LineSTEDParams.create(brightness=1.0),
+                point_geom=PointSTEDGeometry(grid),
+                line_geom=LineSTEDGeometry(grid),
+                depletion_powers=np.linspace(0.0, 16.0, powers),
+                dose_budget=100.0, orientations=2,
+                rescan_geom=RescanGeometry(grid, rescan_factor=2.0),
+                ism_geom=(RescanPointGeometry(grid, rescan_factor=2.0)
+                          if ism else None),
+                fuse_orientations=True, fusion_iters=FUSION_ITERS)
+
+
+def sweep_card_vs_cpu(name, clean, cpu, arms) -> dict:
+    """Every column of every arm of a noise-free sweep on the card against
+    ``device="cpu"`` (max relative error)."""
+    errs = {}
+    for arm in arms:
+        for col in SWEEP_COLUMNS:
+            got, want = getattr(getattr(clean, arm), col), \
+                getattr(getattr(cpu, arm), col)
+            check(got.is_cuda and got.shape == want.shape,
+                  f"{name} {arm}.{col}: on the card, CPU's shape")
+            errs[f"{arm}.{col}"] = max_rel(got, want)
+    log(f"{name} card vs CPU, noise-free (max rel): {json.dumps(errs)}")
+    check(max(errs.values()) <= 1e-5, f"{name} card vs CPU beyond 1e-5")
+    return errs
+
+
+def fusion_setup(size, dev, rescan_factor, chunk=32, **kw):
+    """``fusion_pipeline(modality="rescan")``'s params (depletion 8,
+    brightness 200, R = 2, the default chunk 64 at 256^2) or the
+    flagship's (``LINE_KW``, R = 1.5, chunk 32), and the siemens star."""
+    from rescan_line_sted_torch import Grid, LineSTEDParams, RescanGeometry
+    from rescan_line_sted_torch.data import siemens_star
+
+    geom = RescanGeometry(Grid(size, size), rescan_factor=rescan_factor,
+                          chunk=chunk)
+    return (LineSTEDParams.create(**kw), geom,
+            siemens_star((size, size), device=dev))
+
+
+def phase_fusion(dev) -> dict:
+    """Operator fusion and the dose sweep's fused protocol on the card
+    (``algorithms/fusion.py``, ``sweeps/dose.py`` with
+    ``fuse_orientations=True``): four configurations, each driven once
+    with the counters reset before and read after, then timed, profiled
+    and held against ``device="cpu"``."""
+    from rescan_line_sted_torch.algorithms import (
+        multi_orientation_rescan, rescan_fusion, rescan_operator)
+    from rescan_line_sted_torch.sweeps import dose_matched_sweep as sweep
+
+    name_power = card()
+    out = {"paths": {}, "e2e": {}, "configs": {}, "errs": {}}
+
+    t_phase = time.time()
+
+    def run(name, fn, want, label, profiled=None):
+        log(f"phase_fusion: {name} starts {time.time() - t_phase:.1f} s in")
+        res, launched = drive(name, fn)
+        check(launched == want, f"{name} must launch {want} and nothing "
+              f"else: {launched}")
+        t = call_times(fn, profiled, warm_up=False)   # drive warmed it up
+        out["paths"][name] = launched
+        out["configs"][name] = dict(t, launches=launched)
+        out["e2e"][f"{name} ({label})"] = t["ms"]
+        log(f"{name}: launches {json.dumps(launched)} (predicted "
+            f"{json.dumps(want)}); {t['ms']:.2f} ms per call (CUDA events, "
+            f"median of {CALL_REPEATS} after a warm-up, {t['min_ms']:.2f}-"
+            f"{t['max_ms']:.2f}), device busy {t['device_busy_ms']:.2f} ms "
+            f"of {t['profiled_ms']:.2f} ({t['busy_share']:.1%}"
+            f"{'' if profiled is None else ', on two of its points'}); "
+            "largest rows "
+            f"{json.dumps(t['device_rows'][:3])} | {name_power}")
+        return res
+
+    # dose_sweep_fused: the figure pipeline's defaults (figures.py:114-180)
+    args = fused_sweep_args(dev, SWEEP_SIZE, FUSED_POWERS, ism=False)
+    gen = torch.Generator(dev).manual_seed(30)
+    two = dict(args, depletion_powers=args["depletion_powers"][::15])
+    noisy = run("dose_sweep_fused", lambda: sweep(generator=gen, **args),
+                {"poisson_flat": 3 * FUSED_POWERS},
+                f"{SWEEP_SIZE}^2, {FUSED_POWERS} powers, fused, whole sweep",
+                lambda: sweep(generator=gen, **two))
+    arms = ("point", "line", "rescan")
+    log(f"phase_fusion: dose_sweep_fused card vs CPU starts "
+        f"{time.time() - t_phase:.1f} s in")
+    # noise-free, card vs CPU, on every fifth power (the CPU takes ~1 s per
+    # power)
+    some = dict(args, depletion_powers=args["depletion_powers"][::5])
+    clean = sweep(**some)
+    out["errs"]["dose_sweep_fused"] = sweep_card_vs_cpu(
+        "dose_sweep_fused (powers 0, 5.3, 10.7, 16)", clean,
+        sweep(**dict(some, device="cpu")), arms)
+    for arm in arms:
+        fx = getattr(clean, arm).fwhm_x
+        check(bool(torch.isfinite(getattr(noisy, arm).image).all()),
+              f"dose_sweep_fused {arm}: noisy images finite")
+        check(float(fx[-1]) < float(fx[0]), f"dose_sweep_fused {arm}: the "
+              f"fused FWHM must fall with depletion: {fx}")
+    r = clean.rescan
+    iso = float((r.fwhm_y[-1] - r.fwhm_x[-1]).abs() / r.fwhm_x[-1])
+    log(f"dose_sweep_fused fused FWHM x at s = 0 / 16: "
+        f"{json.dumps({a: [float(getattr(clean, a).fwhm_x[0]), float(getattr(clean, a).fwhm_x[-1])] for a in arms})}; "
+        f"rescan y/x at s = 16 differ by {iso:.3f}")
+
+    # report_sweep_fused: pipelines/report.py:145-175
+    rargs = fused_sweep_args(dev, REPORT_SIZE, REPORT_POWERS, ism=True)
+    rgen = torch.Generator(dev).manual_seed(31)
+    rtwo = dict(rargs, depletion_powers=rargs["depletion_powers"][::5])
+    rnoisy = run("report_sweep_fused",
+                 lambda: sweep(generator=rgen, frc=True, **rargs),
+                 {"poisson_flat": 4 * 2 * REPORT_POWERS},
+                 f"{REPORT_SIZE}^2, {REPORT_POWERS} powers, four arms, frc, "
+                 "fused, whole sweep",
+                 lambda: sweep(generator=rgen, frc=True, **rtwo))
+    arms4 = ("point", "line", "rescan", "ism")
+    log(f"phase_fusion: report_sweep_fused card vs CPU starts "
+        f"{time.time() - t_phase:.1f} s in")
+    rclean = sweep(**rargs)
+    out["errs"]["report_sweep_fused"] = sweep_card_vs_cpu(
+        "report_sweep_fused", rclean, sweep(**dict(rargs, device="cpu")),
+        arms4)
+    # FRC: NaN where the curve never falls below 1/7 (the resolution lies
+    # beyond the measured band), else >= 2 px
+    frcs = {arm: getattr(rnoisy, arm).frc_resolution.tolist()
+            for arm in arms4}
+    log(f"report_sweep_fused FRC resolutions: {json.dumps(frcs)}")
+    for arm, col in frcs.items():
+        # Nyquist: 2 px, on ISM's R-magnified canvas 2 / R sample px
+        low = 2.0 / rargs["ism_geom"].rescan_factor if arm == "ism" else 2.0
+        check(all(math.isnan(v) or low <= v < math.inf for v in col)
+              and any(not math.isnan(v) for v in col),
+              f"report_sweep_fused {arm}: FRC resolution {col}")
+
+    # fusion_rescan_256: fusion_pipeline(modality="rescan"), figures.py:333
+    params, geom, sample = fusion_setup(SWEEP_SIZE, dev, 2.0, chunk=64,
+                                        depletion=8.0, brightness=200.0)
+    angles = torch.arange(FUSION_ANGLES, dtype=torch.float32) * (
+        math.pi / FUSION_ANGLES)
+    static = tuple(i * math.pi / FUSION_ANGLES for i in range(FUSION_ANGLES))
+    fgen = torch.Generator(dev).manual_seed(32)
+
+    def fusion_256():
+        canv = multi_orientation_rescan(sample, params, geom, angles, fgen)
+        return canv, rescan_fusion(canv, params, geom, static, FUSION_RL)
+
+    canv, fused = run("fusion_rescan_256", fusion_256, {"poisson_flat": 1},
+                      f"{FUSION_ANGLES} views + {FUSION_RL} RL iterations")
+    check(bool(torch.isfinite(fused).all() and (fused >= 0).all()),
+          "fusion_rescan_256: fused image finite and non-negative")
+    clean_canv = multi_orientation_rescan(sample, params, geom, angles)
+    cpu_canv = multi_orientation_rescan(sample.cpu(), params, geom, angles,
+                                        device="cpu")
+    got = rescan_fusion(clean_canv, params, geom, static, FUSION_RL)
+    want = rescan_fusion(cpu_canv, params, geom, static, FUSION_RL)
+    # the fused image by relative L2: after 50 iterations over four views
+    # its max relative error sits at float32's floor (1.08e-5 on an H100,
+    # cuBLAS / cuFFT / atomics against MKL / pocketfft order), printed
+    out["errs"]["fusion_rescan_256"] = errs = {
+        "canvases": max_rel(clean_canv, cpu_canv),
+        "fused_rel_l2": rel_l2(got.cpu(), want)}
+    fused_max_rel = max_rel(got, want)
+    for img, mean in zip(canv, clean_canv):
+        mu = float(mean.clamp_min(0).double().sum())
+        z = (float(img.double().sum()) - mu) / math.sqrt(mu)
+        check(abs(z) <= 5, f"fusion_rescan_256 noisy canvas total {z:+.2f}")
+    log(f"fusion_rescan_256 card vs CPU, noise-free: {json.dumps(errs)} "
+        f"(the fused image's max rel {fused_max_rel:.3e})")
+    check(max(errs.values()) <= 1e-5, "fusion_rescan_256 card vs CPU")
+
+    # fusion_rescan_2048_scan: the flagship (bench.py:335-353), two scan
+    # views (K1 each, noise-free, then collapsed K2c each), rescan_fusion,
+    # and one analytic acquisition (K2c once)
+    params, geom, sample = fusion_setup(SIZE, dev, 1.5, depletion=8.0,
+                                        **LINE_KW)
+    angles = torch.arange(2, dtype=torch.float32) * (math.pi / 2)
+    static = (0.0, math.pi / 2)
+    sgen = torch.Generator(dev).manual_seed(33)
+
+    def fusion_2048():
+        canv = multi_orientation_rescan(sample, params, geom, angles, sgen,
+                                        method="scan")
+        fused = rescan_fusion(canv, params, geom, static, FUSION_ITERS)
+        ana = multi_orientation_rescan(sample, params, geom, angles, sgen)
+        return canv, fused, ana
+
+    canv, fused, ana = run(
+        "fusion_rescan_2048_scan", fusion_2048,
+        {"rescan_banded_fused": 2, "poisson_flat": 3},
+        f"2 scan views + {FUSION_ITERS} RL iterations + 2 analytic views")
+    check(bool(torch.isfinite(fused).all() and (fused >= 0).all()),
+          "fusion_rescan_2048_scan: fused image finite and non-negative")
+    clean_scan = multi_orientation_rescan(sample, params, geom, angles,
+                                          method="scan")
+    clean_ana = multi_orientation_rescan(sample, params, geom, angles)
+    for name, imgs, means in (("scan", canv, clean_scan),
+                              ("analytic", ana, clean_ana)):
+        for img, mean in zip(imgs, means):
+            mu = float(mean.clamp_min(0).double().sum())
+            z = (float(img.double().sum()) - mu) / math.sqrt(mu)
+            check(abs(z) <= 5, f"fusion_rescan_2048 {name} total {z:+.2f}")
+    log(f"phase_fusion: 2048^2 RL and card vs CPU start "
+        f"{time.time() - t_phase:.1f} s in")
+    rl = call_times(lambda: rescan_fusion(clean_scan, params, geom, static,
+                                          FUSION_ITERS))
+    # card vs CPU: one view's operator at 2048^2, and the whole fusion on
+    # the flagship's params at 512^2
+    op = rescan_operator(geom, params, angle=math.pi / 2)
+    op_cpu = rescan_operator(geom, params, angle=math.pi / 2, device="cpu")
+    y = clean_ana[1]
+    p512, g512, s512 = fusion_setup(512, "cpu", 1.5, depletion=8.0,
+                                    **LINE_KW)
+    c512 = multi_orientation_rescan(s512, p512, g512, angles, device="cpu")
+    out["errs"]["fusion_rescan_2048_scan"] = errs = {
+        "forward_2048": max_rel(op[0](sample), op_cpu[0](sample.cpu())),
+        "adjoint_2048": max_rel(op[1](y), op_cpu[1](y.cpu())),
+        "canvases_512": max_rel(multi_orientation_rescan(
+            s512, p512, g512, angles, device=dev), c512),
+        "fused_512": max_rel(
+            rescan_fusion(c512.to(dev), p512, g512, static, FUSION_ITERS),
+            rescan_fusion(c512, p512, g512, static, FUSION_ITERS))}
+    lhs = float((op[0](sample).double() * y.double()).sum())
+    rhs = float((sample.double() * op[1](y).double()).sum())
+    errs["adjointness_2048"] = abs(lhs - rhs) / abs(lhs)
+    log(f"fusion_rescan_2048_scan card vs CPU (max rel) and <Ax, y> - <x, "
+        f"A^T y>: {json.dumps(errs)}")
+    check(max(errs.values()) <= 1e-5, "fusion_rescan_2048_scan card vs CPU")
+    t = out["configs"]["fusion_rescan_2048_scan"]
+    t["rl_ms_per_iter"] = rl["ms"] / FUSION_ITERS
+    t["rl_device_ms_per_iter"] = rl["device_busy_ms"] / FUSION_ITERS
+    t["rl_busy_share"] = rl["busy_share"]
+    log(f"phase_fusion took {time.time() - t_phase:.1f} s")
+    log(f"fusion_rescan_2048_scan: rescan_fusion ({FUSION_ITERS} iterations, "
+        f"2 views) {rl['ms']:.2f} ms, {t['rl_ms_per_iter']:.3f} ms per "
+        f"iteration (device {t['rl_device_ms_per_iter']:.3f}, busy "
+        f"{rl['busy_share']:.1%}; rows {json.dumps(rl['device_rows'][:3])})"
+        f" | {name_power}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2966,6 +3278,8 @@ def main() -> int:
     paths.update(dose["paths"])
     fov = phase_fov(dev)
     paths.update(fov["paths"])
+    fusion = phase_fusion(dev)
+    paths.update(fusion["paths"])
     log(f"after timing: {clocks()}")
     log(f"smoke run took {time.time() - t0:.1f} s after the card was named")
 
@@ -2973,21 +3287,21 @@ def main() -> int:
                "rescan_banded_fused_spread": "irrational",
                "rescan_banded_fused_wide": "wide",
                "rescan_banded_fused_spread_wide": "spread_wide"}
+    def launched(kernel):
+        return {p: n[kernel] for p, n in paths.items() if n.get(kernel)}
+
     kernels = [
         {"name": mode, "route": "cuda",
          "source": "rescan_line_sted_torch/csrc/rescan_banded_fused.cu",
          "replaces": replaces, "path": k1_path[mode],
-         "launches": paths[k1_path[mode]][mode],
+         "paths": launched(mode),
+         "launches": sum(launched(mode).values()),
          "max_abs_err": k1_err[mode]["abs"],
          "max_rel_err": k1_err[mode]["rel"],
          "err_kind": "noise-free, against the plain version",
          **times[mode], "library_ms": None,
          "composite_bound_ms": k6["bounds"][mode]["total_ms"]}
         for mode, (replaces, _) in K1_MODES.items()]
-
-    def launched(kernel):
-        return {p: n[kernel] for p, n in paths.items() if n.get(kernel)}
-
     k2c_paths = launched("poisson_flat")
     kernels.append(
         {"name": "poisson_flat", "route": "cuda",
@@ -3117,7 +3431,11 @@ def main() -> int:
                                        for k, v in busy.items()}}))
     log(json.dumps({"e2e_per_step_ms": {**times["e2e"], **desc["e2e"],
                                         **nob["e2e"]}}))
-    log(json.dumps({"e2e_per_call_ms": {**dose["e2e"], **fov["e2e"]}}))
+    log(json.dumps({"e2e_per_call_ms": {**dose["e2e"], **fov["e2e"],
+                                        **fusion["e2e"]}}))
+    log(json.dumps({"fusion": {
+        "configs": fusion["configs"], "card_vs_cpu": fusion["errs"],
+        "card": name_power}}))
     log(json.dumps({"dose_sweep": {
         "bench_cell": dose["bench"], "card_vs_cpu": dose["errs"],
         "cuda_generator_syncs": dose["syncs"], "figure_2048": dose["figure"],

@@ -1,13 +1,19 @@
 """Measurements and deconvolution: resolution metrics, Fourier Ring
-Correlation and Richardson-Lucy.
+Correlation, Richardson-Lucy (per view and in operator form), rescanned
+view fusion and MAP deconvolution.
 
-Not ported yet (ROADMAP.md queue 1): ``richardson_lucy_operator``,
-``rescan_operator``, ``multi_orientation_rescan``, ``rescan_fusion`` and
-``ism_deconvolve`` (slice F); ``map_deconvolve_views`` and the
-``fit_*`` calibration (slice I).
+Not ported yet (ROADMAP.md queue 1): the ``fit_*`` calibration (slice I).
 """
 
 from rescan_line_sted_torch.algorithms.frc import frc_curve, frc_resolution
+from rescan_line_sted_torch.algorithms.fusion import (
+    ism_deconvolve,
+    multi_orientation_rescan,
+    rescan_fusion,
+    rescan_operator,
+    richardson_lucy_operator,
+)
+from rescan_line_sted_torch.algorithms.map_deconv import map_deconvolve_views
 from rescan_line_sted_torch.algorithms.metrics import (
     fwhm_1d,
     fwhm_2d,
@@ -19,5 +25,7 @@ from rescan_line_sted_torch.algorithms.richardson_lucy import (
 )
 
 __all__ = ["frc_curve", "frc_resolution", "fwhm_1d", "fwhm_2d",
-           "richardson_lucy", "richardson_lucy_views",
-           "system_resolution_report"]
+           "ism_deconvolve", "map_deconvolve_views",
+           "multi_orientation_rescan", "rescan_fusion", "rescan_operator",
+           "richardson_lucy", "richardson_lucy_operator",
+           "richardson_lucy_views", "system_resolution_report"]

@@ -121,25 +121,39 @@ def _binned_row_matrix(h: int, b: int, det_y: torch.Tensor) -> torch.Tensor:
     return my.reshape(h, h // b, b).sum(-1)
 
 
-def rescan_canvas_mean(sample: torch.Tensor, params, geom) -> torch.Tensor:
-    """Noise-free rescanned canvas [H/b, Wc]: exact closed form for any
-    ``rescan_factor >= 1`` and any ``binning``."""
-    device = sample.device
+def _canvas_map(params, geom, device):
+    """The rescan closed form as a function ``sample [..., H, W] -> canvas
+    [..., H/b, Wc]`` (leading dimensions batch), its constants built once
+    on ``device``: the y-convolve + row-bin matrix ``gy`` [h, h/b] (a dense
+    circulant, 16 MB at 2048^2), the column-phase kernels ``h_hat`` and the
+    placement phases ``pm``. Linear in ``sample``; ``rescan_canvas_mean``
+    and the fusion operators (``algorithms/fusion.py``) share it."""
     b = geom.binning
     h, w = geom.grid.shape
     hc, wc = geom.canvas_shape
-
     det_y = psfs.detection_profile(h, params.sigma_det, device)
-    gy = _binned_row_matrix(h, b, det_y)                         # [h, hc]
-    s_yb = gy.T @ sample                                         # [hc, w]
-    # split columns by phase: a = b*m + rho -> [b(rho), hc, w/b(m)]
-    s_ph = s_yb.reshape(hc, w // b, b).permute(2, 0, 1)
-
-    h_hat = rescan_x_kernels_rfft(geom, params, device)          # [b, K]
+    gy_t = _binned_row_matrix(h, b, det_y).T                     # [hc, h]
+    h_hat = rescan_x_kernels_rfft(geom, params, device)[:, None, :]
     pm = _tables(geom, device)[3]                                # [w/b, K]
-    canvas_rfft = ((s_ph.to(torch.complex64) @ pm)
-                   * h_hat[:, None, :]).sum(0)                   # [hc, K]
-    return params.brightness * torch.fft.irfft(canvas_rfft, n=wc, dim=-1)
+
+    def canvas(sample: torch.Tensor) -> torch.Tensor:
+        lead = sample.shape[:-2]
+        s_yb = gy_t @ sample                                     # [.., hc, w]
+        # split columns by phase: a = b*m + rho -> [.., b(rho), hc, w/b(m)]
+        s_ph = s_yb.reshape(*lead, hc, w // b, b).movedim(-1, -3)
+        canvas_rfft = ((s_ph.to(torch.complex64) @ pm)
+                       * h_hat).sum(-3)                          # [.., hc, K]
+        return params.brightness * torch.fft.irfft(canvas_rfft, n=wc,
+                                                   dim=-1)
+
+    return canvas
+
+
+def rescan_canvas_mean(sample: torch.Tensor, params, geom) -> torch.Tensor:
+    """Noise-free rescanned canvas [..., H/b, Wc] of ``sample`` [..., H,
+    W]: exact closed form for any ``rescan_factor >= 1`` and any
+    ``binning``."""
+    return _canvas_map(params, geom, sample.device)(sample)
 
 
 def rescan_system_kernel(geom, params, device=None) -> torch.Tensor:

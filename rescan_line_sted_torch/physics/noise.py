@@ -27,3 +27,22 @@ def maybe_poisson(generator: torch.Generator | None,
     if generator is None:
         return mean
     return poisson_counts(generator, mean)
+
+
+def derived_generators(generator: torch.Generator, shape: tuple):
+    """Independent generators in nested lists of ``shape``, on
+    ``generator``'s device, each seeded from one table of seeds drawn
+    from ``generator`` (``torch.randint`` on its device; a CUDA
+    generator's table is read back once). Stands for the JAX package's
+    ``jax.random.split`` and ``fold_in``: a given generator state gives the
+    same generators."""
+    seeds = torch.randint(0, 2**62, tuple(shape), generator=generator,
+                          device=generator.device,
+                          dtype=torch.int64).tolist()
+
+    def make(s):
+        if isinstance(s, list):
+            return [make(t) for t in s]
+        return torch.Generator(generator.device).manual_seed(s)
+
+    return make(seeds)

@@ -1,6 +1,6 @@
 """Dose-matched point-vs-line STED comparison sweep (port of the JAX
-package's ``sweeps/dose.py``; BASELINE config 4), without its fusion
-protocol.
+package's ``sweeps/dose.py``; BASELINE config 4), with its fusion
+protocol (``fuse_orientations=True``).
 
 The sweep runs each depletion power ``s`` through every arm while holding
 the total per-pixel photodose (excitation + depletion, the photodamage
@@ -23,8 +23,9 @@ profiles built once per sweep: they do not depend on the depletion
 power), in float32 as the JAX package computes it, so no point reads the
 card. The host columns (exposure, scan steps, the emitted signal's
 factor) reach the card once, as one table each. The FWHMs are measured
-after the loop, one batched call per arm and axis on the system kernels'
-centre columns and rows.
+after the loop, one batched call per arm and axis on the centre columns
+and rows of the system kernels (or, fused, of the RL-restored point
+responses).
 
 **Generators.** ``jax.random.split(key, 4)``, ``split(k, B)`` and
 ``fold_in(k, 1)`` become one draw from the caller's generator: a table
@@ -39,13 +40,17 @@ host for free; a CUDA generator's table is read back once per sweep (one
 sync, before any point runs), never once per point.
 
 Every noisy arm draws through ``physics.noise.maybe_poisson`` (the point,
-line and rescan engines' analytic method, and ISM's canvas): on the card
-that is the flat sampler kernel K2c, with no fallback.
+line and rescan engines' analytic method, ISM's canvas, and fused, the
+line and rescan views, all views of an arm in one call): on the card
+that is the flat sampler kernel K2c, with no fallback. The fused
+protocol's RL loops (``algorithms/richardson_lucy.py`` and
+``algorithms/fusion.py``) read nothing back either.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -54,20 +59,35 @@ from rescan_line_sted_torch.algorithms.frc import (
     frc_resolution,
     frc_sectored_resolution,
 )
+from rescan_line_sted_torch.algorithms.fusion import (
+    ism_deconvolve,
+    multi_orientation_rescan,
+    rescan_fusion,
+)
 from rescan_line_sted_torch.algorithms.metrics import fwhm_1d
+from rescan_line_sted_torch.algorithms.richardson_lucy import (
+    richardson_lucy_views,
+)
 from rescan_line_sted_torch.config import Replaceable
 from rescan_line_sted_torch.device import as_sample, host_table
 from rescan_line_sted_torch.imaging import analytic
 from rescan_line_sted_torch.imaging.line_sted import line_sted_image
+from rescan_line_sted_torch.imaging.orientations import (
+    multi_orientation_line_sted,
+)
 from rescan_line_sted_torch.imaging.point_sted import point_sted_image
 from rescan_line_sted_torch.imaging.rescan import rescanned_line_sted_image
 from rescan_line_sted_torch.imaging.rescan_point import (
     rescan_point_canvas_mean,
     rescan_point_system_kernel,
 )
+from rescan_line_sted_torch.imaging.shifts import flip_centered
 from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.physics.dose import line_sted_dose, point_sted_dose
-from rescan_line_sted_torch.physics.noise import maybe_poisson
+from rescan_line_sted_torch.physics.noise import (
+    derived_generators,
+    maybe_poisson,
+)
 
 ARMS = ("point", "line", "rescan", "ism")
 
@@ -107,11 +127,7 @@ def arm_generators(generator: torch.Generator | None, points: int):
     for a noise-free sweep."""
     if generator is None:
         return None
-    seeds = torch.randint(0, 2**62, (len(ARMS), points, 2),
-                          generator=generator, device=generator.device,
-                          dtype=torch.int64).tolist()
-    return [[[torch.Generator(generator.device).manual_seed(s) for s in pt]
-             for pt in arm] for arm in seeds]
+    return derived_generators(generator, (len(ARMS), points, 2))
 
 
 def _f32(x) -> np.float32:
@@ -186,14 +202,18 @@ def dose_matched_sweep(
     ``frc_resolution`` (ISM's divided by R); the anisotropic rescan canvas
     reports per-axis sectored FRC in ``frc_resolution_x/_y`` instead.
 
-    ``fuse_orientations=True`` (the multi-view Richardson-Lucy protocol)
-    is not ported yet and raises; ``fusion_iters`` and
-    ``fusion_accelerate`` belong to it and are otherwise unused.
+    ``fuse_orientations=True`` runs the paper's protocol: the line arm
+    acquires ``orientations`` rotated views at the matched total dose and
+    reports their multi-view RL fusion; the rescan arm fuses its rotated
+    canvases onto the sample grid through operator-form RL
+    (``algorithms/fusion.py``); the point arm is RL-deconvolved and the
+    ISM canvas deconvolved with its system kernel, each with
+    ``fusion_iters`` iterations (Biggs-Andrews extrapolated with
+    ``fusion_accelerate``). The FWHM columns then report each arm's
+    achieved resolution: the FWHM of its RL-restored point response by
+    the same protocol, in sample pixels (ISM's divided by R), and the
+    rescan arm's FRC is the radial one of its fused image.
     """
-    if fuse_orientations:
-        raise NotImplementedError(
-            "fuse_orientations=True is not ported yet: it needs operator "
-            "fusion (ROADMAP.md queue 1, slice F)")
     if frc and generator is None:
         raise ValueError("frc=True needs a generator (two noisy draws)")
     shape = point_geom.grid.shape
@@ -207,6 +227,25 @@ def dose_matched_sweep(
     r_ism = ism_geom.rescan_factor if ism_geom is not None else None
     if rescan_geom is not None:
         b, r = rescan_geom.binning, rescan_geom.rescan_factor
+    if fuse_orientations:
+        # the JAX package's float32 angles for the acquisitions, and its
+        # Python-float ones for the rescan operators
+        angles = torch.arange(orientations, dtype=torch.float32) * (
+            math.pi / orientations)
+        angles_static = tuple(v * math.pi / orientations
+                              for v in range(orientations))
+        delta = torch.zeros(shape, device=dev)
+        delta[shape[0] // 2, shape[1] // 2] = 1.0
+
+        def restore(img, kernels):
+            return richardson_lucy_views(img, kernels, fusion_iters,
+                                         accelerate=fusion_accelerate)
+
+        def fused_response(kernels):
+            """The RL restoration of a centred point source's noise-free
+            views ``corr(delta, K) = flip(K)``: the achieved resolution."""
+            return restore(torch.stack([flip_centered(k) for k in kernels]),
+                           kernels)
 
     p_prof = models.profiles(models.point_model(point_base), shape,
                              point_base, "cpu")
@@ -231,18 +270,32 @@ def dose_matched_sweep(
         p_steps = _f32(pdose.num_steps)
         l_steps = _f32(ldose.num_steps) * orient
 
+        pkern = analytic.point_system_kernel(shape, pp, dev)
+
         def point_image(k):
-            return point_sted_image(sample, pp_run, point_geom,
-                                    draw("point", i, k), device=dev).image
+            img = point_sted_image(sample, pp_run, point_geom,
+                                   draw("point", i, k), device=dev).image
+            return restore(img[None], pkern[None]) if fuse_orientations \
+                else img
 
         def line_image(k):
+            if fuse_orientations:
+                views, kernels = multi_orientation_line_sted(
+                    sample, lp_run, line_geom, angles, draw("line", i, k),
+                    device=dev)
+                return restore(views, kernels), kernels
             return line_sted_image(sample, lp_run, line_geom,
-                                   draw("line", i, k), device=dev).image
+                                   draw("line", i, k), device=dev).image, None
 
-        pimg, limg = point_image(0), line_image(0)
+        pimg, (limg, lkernels) = point_image(0), line_image(0)
+        if fuse_orientations:
+            p_resp = fused_response(pkern[None])
+            l_resp = fused_response(lkernels)
+        else:
+            p_resp = pkern
+            l_resp = analytic.line_system_kernel(shape, lp, dev)
         point = dict(
-            image=pimg,
-            profiles=_centre(analytic.point_system_kernel(shape, pp, dev)),
+            image=pimg, profiles=_centre(p_resp),
             signal=p_bright * _f32(pdose.emission_per_unit_sample),
             exposure=exp_p, num_steps=p_steps,
             frc_resolution=(frc_resolution(pimg, point_image(1)) if frc
@@ -250,27 +303,59 @@ def dose_matched_sweep(
             frc_resolution_x=None, frc_resolution_y=None)
         rows["point"].append(point)
         rows["line"].append(dict(
-            image=limg,
-            profiles=_centre(analytic.line_system_kernel(shape, lp, dev)),
+            image=limg, profiles=_centre(l_resp),
             signal=(l_bright * orient
                     * _f32(ldose.emission_per_unit_sample)),
             exposure=exp_l, num_steps=l_steps,
-            frc_resolution=(frc_resolution(limg, line_image(1)) if frc
+            frc_resolution=(frc_resolution(limg, line_image(1)[0]) if frc
                             else None),
             frc_resolution_x=None, frc_resolution_y=None))
 
         if ism_geom is not None:
             mean = rescan_point_canvas_mean(sample, pp_run, ism_geom)
-            iimg = maybe_poisson(draw("ism", i, 0), mean)
-            rows["ism"].append(dict(
-                point, image=iimg,
-                profiles=_centre(rescan_point_system_kernel(ism_geom, pp,
-                                                            dev)),
-                frc_resolution=(frc_resolution(
-                    iimg, maybe_poisson(draw("ism", i, 1), mean)) / r_ism
-                    if frc else None)))
 
-        if rescan_geom is not None:
+            def ism_image(k):
+                img = maybe_poisson(draw("ism", i, k), mean)
+                if fuse_orientations:
+                    # one isotropic view: deconvolve with the same count
+                    img = ism_deconvolve(img, pp_run, ism_geom, fusion_iters,
+                                         accelerate=fusion_accelerate)
+                return img
+
+            iimg = ism_image(0)
+            if fuse_orientations:
+                i_resp = ism_deconvolve(
+                    rescan_point_canvas_mean(delta, pp, ism_geom), pp,
+                    ism_geom, fusion_iters, accelerate=fusion_accelerate)
+            else:
+                i_resp = rescan_point_system_kernel(ism_geom, pp, dev)
+            rows["ism"].append(dict(
+                point, image=iimg, profiles=_centre(i_resp),
+                frc_resolution=(frc_resolution(iimg, ism_image(1)) / r_ism
+                                if frc else None)))
+
+        if rescan_geom is not None and fuse_orientations:
+            def rescan_image(k):
+                canvases = multi_orientation_rescan(
+                    sample, lp_run, rescan_geom, angles,
+                    draw("rescan", i, k), device=dev)
+                return rescan_fusion(canvases, lp_run, rescan_geom,
+                                     angles_static, fusion_iters,
+                                     accelerate=fusion_accelerate)
+
+            rimg = rescan_image(0)
+            # the achieved resolution: a point source's canvases restored
+            # by the same operator RL (on the sample grid already)
+            r_resp = rescan_fusion(
+                multi_orientation_rescan(delta, lp_run, rescan_geom, angles,
+                                         device=dev),
+                lp_run, rescan_geom, angles_static, fusion_iters,
+                accelerate=fusion_accelerate)
+            rows["rescan"].append(dict(
+                rows["line"][-1], image=rimg, profiles=_centre(r_resp),
+                frc_resolution=(frc_resolution(rimg, rescan_image(1))
+                                if frc else None)))
+        elif rescan_geom is not None:
             def rescan_image(k):
                 return rescanned_line_sted_image(
                     sample, lp_run, rescan_geom, draw("rescan", i, k),
@@ -290,9 +375,11 @@ def dose_matched_sweep(
                 frc_resolution_x=cx, frc_resolution_y=cy))
 
     # sample pixels: ISM's canvas is magnified by R; the rescan canvas's x
-    # by R/b, its y shrunk by b
-    scales = {"ism": lambda fy, fx: (fy / r_ism, fx / r_ism),
-              "rescan": lambda fy, fx: (fy * b, fx * b / r)}
+    # by R/b, its y shrunk by b (the fused rescan image is on the sample
+    # grid)
+    scales = {"ism": lambda fy, fx: (fy / r_ism, fx / r_ism)}
+    if not fuse_orientations:
+        scales["rescan"] = lambda fy, fx: (fy * b, fx * b / r)
 
     def arm(name):
         if not rows[name]:

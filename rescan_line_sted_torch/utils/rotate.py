@@ -44,20 +44,34 @@ def rotate_image(img: torch.Tensor, theta) -> torch.Tensor:
     The result lies on ``img``'s device.
     """
     h, w = img.shape[-2:]
-    dev = img.device
+    shape, corners = rotation_corners(h, w, theta, img.device)
+    batch = torch.broadcast_shapes(img.shape[:-2], shape)
+    flat = img.expand(*batch, h, w).reshape(-1, h * w)
+    out = None
+    for idx, weight, valid in corners:
+        idx = idx.expand(*batch, h * w).reshape(-1, h * w)
+        val = torch.where(valid, flat.gather(1, idx).reshape(*batch, h, w),
+                          0.0)
+        term = weight * val
+        out = term if out is None else out + term
+    return out
+
+
+def rotation_corners(h: int, w: int, theta, device) -> tuple:
+    """What a rotation by ``theta`` gathers, built once on ``device``:
+    the angles' shape and, per corner in summation order, the flat source
+    index [..., H*W] (clamped), the weight ``w_y * w_x`` and the validity
+    mask [..., H, W] (leading dimensions: the angles'). Linear operators
+    that rotate by fixed angles build it once (``algorithms/fusion``)."""
     theta = torch.as_tensor(theta, dtype=torch.float32, device="cpu").numpy()
-    trig = host_table(np.stack([np.cos(theta), np.sin(theta)]), dev)
+    trig = host_table(np.stack([np.cos(theta), np.sin(theta)]), device)
     cos, sin = trig[0][..., None, None], trig[1][..., None, None]
     cy, cx = h // 2, w // 2
-    y = (torch.arange(h, dtype=torch.float32, device=dev) - cy)[:, None]
-    x = (torch.arange(w, dtype=torch.float32, device=dev) - cx)[None, :]
+    y = (torch.arange(h, dtype=torch.float32, device=device) - cy)[:, None]
+    x = (torch.arange(w, dtype=torch.float32, device=device) - cx)[None, :]
     # inverse rotation: the source coordinates of each output pixel
     src_y = cos * y + sin * x + cy
     src_x = -sin * y + cos * x + cx
-    batch = torch.broadcast_shapes(img.shape[:-2], theta.shape)
-    src_y = src_y.expand(*batch, h, w).reshape(-1, h * w)
-    src_x = src_x.expand(*batch, h, w).reshape(-1, h * w)
-    flat = img.expand(*batch, h, w).reshape(-1, h * w)
 
     def nodes(coord, size):
         lower = torch.floor(coord)
@@ -66,11 +80,11 @@ def rotate_image(img: torch.Tensor, theta) -> torch.Tensor:
         return [(index, 1 - upper, (index >= 0) & (index < size)),
                 (index + 1, upper, (index + 1 >= 0) & (index + 1 < size))]
 
-    out = None
+    corners = []
     for iy, wy, vy in nodes(src_y, h):
         for ix, wx, vx in nodes(src_x, w):
             idx = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
-            val = torch.where(vy & vx, flat.gather(1, idx), 0.0)
-            term = (wy * wx) * val
-            out = term if out is None else out + term
-    return out.reshape(*batch, h, w)
+            corners.append((idx.reshape(*theta.shape, h * w), wy * wx,
+                            vy & vx))
+    return theta.shape, corners
+

@@ -33,13 +33,9 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("", "imaging", "physics", "kernels", "data", "algorithms",
             "sweeps", "utils")
-# names whose code is still queued (ROADMAP.md queue 1): operator fusion
-# (slice F), MAP deconvolution and calibration (slice I), the host side
-# (slice K)
-QUEUED = {"algorithms": {"richardson_lucy_operator", "rescan_operator",
-                         "multi_orientation_rescan", "rescan_fusion",
-                         "ism_deconvolve", "map_deconvolve_views",
-                         "fit_acquisition_params", "fit_line_sted_params",
+# names whose code is still queued (ROADMAP.md queue 1): calibration
+# (slice I), the host side (slice K)
+QUEUED = {"algorithms": {"fit_acquisition_params", "fit_line_sted_params",
                          "fit_point_sted_params"},
           "utils": {"enable_compilation_cache"}}
 # the port's own names for renamed functions

@@ -1332,3 +1332,115 @@ def test_fov_sweep_on_card_matches_cpu(cuda):
                 "view_kernel_fwhm_y", "view_kernel_fwhm_x"):
         g, w = got[0][col], want[0][col]
         assert np.isfinite(w) and abs(g - w) <= 1e-5 * abs(w), col
+
+
+# ---- operator fusion and the fused dose sweep on the card ---------------------
+
+def _fusion_setup(size, rescan_factor=2.0, binning=1):
+    return (T.LineSTEDParams.create(depletion=8.0, sigma_exc=3.0,
+                                    sigma_det=3.0, stripe_period=12.0,
+                                    slit_halfwidth=4.0, brightness=1.0),
+            T.RescanGeometry(T.Grid(size, size), rescan_factor=rescan_factor,
+                             binning=binning, chunk=32))
+
+
+def test_rescan_operator_adjoint_on_card(cuda):
+    """<A x, y> = <x, A^T y> at 512^2 with a rotation, R = 1.5 and binning
+    2 on the card (the adjoint's scatter runs on atomics), and the forward
+    and adjoint maps against the CPU's within 1e-5."""
+    from rescan_line_sted_torch.algorithms import rescan_operator
+
+    params, geom = _fusion_setup(512, 1.5, 2)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(size=(512, 512)).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(size=geom.canvas_shape)
+                         .astype(np.float32))
+    fwd, adj = rescan_operator(geom, params, angle=0.7)
+    ax, aty = fwd(x.to(cuda)), adj(y.to(cuda))
+    assert ax.is_cuda and aty.is_cuda
+    lhs = float((ax.double() * y.to(cuda).double()).sum())
+    rhs = float((x.to(cuda).double() * aty.double()).sum())
+    assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+    cpu_fwd, cpu_adj = rescan_operator(geom, params, angle=0.7, device="cpu")
+    assert _rel(ax, cpu_fwd(x)) <= 1e-5
+    assert _rel(aty, cpu_adj(y)) <= 1e-5
+
+
+@pytest.mark.parametrize("accelerate,num_iter", [(False, 30), (True, 15)],
+                         ids=["plain", "accelerate"])
+def test_rescan_fusion_on_card_matches_cpu(cuda, accelerate, num_iter):
+    """Two noise-free canvases of a 128^2 star (R = 2) fused by RL on the
+    card against the CPU within 1e-5 (not bit for bit: the adjoint's
+    scatter uses atomics). The accelerated loop amplifies those float32
+    differences, past 1e-5 by 30 iterations (2.2e-5 on an H100), as it
+    does the CPU's against the JAX package's (1.5e-5 at 40), so it is held
+    at 15."""
+    from rescan_line_sted_torch.algorithms import (
+        multi_orientation_rescan, rescan_fusion)
+    from rescan_line_sted_torch.data import siemens_star
+
+    params, geom = _fusion_setup(128)
+    sample = siemens_star((128, 128), device="cpu")
+    angles = (0.0, np.pi / 2)
+    canv = multi_orientation_rescan(sample, params, geom, angles,
+                                    device="cpu")
+    got_canv = multi_orientation_rescan(sample, params, geom, angles)
+    assert _rel(got_canv, canv) <= 1e-5
+    got = rescan_fusion(got_canv, params, geom, angles, num_iter,
+                        accelerate=accelerate)
+    want = rescan_fusion(canv, params, geom, angles, num_iter,
+                         accelerate=accelerate)
+    assert got.is_cuda and _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("method,launches", [
+    ("analytic", {"poisson_flat": 1}),
+    ("scan", {"rescan_banded_fused": 2, "poisson_flat": 2})])
+def test_noisy_multi_orientation_rescan_launches(cuda, method, launches):
+    """A noisy analytic call draws both views in ONE K2c launch; a noisy
+    scan call runs K1 once per view, noise-free, then K2c once per view
+    (collapsed draws); nothing else launches. Totals within 5 sigma."""
+    from rescan_line_sted_torch.algorithms import multi_orientation_rescan
+    from rescan_line_sted_torch.data import siemens_star
+
+    params, geom = _fusion_setup(256, 1.5)
+    sample = siemens_star((256, 256), device=cuda)
+    angles = (0.0, np.pi / 2)
+    clean = multi_orientation_rescan(sample, params, geom, angles,
+                                     method=method)
+    _build.reset_launches()
+    noisy = multi_orientation_rescan(
+        sample, params, geom, angles, torch.Generator(cuda).manual_seed(4),
+        method=method)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == launches
+    assert noisy.shape == (2,) + geom.canvas_shape
+    for img, mean in zip(noisy, clean):
+        mu = float(mean.clamp_min(0).double().sum())
+        assert abs(float(img.double().sum()) - mu) <= 5 * np.sqrt(mu)
+
+
+def test_fused_sweep_on_card_matches_cpu(cuda):
+    """The noise-free fused sweep at 64^2 (all four arms, two orientations,
+    rescan R = 2, 10 RL iterations) on the card against ``device="cpu"``:
+    every column within 1e-5; a noisy one launches K2c once per arm and
+    point and nothing else."""
+    from rescan_line_sted_torch.sweeps import dose_matched_sweep
+
+    args = dict(_sweep_args(), rescan_geom=T.RescanGeometry(
+        T.Grid(64, 64), rescan_factor=2.0), fuse_orientations=True,
+        fusion_iters=10)
+    got = dose_matched_sweep(dose_budget=100.0, device=cuda, **args)
+    want = dose_matched_sweep(dose_budget=100.0, device="cpu", **args)
+    for (name, g), (_, w) in zip(_sweep_columns(got), _sweep_columns(want)):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.is_cuda and g.shape == w.shape, name
+        assert _rel(g, w) <= 1e-5, name
+    _build.reset_launches()
+    dose_matched_sweep(dose_budget=100.0, device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(3), **args)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "poisson_flat": 4 * 3}

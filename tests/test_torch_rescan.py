@@ -301,6 +301,8 @@ def test_import_leaves_jax_out():
             "rescan_line_sted_torch.utils.rotate, "
             "rescan_line_sted_torch.imaging.orientations, "
             "rescan_line_sted_torch.algorithms.richardson_lucy, "
+            "rescan_line_sted_torch.algorithms.fusion, "
+            "rescan_line_sted_torch.algorithms.map_deconv, "
             "rescan_line_sted_torch.sweeps.fov; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'rescan_line_sted_tpu')]; print(bad); "

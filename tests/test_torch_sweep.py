@@ -4,9 +4,16 @@ against the JAX package's on the CPU.
 Noise-free (``generator=None``): every column of every arm (image, FWHMs,
 emitted signal, exposure, scan steps) within max|port - jax| / max|jax|
 <= 1e-5, over cases covering orientations 1, 2 and 3, the rescan arm at
-(R, b) = (2, 2) and (1.5, 1) and the ISM arm at R = 2. Noisy: totals
-within 5 sigma of the JAX noise-free means, one generator state gives one
-sweep bit for bit, the FRC columns at budget 5000, and the two refusals.
+(R, b) = (2, 2) and (1.5, 1) and the ISM arm at R = 2; and the same for
+the fused protocol (``fuse_orientations=True``) at the JAX tests' 48^2
+(``tests/test_sweeps.py:102-165``): all four arms at 25 plain iterations,
+and at 10 accelerated ones with three orientations and the rescan arm at
+R = 3. Noisy: totals within 5 sigma of the JAX noise-free
+means (fused: RL keeps each iteration's total at the views' mean total,
+so the fused totals are held to it; the rescan arm's canvases are drawn
+again from its generator and their fusion is the arm's image), one
+generator state gives one sweep bit for bit, the FRC columns at budget
+5000, and the refusal.
 """
 
 import dataclasses
@@ -34,6 +41,13 @@ COLUMNS = ("image", "fwhm_x", "fwhm_y", "emitted_signal", "exposure",
 CASES = {"o1_rescan_r2_b2": ((32, 32), 1, (2.0, 2), None),
          "o2_rescan_r1.5_b1_ism_r2": ((48, 48), 2, (1.5, 1), 2.0),
          "o3_point_line_48x64": ((48, 64), 3, None, None)}
+# the fused protocol: name: (shape, orientations, rescan, ISM R,
+# fusion_iters, fusion_accelerate). Not binned or fractional R: those
+# canvases ring
+# below zero and the operator RL's guard flips on pixels within rounding
+# of it, so two float32 runs part by 1e-4 (tests/test_torch_fusion.py)
+FUSED = {"fused_o2_rescan_r2_ism_r2": ((48, 48), 2, (2.0, 1), 2.0, 25, False),
+         "fused_accel_o3_rescan_r3": ((48, 48), 3, (3.0, 1), None, 10, True)}
 
 
 def rel(got, want) -> float:
@@ -43,9 +57,17 @@ def rel(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
+def _fusion(case) -> dict:
+    if case not in FUSED:
+        return {}
+    return dict(fuse_orientations=True, fusion_iters=FUSED[case][4],
+                fusion_accelerate=FUSED[case][5])
+
+
 @functools.lru_cache(maxsize=None)
 def _setup(case):
-    shape, orientations, rescan, ism = CASES[case]
+    shape, orientations, rescan, ism = (CASES[case] if case in CASES
+                                        else FUSED[case][:4])
     grid = J.Grid(*shape)
     jax_args = dict(
         sample=samples.siemens_star(shape, spokes=8),
@@ -74,14 +96,14 @@ def _setup(case):
 def _jax(case, budget=100.0):
     jax_args, _ = _setup(case)
     return jax_sweep(depletion_powers=jnp.asarray(POWERS),
-                     dose_budget=budget, **jax_args)
+                     dose_budget=budget, **jax_args, **_fusion(case))
 
 
 def _port(case, budget=100.0, **kw):
     _, port_args = _setup(case)
     return tdose.dose_matched_sweep(depletion_powers=POWERS,
                                     dose_budget=budget, device="cpu",
-                                    **port_args, **kw)
+                                    **port_args, **_fusion(case), **kw)
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,12 +112,14 @@ def _port_clean(case):
 
 
 def _arms(case):
-    _, orientations, rescan, ism = CASES[case]
+    _, orientations, rescan, ism = (CASES[case] if case in CASES
+                                    else FUSED[case][:4])
     return (["point", "line"] + (["rescan"] if rescan else [])
             + (["ism"] if ism else []))
 
 
 ARM_CASES = [(c, a) for c in CASES for a in _arms(c)]
+FUSED_ARM_CASES = [(c, a) for c in FUSED for a in _arms(c)]
 
 
 @pytest.mark.parametrize("case,arm", ARM_CASES,
@@ -112,7 +136,27 @@ def test_noise_free_sweep_matches_jax(case, arm):
         assert getattr(want, col) is None and getattr(got, col) is None
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case,arm", FUSED_ARM_CASES,
+                         ids=[f"{c}-{a}" for c, a in FUSED_ARM_CASES])
+def test_noise_free_fused_sweep_matches_jax(case, arm):
+    """Every column of every arm of the fused protocol: RL-fused images
+    (the ISM canvas deconvolved, the rescan canvases fused onto the sample
+    grid) and the FWHMs of the RL-restored point responses."""
+    want, got = getattr(_jax(case), arm), getattr(_port_clean(case), arm)
+    shape = FUSED[case][0]
+    r_ism = FUSED[case][3]
+    assert got.image.shape[1:] == (
+        tuple(int(r_ism * n) for n in shape) if arm == "ism" else shape)
+    for col in COLUMNS:
+        w, g = np.asarray(getattr(want, col)), getattr(got, col)
+        assert g.dtype == torch.float32 and g.shape[0] == len(POWERS)
+        assert np.isfinite(w).all()
+        assert rel(g, w) <= TOL, col
+    for col in ("frc_resolution", "frc_resolution_x", "frc_resolution_y"):
+        assert getattr(want, col) is None and getattr(got, col) is None
+
+
+@pytest.mark.parametrize("case", list(CASES) + list(FUSED))
 def test_noise_free_sweep_header_and_absent_arms(case):
     want, got = _jax(case), _port_clean(case)
     assert rel(got.depletion_powers, want.depletion_powers) == 0.0
@@ -209,8 +253,98 @@ def test_frc_columns():
 def test_refusals():
     with pytest.raises(ValueError, match="generator"):
         _port(NOISY, frc=True)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        _port(NOISY, fuse_orientations=True, fusion_iters=5)
+
+
+FUSED_NOISY = "fused_o2_rescan_r2_ism_r2"
+
+
+@functools.lru_cache(maxsize=None)
+def _port_fused_noisy(seed, frc=False):
+    return _port(FUSED_NOISY, frc=frc,
+                 generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("arm", ["point", "line", "ism"])
+def test_noisy_fused_totals_within_5_sigma(arm):
+    """RL's update keeps each iteration's total at the views' mean total
+    (``sum(est * corr(d / pred, psf)) = sum(d)``), so a fused image's total
+    is its views' mean noisy total: the point arm's one image, the line
+    arm's mean over V views (variance mean / V), ISM's canvas over the
+    kernel sum S (variance mean / S). Each against the JAX noise-free
+    fused total, which is the views' mean total."""
+    from rescan_line_sted_torch.imaging import rescan_point_system_kernel
+
+    want, got = getattr(_jax(FUSED_NOISY), arm), getattr(
+        _port_fused_noisy(5), arm)
+    _, port_args = _setup(FUSED_NOISY)
+    for i, s in enumerate(POWERS):
+        mu = float(np.asarray(want.image[i], np.float64).sum())
+        var = mu
+        if arm == "line":
+            var = mu / port_args["orientations"]
+        elif arm == "ism":
+            pp = port_args["point_base"].replace(depletion=s)
+            var = mu / float(rescan_point_system_kernel(
+                port_args["ism_geom"], pp, "cpu").double().sum())
+        z = (float(got.image[i].double().sum()) - mu) / math.sqrt(var)
+        assert abs(z) <= 5, (i, z)
+        assert torch.isfinite(got.image[i]).all()
+    for col in COLUMNS[1:]:
+        assert rel(getattr(got, col), getattr(want, col)) <= TOL
+
+
+def test_noisy_fused_rescan_arm():
+    """The rescan arm's noisy image is the operator fusion of its canvases,
+    drawn again from its own generator (arm 2, draw 0), and those canvases'
+    totals lie within 5 sigma of their noise-free means."""
+    from rescan_line_sted_torch.algorithms import (
+        multi_orientation_rescan,
+        rescan_fusion,
+    )
+
+    got = _port_fused_noisy(5).rescan
+    _, port_args = _setup(FUSED_NOISY)
+    geom, base = port_args["rescan_geom"], port_args["line_base"]
+    orientations, iters = port_args["orientations"], FUSED[FUSED_NOISY][4]
+    gens = tdose.arm_generators(torch.Generator().manual_seed(5),
+                                len(POWERS))
+    angles = torch.arange(orientations, dtype=torch.float32) * (
+        math.pi / orientations)
+    static = tuple(v * math.pi / orientations for v in range(orientations))
+    for i, s in enumerate(POWERS):
+        params = base.replace(depletion=s,
+                              brightness=float(got.exposure[i]))
+        canvases = multi_orientation_rescan(
+            port_args["sample"], params, geom, angles, gens[2][i][0],
+            device="cpu")
+        clean = multi_orientation_rescan(port_args["sample"], params, geom,
+                                         angles, device="cpu")
+        for img, mean in zip(canvases, clean):
+            assert abs(_poisson_z(img, mean)) <= 5
+        assert torch.equal(got.image[i], rescan_fusion(
+            canvases, params, geom, static, iters))
+
+
+def test_noisy_fused_frc_and_reproducibility():
+    """``frc=True`` with fusion: the draws of the images do not change, and
+    every arm reports a finite radial FRC column (the fused rescan image
+    lies on the sample grid, so no per-axis columns)."""
+    a, b = _port_fused_noisy(5), _port_fused_noisy(5, frc=True)
+    for arm in ("point", "line", "rescan", "ism"):
+        assert torch.equal(getattr(a, arm).image, getattr(b, arm).image)
+        col = getattr(b, arm).frc_resolution
+        assert col.shape == (len(POWERS),) and torch.isfinite(col).all()
+        assert getattr(b, arm).frc_resolution_x is None
+        assert getattr(a, arm).frc_resolution is None
+
+
+def test_cpu_fused_sweep_launches_no_kernel():
+    from rescan_line_sted_torch.kernels import _build
+
+    _build.reset_launches()
+    _port(FUSED_NOISY, frc=True,
+          generator=torch.Generator().manual_seed(8))
+    assert all(v == 0 for v in _build.LAUNCHES.values())
 
 
 def test_sweep_defaults_to_the_card(monkeypatch):
