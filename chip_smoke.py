@@ -188,7 +188,25 @@ sm_90a), then:
    printed), the 2048^2 operator's forward and adjoint and its
    adjointness, and the flagship's fusion at 512^2; noisy totals within 5
    sigma, FRC columns finite or NaN (no crossing) and above Nyquist; RL's
-   ms per iteration at 2048^2.
+   ms per iteration at 2048^2;
+16. drives the command line (``rescan_line_sted_torch/cli.py``;
+   ``phase_cli``): every figure of ``figure all --size 256`` (comparison,
+   the fused sweep of 16 powers in four checkpointed chunks, fusion,
+   rescan, ism, fov at 128^2, 256^2 and 512^2, the animation and the
+   report at 192^2) through ``cli.main`` in this process, each with the
+   counters reset before and read after and held to the K2c launches
+   worked out from the pipelines (``CLI_K2C``: 4, 48, 1, 2, 3, 6, 2, 51,
+   nothing else), its last stdout line parsed as strict JSON, its TIFFs
+   read back with the port's reader at their shapes, the animation's
+   frames and the report's one data URI per frame and three sliders
+   checked (rendered without matplotlib where it is missing); its first
+   call's synced wall time, and one more call's wall time and device-busy
+   share under the profiler; each figure at 64^2 on the card against
+   ``--platform cpu`` (the noise-free metrics within 1e-5 relative);
+   ``python -m rescan_line_sted_torch psf-report --depletion 8
+   --vectorial`` as a subprocess (rc 0, strict JSON); and the native TIFF
+   codec (built with g++ into the build directory, byte-identical to the
+   pure-Python writer on a [16, 256, 256] float32 stack).
 
 Prints a ``rule2`` line (K2b's, K2c's and K5's times against their
 library call and their bounds, K1's four modes and K3 against their bounds
@@ -3232,6 +3250,272 @@ def phase_fusion(dev) -> dict:
     return out
 
 
+CLI_SIZE = 256                 # `figure all`'s default --size (cli.py)
+CLI_SMALL = 64                 # card against CPU
+CLI_OUT = os.path.join(ROOT, "out", "chip_smoke_cli")    # git-ignored
+# K2c launches of each figure of `figure all --size 256`, worked out from
+# the pipelines (pipelines/figures.py, animation.py, report.py): every
+# noisy acquisition draws once through physics.noise.maybe_poisson
+CLI_K2C = {
+    "comparison": 2 * 2,       # point and line arms x powers 0 and 8
+    "sweep": 3 * 16,           # point, line, rescan x 16 powers (4 chunks)
+    "fusion": 1,               # the 4 views of one multi-orientation call
+    "rescan": 2,               # line_sted_image, rescanned_line_sted_image
+    "ism": 3,                  # point_sted_image and two ISM canvases
+    "fov": 2 * 3,              # two calls per size (compile_s, wall_s)
+    "animation": 2,            # the camera frames and the scan image
+    "report": 4 * 2 * 6 + 3,   # 4 arms x 2 draws (frc) x 6 powers; frames,
+                               # scan image, views
+}
+# the noise-free metrics held card against CPU (figures.py, report.py)
+CLI_CLEAN = {
+    "comparison": ("point_fwhm_x", "line_fwhm_x", "point_steps",
+                   "line_steps", "point_signal", "line_signal"),
+    "sweep": ("point_fwhm_x_at_smax", "line_fwhm_x_at_smax",
+              "line_fwhm_y_at_smax", "line_to_point_step_ratio",
+              "num_sweep_points_run"),
+    "fusion": ("view_kernel_fwhm_x", "view_kernel_fwhm_y"),
+    "rescan": ("canvas_shape",),
+    "ism": ("canvas_shape", "ism_confocal_fwhm_sample_px",
+            "ism_sted_fwhm_sample_px"),
+    "fov": ("records",),
+    "animation": ("frames",),
+    "report": ("figures", "frames"),
+}
+
+
+def strict_json(line: str):
+    """``line`` as JSON, refusing NaN and Infinity as RFC parsers do."""
+    def no_const(c):
+        raise ValueError(f"non-RFC JSON constant {c} in {line[:200]}")
+    return json.loads(line, parse_constant=no_const)
+
+
+def run_cli(argv) -> dict:
+    """``python -m rescan_line_sted_torch`` in this process: its last
+    stdout line as strict JSON."""
+    import contextlib
+    import io
+
+    from rescan_line_sted_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    check(lines, f"cli {' '.join(argv)} printed nothing")
+    return strict_json(lines[-1])
+
+
+def figure_argv(name, size, out, small=False):
+    argv = ["figure", name, "--size", str(size), "--out", out]
+    if small:           # few powers, one FOV size, few RL iterations
+        argv += ["--num-powers", "4", "--fov-sizes", str(size),
+                 "--rl-iters", "10"]
+    return argv
+
+
+def profiled_call(fn) -> dict:
+    """Wall ms of one synced call under ``torch.profiler`` (the device
+    alone traced), its device-busy ms and largest device rows, summed from
+    the raw trace events (``key_averages`` takes tens of seconds on a
+    whole fused sweep's events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    rows = sorted(([ms, name[:80], n] for name, (ms, n) in by_name.items()),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    return {"ms": wall, "device_busy_ms": busy, "busy_share": busy / wall,
+            "device_rows": rows[:3]}
+
+
+def cli_artifacts(name, out, size, metrics) -> None:
+    """The TIFFs read back with the port's reader at their shapes, the
+    animation's frames, and the report's data URIs and sliders."""
+    from rescan_line_sted_torch.io import tif_to_array
+
+    s, c2 = (size, size), (size, 2 * size)
+    tifs = {"comparison": {f"comparison_{k}.tif": s for k in (
+                "sample", "point_confocal", "point_sted", "line_confocal",
+                "line_sted")},
+            "sweep": {f"dose_sweep_images_{k}.tif": s for k in (
+                "point_s0", "point_smax", "line_s0", "line_smax")},
+            "fusion": {f"fusion_{k}.tif": s for k in (
+                "sample", "view_0deg", "view_45deg", "fused_rl")},
+            "rescan": {"rescan_sample.tif": s, "rescan_descanned.tif": s,
+                       "rescan_rescanned_canvas.tif": c2},
+            "ism": {"ism_sample.tif": s, "ism_point_sted_descanned.tif": s,
+                    "ism_ism_canvas_confocal.tif": (2 * size, 2 * size),
+                    "ism_ism_canvas_sted.tif": (2 * size, 2 * size)}}
+    for fname, shape in tifs.get(name, {}).items():
+        img = tif_to_array(os.path.join(out, fname))
+        check(img.shape == shape and np.isfinite(img).all(),
+              f"cli {name}: {fname} {img.shape} != {shape} or not finite")
+    if name == "sweep":
+        curves = np.load(os.path.join(out, "dose_sweep_curves.npz"))
+        check(all(curves[k].shape == (16,) for k in curves.files),
+              f"cli sweep: curves {curves.files}")
+    if name == "animation":
+        path = metrics["path"]
+        if path.endswith(".npz"):        # no Pillow: the frames as npz
+            frames = np.load(path)["frames"]
+            check(frames.shape == (32, size, 2 * size + 4, 3),
+                  f"cli animation: frames {frames.shape}")
+        else:
+            check(os.path.getsize(path) > 0, "cli animation: empty GIF")
+    if name == "report":
+        html = open(os.path.join(out, "index.html")).read()
+        uris = html.count("data:image/")
+        check(uris == metrics["frames"] == 6 + 16 + 4 + 1
+              and html.count('<input type="range"') == 3
+              and "wire(" in html,
+              f"cli report: {uris} data URIs for {metrics['frames']} frames")
+        try:
+            import matplotlib  # noqa: F401
+            has_mpl = True
+        except ImportError:
+            has_mpl = False
+        log(f"cli report: {uris} data URIs ({html.count('data:image/png')} "
+            f"PNG, {html.count('data:image/svg+xml')} SVG), three sliders, "
+            f"{len(html)} bytes, rendered "
+            f"{'with' if has_mpl else 'without'} matplotlib")
+
+
+def cli_card_vs_cpu(dev) -> dict:
+    """Each figure at 64^2 (4 powers, one FOV size, 10 RL iterations) on
+    the card and with ``--platform cpu``: its noise-free metrics within
+    1e-5 relative (the sweep's fused FWHMs among them, the bound
+    ``tests/test_torch_sweep.py`` holds against JAX)."""
+    from rescan_line_sted_torch.kernels import _build
+
+    errs = {}
+    for name, keys in CLI_CLEAN.items():
+        out = os.path.join(CLI_OUT, f"small_{name}")
+        _build.reset_launches()
+        card = run_cli(figure_argv(name, CLI_SMALL, out + "_card", True))
+        check(_build.LAUNCHES["poisson_flat"] > 0,
+              f"cli {name} at {CLI_SMALL}^2 must draw on the card")
+        cpu = run_cli(["--platform", "cpu",
+                       *figure_argv(name, CLI_SMALL, out + "_cpu", True)])
+        worst = 0.0
+        for key in keys:
+            got, want = card[key], cpu[key]
+            if key == "records":
+                for g, w in zip(got, want):
+                    check(g["fov"] == w["fov"]
+                          and g["scan_steps"] == w["scan_steps"],
+                          f"cli fov records {g} vs {w}")
+                    for col in ("view_kernel_fwhm_y", "view_kernel_fwhm_x"):
+                        worst = max(worst,
+                                    abs(g[col] - w[col]) / abs(w[col]))
+            elif isinstance(want, float):
+                worst = max(worst, abs(got - want) / abs(want))
+            else:
+                check(got == want, f"cli {name} {key}: {got} != {want}")
+        errs[name] = worst
+    log(f"cli card vs CPU at {CLI_SMALL}^2, noise-free metrics (max rel): "
+        f"{json.dumps(errs)}")
+    check(max(errs.values()) <= 1e-5, "cli card vs CPU beyond 1e-5")
+    return errs
+
+
+def native_tiff() -> dict:
+    """The native TIFF codec, built with g++ into the build directory:
+    available, and byte-identical to the pure-Python writer on a [16, 256,
+    256] float32 stack; both writers' host times."""
+    import tempfile
+
+    from rescan_line_sted_torch.io import array_to_tif
+    from rescan_line_sted_torch.io.native import loader, native_available
+
+    check(native_available(), "the native TIFF codec must build here")
+    arr = np.random.default_rng(0).random((16, 256, 256), np.float32)
+    times, blobs = {}, {}
+    os.makedirs(CLI_OUT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=CLI_OUT) as d:
+        for native in (True, False):
+            path = os.path.join(d, f"{native}.tif")
+            array_to_tif(arr, path, use_native=native)      # warm
+            t0 = time.perf_counter()
+            array_to_tif(arr, path, use_native=native)
+            times["native_ms" if native else "python_ms"] = (
+                time.perf_counter() - t0) * 1e3
+            blobs[native] = open(path, "rb").read()
+    check(blobs[True] == blobs[False],
+          "native TIFF bytes differ from the pure-Python writer's")
+    log(f"native TIFF codec {loader.library_path().name}: byte-identical on "
+        f"[16, 256, 256] float32 ({len(blobs[True])} bytes); write "
+        f"{times['native_ms']:.1f} ms native, {times['python_ms']:.1f} ms "
+        "pure Python (host)")
+    return times
+
+
+def phase_cli(dev) -> dict:
+    """The command line on the card (``rescan_line_sted_torch/cli.py``):
+    every figure of ``figure all --size 256`` run in this process through
+    ``cli.main``, each with the counters reset before and read after and
+    held to ``CLI_K2C``, its last stdout line strict JSON, its artifacts
+    read back; then each once more under the profiler for its busy share;
+    the figures card against ``--platform cpu`` at 64^2; ``psf-report
+    --vectorial`` as a subprocess; and the native TIFF codec."""
+    import shutil
+
+    from rescan_line_sted_torch.kernels import _build
+
+    name_power = card()
+    out = {"paths": {}, "figures": {}}
+    t_phase = time.time()
+    shutil.rmtree(CLI_OUT, ignore_errors=True)   # no stale sweep checkpoint
+    for name, want in CLI_K2C.items():
+        fig_dir = os.path.join(CLI_OUT, name)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = run_cli(figure_argv(name, CLI_SIZE, fig_dir))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        check(launched == {"poisson_flat": want},
+              f"cli {name}: launches {launched}, predicted K2c {want} and "
+              "nothing else")
+        cli_artifacts(name, fig_dir, CLI_SIZE, metrics)
+        prof = profiled_call(lambda: run_cli(figure_argv(
+            name, CLI_SIZE, os.path.join(CLI_OUT, f"{name}_profiled"))))
+        out["paths"][f"cli_{name}"] = launched
+        out["figures"][name] = dict(first_ms=wall, launches=launched,
+                                    **prof)
+        log(f"cli figure {name} --size {CLI_SIZE}: first call {wall:.1f} ms "
+            f"(synced, K2c {want} as predicted), profiled call "
+            f"{prof['ms']:.1f} ms, device busy {prof['device_busy_ms']:.2f} "
+            f"ms ({prof['busy_share']:.1%}); rows "
+            f"{json.dumps(prof['device_rows'])} | {name_power}")
+        log(f"cli figure {name}: {json.dumps(metrics)[:600]}")
+    out["card_vs_cpu"] = cli_card_vs_cpu(dev)
+    proc = subprocess.run(
+        [sys.executable, "-m", "rescan_line_sted_torch", "psf-report",
+         "--depletion", "8", "--vectorial"], cwd=ROOT, capture_output=True,
+        text=True, timeout=300)
+    check(proc.returncode == 0, f"psf-report failed: {proc.stderr[-2000:]}")
+    out["psf_report"] = strict_json(proc.stdout.strip().splitlines()[-1])
+    log(f"psf-report --vectorial: {json.dumps(out['psf_report'])}")
+    out["tiff"] = native_tiff()
+    out["seconds"] = time.time() - t_phase
+    log(f"phase_cli took {out['seconds']:.1f} s | {name_power}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3280,6 +3564,8 @@ def main() -> int:
     paths.update(fov["paths"])
     fusion = phase_fusion(dev)
     paths.update(fusion["paths"])
+    cli = phase_cli(dev)
+    paths.update(cli["paths"])
     log(f"after timing: {clocks()}")
     log(f"smoke run took {time.time() - t0:.1f} s after the card was named")
 
@@ -3435,6 +3721,10 @@ def main() -> int:
                                         **fusion["e2e"]}}))
     log(json.dumps({"fusion": {
         "configs": fusion["configs"], "card_vs_cpu": fusion["errs"],
+        "card": name_power}}))
+    log(json.dumps({"cli": {
+        "figures": cli["figures"], "card_vs_cpu": cli["card_vs_cpu"],
+        "psf_report": cli["psf_report"], "native_tiff": cli["tiff"],
         "card": name_power}}))
     log(json.dumps({"dose_sweep": {
         "bench_cell": dose["bench"], "card_vs_cpu": dose["errs"],

@@ -29,7 +29,10 @@ import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+DEFAULT_BUILD_DIR = _PKG / "_build"
+# where the library is built; utils.observability.enable_compilation_cache
+# sets it
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -189,7 +192,10 @@ def key_words(generator, device) -> tuple[int, int, torch.Tensor | None]:
     if generator is None:
         return 0, 0, None
     on_host = generator.device.type == "cpu"
-    if not on_host and generator.device != torch.device(device):
+    gen_device = generator.device
+    if not on_host and gen_device.index is None:   # "cuda": the current card
+        gen_device = torch.device("cuda", torch.cuda.current_device())
+    if not on_host and gen_device != torch.device(device):
         raise ValueError(f"generator on {generator.device}, tensor on "
                          f"{device}")
     s = torch.randint(0, 2**31 - 1, (2,), generator=generator,

@@ -1,8 +1,9 @@
-"""Utilities: image rotation.
+"""Utilities: image rotation, and tracing, timing, metrics and debugging
+(``observability``)."""
 
-Not ported yet: ``enable_compilation_cache`` (ROADMAP.md queue 1, slice K).
-"""
-
+from rescan_line_sted_torch.utils.observability import (
+    enable_compilation_cache,
+)
 from rescan_line_sted_torch.utils.rotate import rotate_image
 
-__all__ = ["rotate_image"]
+__all__ = ["enable_compilation_cache", "rotate_image"]

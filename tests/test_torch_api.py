@@ -32,12 +32,11 @@ from rescan_line_sted_torch.sweeps.dose import (
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("", "imaging", "physics", "kernels", "data", "algorithms",
-            "sweeps", "utils")
+            "sweeps", "utils", "io", "pipelines")
 # names whose code is still queued (ROADMAP.md queue 1): calibration
-# (slice I), the host side (slice K)
+# (slice I)
 QUEUED = {"algorithms": {"fit_acquisition_params", "fit_line_sted_params",
-                         "fit_point_sted_params"},
-          "utils": {"enable_compilation_cache"}}
+                         "fit_point_sted_params"}}
 # the port's own names for renamed functions
 ALIASES = {"poisson_pallas": "poisson_flat"}
 

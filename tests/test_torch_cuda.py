@@ -1444,3 +1444,74 @@ def test_fused_sweep_on_card_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
         "poisson_flat": 4 * 3}
+
+
+def _cli_json(capsys, argv) -> dict:
+    """The last stdout line of ``rescan_line_sted_torch``'s CLI, as strict
+    JSON (NaN and Infinity refused)."""
+    import json
+
+    from rescan_line_sted_torch.cli import main
+
+    main(argv)
+
+    def no_const(c):
+        raise ValueError(f"non-RFC JSON constant: {c}")
+
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1],
+                      parse_constant=no_const)
+
+
+@pytest.mark.parametrize("figure,k2c", [
+    (["comparison"], 2 * 2),                 # two arms x two powers
+    (["sweep", "--num-powers", "2"], 3 * 4),  # three arms x one chunk of 4
+], ids=["comparison", "sweep"])
+def test_cli_figure_on_card_matches_cpu(cuda, tmp_path, capsys, figure, k2c):
+    """A figure at 64^2 on the card (the CLI's default device) against
+    ``--platform cpu``: every noise-free metric within 1e-5 relative; K2c
+    launched as predicted and nothing else."""
+    args = ["figure", *figure, "--size", "64"]
+    _build.reset_launches()
+    card = _cli_json(capsys, [*args, "--out", str(tmp_path / "card")])
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "poisson_flat": k2c}
+    cpu = _cli_json(capsys, ["--platform", "cpu", *args, "--out",
+                             str(tmp_path / "cpu")])
+    assert set(card) == set(cpu)
+    for k, v in cpu.items():
+        if isinstance(v, float):
+            assert abs(card[k] - v) <= 1e-5 * abs(v), k
+        else:
+            assert card[k] == v, k
+    assert sorted(p.name for p in (tmp_path / "card").iterdir()) == sorted(
+        p.name for p in (tmp_path / "cpu").iterdir())
+
+
+def test_html_report_on_card(cuda, tmp_path):
+    """The report at 48^2 on the card: one data URI per frame, three
+    sliders; K2c once per arm, draw and power of the sweep (4 x 2 x 2),
+    then once each for the camera frames, the scan image and the views."""
+    from rescan_line_sted_torch.pipelines import html_report
+
+    _build.reset_launches()
+    m = html_report(str(tmp_path), size=48, num_powers=2, num_angles=2,
+                    rl_iters=5, scan_frames=3)
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "poisson_flat": 16 + 3}
+    html = (tmp_path / "index.html").read_text()
+    assert html.count("data:image/") == m["frames"] == 8
+    assert html.count('<input type="range"') == 3 and "wire(" in html
+
+
+def test_native_tiff_codec_bytes(tmp_path):
+    """The native codec builds with g++ and writes the pure-Python
+    writer's bytes for a [16, 256, 256] float32 stack."""
+    from rescan_line_sted_torch.io import array_to_tif
+    from rescan_line_sted_torch.io.native import native_available
+
+    assert native_available()
+    arr = np.random.default_rng(0).random((16, 256, 256), np.float32)
+    array_to_tif(arr, str(tmp_path / "n.tif"), use_native=True)
+    array_to_tif(arr, str(tmp_path / "p.tif"), use_native=False)
+    assert (tmp_path / "n.tif").read_bytes() == (tmp_path / "p.tif").read_bytes()
