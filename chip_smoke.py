@@ -206,7 +206,25 @@ sm_90a), then:
    ``python -m rescan_line_sted_torch psf-report --depletion 8
    --vectorial`` as a subprocess (rc 0, strict JSON); and the native TIFF
    codec (built with g++ into the build directory, byte-identical to the
-   pure-Python writer on a [16, 256, 256] float32 stack).
+   pure-Python writer on a [16, 256, 256] float32 stack);
+17. drives instrument calibration (``algorithms/calibration.py``;
+   ``phase_calibration``): the JAX suite's three fits
+   (``tests/test_calibration.py``) at the cells' widths, each whole under
+   sync-debug mode "error" with the counters reset before and read after
+   (no launch: the fits run the analytic engines): line at 2048^2 on a
+   bead lattice (sigma_det 3.0 and s 5.0 from 2.0 / 1.0, 400 Adam steps),
+   point at 2048^2 on the beads (sigma_det 2.2 and s 3.0 from 3.2 / 1.0,
+   500 steps) and on the JAX test's six-spoke star (printed, not held) and
+   ISM at 512^2, R = 2, on the star; each held to the JAX tolerances
+   (|d sigma_det| < 0.1, |d s| < 0.3, final loss < 1e-2 of the first),
+   with its ms per Adam step (CUDA events, median of 3), the busy share
+   of a profiled 20-step fit and the aten ops and device kernels of one
+   step (``step_counts``); the 128^2 line fit's 50 losses and fitted
+   fields against ``device="cpu"`` (1e-4 relative); and the noise-free
+   analytic forward fitted to noisy 2048^2 acquisitions through K3 (line,
+   per-step, K3 once) and K2c (point, analytic, K2c once), held to the JAX
+   tolerance widened by five shot-noise standard deviations of the
+   least-squares fields (from the photon count, ``shot_noise_sd``).
 
 Prints a ``rule2`` line (K2b's, K2c's and K5's times against their
 library call and their bounds, K1's four modes and K3 against their bounds
@@ -1873,7 +1891,7 @@ def phase_nobands(dev) -> dict:
                           noise_mode="per_step", **r).image for r in routes]
             if others:
                 imgs += [image(star, params, geom, gen, method="scan",
-                               use_pallas=True).image,
+                               use_pallas=True, device=dev).image,
                          image(star, params, geom, gen).image]
             return clean, imgs
 
@@ -3516,6 +3534,274 @@ def phase_cli(dev) -> dict:
     return out
 
 
+# calibration: the JAX suite's fits (tests/test_calibration.py) at the
+# cells' widths
+CAL_LINE = dict(sigma_exc=2.5, sigma_det=3.0, stripe_period=10.0,
+                depletion=5.0, slit_halfwidth=3.0, brightness=100.0)
+CAL_POINT = dict(sigma_exc=2.0, sigma_det=2.2, sigma_dep=2.0, depletion=3.0,
+                 pinhole_radius=3.0, brightness=1.0)
+CAL_FIELDS = ("sigma_det", "depletion")
+CAL_TOL = {"sigma_det": 0.1, "depletion": 0.3}   # the JAX suite's bounds
+CAL_ISM_SIZE, CAL_CPU_SIZE, CAL_CPU_STEPS = 512, 128, 50
+CAL_SIGMAS = 5.0           # shot-noise standard deviations a noisy fit adds
+
+
+def cal_cases(dev, size=SIZE) -> list:
+    """The JAX suite's three fits as dicts (name, fit(data, steps), data,
+    truth, steps, the fields held, the noise-free forward of params, and
+    the noisy acquisition of a generator): line at ``size`` (sparse
+    points, sigma_det 3.0 and s 5.0 from 2.0 / 1.0, 400 steps at 5e-2;
+    per-step noise on K3), and at 2048^2 also point (the same beads,
+    sigma_det 2.2 and s 3.0 from 3.2 / 1.0, 500 steps at 0.1; analytic
+    noise, K2c; and on the JAX test's six-spoke star, held to nothing)
+    and ISM at ``CAL_ISM_SIZE`` (the point's physics on the star through
+    ``rescan_point_canvas_mean``, R = 2)."""
+    from rescan_line_sted_torch import (
+        Grid, LineSTEDGeometry, LineSTEDParams, PointSTEDGeometry,
+        PointSTEDParams, RescanPointGeometry, line_sted_image,
+        point_sted_image)
+    from rescan_line_sted_torch.algorithms import (
+        fit_acquisition_params, fit_line_sted_params, fit_point_sted_params)
+    from rescan_line_sted_torch.data import siemens_star, sparse_points
+    from rescan_line_sted_torch.imaging import rescan_point_canvas_mean
+
+    lt = LineSTEDParams.create(**CAL_LINE)
+    lg = LineSTEDGeometry(Grid(size, size), chunk=32)
+    ls = sparse_points((size, size), spacing=16, device=dev)
+    cases = [dict(
+        name=f"calibration_line_{size}", truth=lt, steps=400,
+        held=CAL_FIELDS,
+        fit=lambda d, n: fit_line_sted_params(
+            d, ls, lt.replace(sigma_det=2.0, depletion=1.0), lg,
+            num_steps=n, learning_rate=5e-2),
+        forward=lambda p: line_sted_image(ls, p, lg, device=dev).image,
+        acquire=lambda g: line_sted_image(
+            ls, lt, lg, generator=g, method="scan", noise_mode="per_step",
+            use_pallas=True, device=dev).image,
+        launches={"line_sted_fused": 1})]
+    if size != SIZE:
+        return cases
+    pt = PointSTEDParams.create(**CAL_POINT)
+    pinit = pt.replace(sigma_det=3.2, depletion=1.0)
+    pg = PointSTEDGeometry(Grid(size, size), chunk=64)
+    star = siemens_star((size, size), spokes=6, device=dev)
+    n = CAL_ISM_SIZE
+    ig = RescanPointGeometry(Grid(n, n), rescan_factor=2.0)
+    iss = siemens_star((n, n), spokes=6, device=dev)
+
+    def point(name, ps, held, acquire):
+        return dict(
+            name=name, truth=pt, steps=500, held=held,
+            fit=lambda d, k: fit_point_sted_params(
+                d, ps, pinit, pg, num_steps=k, learning_rate=0.1),
+            forward=lambda p: point_sted_image(ps, p, pg, device=dev).image,
+            acquire=(lambda g: point_sted_image(
+                ps, pt, pg, generator=g, device=dev).image) if acquire
+            else None,
+            launches={"poisson_flat": 1})
+
+    cases += [
+        point(f"calibration_point_{size}", ls, CAL_FIELDS, True),
+        # the JAX test's star (32^2 there): wider, its few edges leave
+        # sigma_det and s confounded after 500 steps (the JAX fit's too),
+        # so nothing is held
+        point(f"calibration_point_{size}_star", star, (), False),
+        dict(name=f"calibration_ism_{n}", truth=pt, steps=500,
+             held=("sigma_det",),
+             fit=lambda d, k: fit_acquisition_params(
+                 lambda p: rescan_point_canvas_mean(iss, p, ig), d, pinit,
+                 CAL_FIELDS, num_steps=k, learning_rate=0.1),
+             forward=lambda p: rescan_point_canvas_mean(iss, p, ig),
+             acquire=None)]
+    return cases
+
+
+def sync_free(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: a
+    host-device sync inside raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def step_counts(fit, data) -> dict:
+    """What one Adam step of ``fit`` dispatches on the card: aten ops
+    (forward, backward and Adam, counted by a ``TorchDispatchMode``) and
+    device kernels and copies (``torch.profiler``'s device events), each
+    as a 3-step fit less a 1-step one, over 2."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    ops, kernels = {}, {}
+    for steps in (1, 3):
+        with Count() as c:
+            fit(data, steps)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fit(data, steps)
+            torch.cuda.synchronize()
+        ops[steps] = c.n
+        kernels[steps] = sum(e.count for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA)
+    return {"aten_ops_per_step": (ops[3] - ops[1]) / 2,
+            "device_kernels_per_step": (kernels[3] - kernels[1]) / 2}
+
+
+def fit_errors(fitted, truth) -> dict:
+    return {f: float(getattr(fitted, f)) - float(getattr(truth, f))
+            for f in CAL_FIELDS}
+
+
+def shot_noise_sd(forward, truth) -> tuple[dict, float]:
+    """Standard deviation of each least-squares field under the Poisson
+    noise of the noise-free image ``mu`` at ``truth``: ``sqrt(diag(A^-1 B
+    A^-1))`` with ``A = J^T J``, ``B = J^T diag(mu) J`` and the Jacobian J
+    by central differences of the card's forward (steps of 1e-3 of each
+    field, float64 sums); and the photon count ``sum(mu)``. A per-step
+    image sums independent Poisson counts, so its pixels are Poisson in
+    ``mu`` too."""
+    mu = forward(truth).double().flatten()
+    cols = []
+    for f in CAL_FIELDS:
+        v = float(getattr(truth, f))
+        up, dn = float(np.float32(v * 1.001)), float(np.float32(v * 0.999))
+        cols.append((forward(truth.replace(**{f: up})).double().flatten()
+                     - forward(truth.replace(**{f: dn})).double().flatten())
+                    / (up - dn))
+    j = torch.stack(cols, 1)
+    a_inv = torch.linalg.inv(j.T @ j)
+    cov = a_inv @ (j.T @ (mu[:, None] * j)) @ a_inv
+    return ({f: float(s) for f, s in zip(CAL_FIELDS, cov.diagonal().sqrt())},
+            float(mu.sum()))
+
+
+def phase_calibration(dev) -> dict:
+    """Instrument calibration on the card (``algorithms/calibration.py``):
+    the JAX suite's three fits at the cells' widths (line and point
+    2048^2, ISM 512^2), each run whole under sync-debug mode "error" with
+    the counters reset before and read after (no kernel: the fits run the
+    analytic engines), held to the JAX suite's tolerances and timed (ms
+    per Adam step, busy share of a profiled 20-step fit, ``step_counts``);
+    the 128^2 line fit against ``device="cpu"``; then the noise-free analytic forward
+    fitted to noisy 2048^2 acquisitions through K3 (line, per-step) and
+    K2c (point, analytic), held to the JAX tolerance widened by
+    ``CAL_SIGMAS`` shot-noise standard deviations."""
+    name_power = card()
+    out = {"paths": {}, "fits": {}, "e2e": {}, "noisy": {}}
+    t_phase = time.time()
+    cases = cal_cases(dev)
+    for c in cases:
+        name, fit, steps = c["name"], c["fit"], c["steps"]
+        data = c["forward"](c["truth"])
+        fit(data, 2)                         # cuFFT plans, Adam's kernels
+        t0 = time.perf_counter()
+        (fitted, losses), launched = drive(
+            name, lambda: sync_free(lambda: fit(data, steps)))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        check(launched == {}, f"{name} must launch no kernel: {launched}")
+        check(losses.is_cuda and fitted.sigma_det.is_cuda,
+              f"{name}: the fit must stay on the card")
+        loss = losses.cpu()                   # the one read, after the loop
+        err = fit_errors(fitted, c["truth"])
+        check(bool(torch.isfinite(loss).all())
+              and (float(loss[-1]) < 1e-2 * float(loss[0]) or not c["held"]),
+              f"{name}: loss {float(loss[0])} -> {float(loss[-1])}")
+        for f in c["held"]:
+            check(abs(err[f]) < CAL_TOL[f], f"{name}: {f} off by {err[f]}")
+        t = call_times(lambda: fit(data, steps), lambda: fit(data, 20),
+                       warm_up=False)
+        step_ms = t["ms"] / steps
+        counts = step_counts(fit, data)
+        out["paths"][name] = launched
+        out["e2e"][f"{name} ({steps} Adam steps)"] = t["ms"]
+        out["fits"][name] = dict(
+            steps=steps, errors=err, loss_first=float(loss[0]),
+            loss_last=float(loss[-1]), wall_ms=wall_ms, ms_per_step=step_ms,
+            **counts, **t)
+        log(f"{name}: {steps} steps, errors {json.dumps(err)} (JAX bounds "
+            f"{json.dumps({f: CAL_TOL[f] for f in c['held']})}), loss "
+            f"{float(loss[0]):.4g} -> {float(loss[-1]):.4g}, no sync, no "
+            f"launch; wall {wall_ms:.1f} ms (synced, under sync-debug); "
+            f"{t['ms']:.1f} ms per fit (median of {CALL_REPEATS}, "
+            f"{t['min_ms']:.1f}-{t['max_ms']:.1f}), {step_ms:.3f} ms per "
+            f"Adam step; 20 profiled steps {t['profiled_ms']:.1f} ms, "
+            f"device busy {t['device_busy_ms']:.2f} ms "
+            f"({t['busy_share']:.1%}); rows {json.dumps(t['device_rows'][:3])}"
+            f"; per step {counts['aten_ops_per_step']:g} aten ops, "
+            f"{counts['device_kernels_per_step']:g} device kernels"
+            f" | {name_power}")
+
+    # the 128^2 line fit on the card against the CPU, on the same data
+    (c,) = cal_cases(dev, CAL_CPU_SIZE)
+    (cpu,) = cal_cases("cpu", CAL_CPU_SIZE)
+    name, fit = c["name"], c["fit"]
+    data = c["forward"](c["truth"])
+    fitted, losses = sync_free(lambda: fit(data, CAL_CPU_STEPS))
+    cfitted, closses = cpu["fit"](data.cpu(), CAL_CPU_STEPS)
+    lerr = float(((losses.double().cpu() - closses.double())
+                  / closses.double()).abs().max())
+    ferr = max(abs(float(getattr(fitted, f)) / float(getattr(cfitted, f))
+                   - 1.0) for f in CAL_FIELDS)
+    t = call_times(lambda: fit(data, CAL_CPU_STEPS), lambda: fit(data, 20))
+    counts = step_counts(fit, data)
+    out["card_vs_cpu"] = {"losses_max_rel": lerr, "fields_max_rel": ferr}
+    out["fits"][name] = dict(steps=CAL_CPU_STEPS,
+                             ms_per_step=t["ms"] / CAL_CPU_STEPS, **counts,
+                             **t)
+    out["e2e"][f"{name} ({CAL_CPU_STEPS} Adam steps)"] = t["ms"]
+    log(f"{name} card vs CPU over {CAL_CPU_STEPS} steps: losses max rel "
+        f"{lerr:.3e}, fitted fields max rel {ferr:.3e}; {t['ms']:.1f} ms "
+        f"per fit, {t['ms'] / CAL_CPU_STEPS:.3f} ms per Adam step, busy "
+        f"{t['busy_share']:.1%}; per step {counts['aten_ops_per_step']:g} "
+        f"aten ops, {counts['device_kernels_per_step']:g} device kernels | "
+        f"{name_power}")
+    check(lerr <= 1e-4 and ferr <= 1e-4,
+          f"{name} card vs CPU: losses {lerr}, fields {ferr}")
+
+    # the noise-free forward fitted to noisy acquisitions through K3 / K2c
+    for c in cases:
+        if not c["acquire"]:
+            continue
+        name = f"{c['name']}_noisy"
+        gen = torch.Generator().manual_seed(1400)
+        noisy, launched = drive(name, lambda: c["acquire"](gen))
+        check(launched == c["launches"], f"{name}: launches {launched}, "
+              f"predicted {c['launches']} and nothing else")
+        (fitted, losses), fit_launched = drive(
+            f"{name}_fit",
+            lambda: sync_free(lambda: c["fit"](noisy, c["steps"])))
+        check(fit_launched == {}, f"{name}: the fit launched {fit_launched}")
+        sd, photons = shot_noise_sd(c["forward"], c["truth"])
+        err = fit_errors(fitted, c["truth"])
+        bound = {f: CAL_TOL[f] + CAL_SIGMAS * sd[f] for f in CAL_FIELDS}
+        fields = {f: float(getattr(fitted, f)) for f in CAL_FIELDS}
+        out["paths"][name] = launched
+        out["noisy"][name] = dict(
+            photons=photons, sd=sd, bound=bound, errors=err, fitted=fields,
+            loss_first=float(losses[0]), loss_last=float(losses[-1]))
+        log(f"{name}: {photons:.6g} photons, launches {json.dumps(launched)}"
+            f"; fitted {json.dumps(fields)}, errors {json.dumps(err)}, "
+            f"shot-noise sd {json.dumps(sd)}, bounds (JAX + {CAL_SIGMAS:g} "
+            f"sd) {json.dumps(bound)} | {name_power}")
+        for f in CAL_FIELDS:
+            check(abs(err[f]) < bound[f],
+                  f"{name}: {f} off by {err[f]}, bound {bound[f]}")
+    out["seconds"] = time.time() - t_phase
+    log(f"phase_calibration took {out['seconds']:.1f} s | {name_power}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3566,6 +3852,8 @@ def main() -> int:
     paths.update(fusion["paths"])
     cli = phase_cli(dev)
     paths.update(cli["paths"])
+    cal = phase_calibration(dev)
+    paths.update(cal["paths"])
     log(f"after timing: {clocks()}")
     log(f"smoke run took {time.time() - t0:.1f} s after the card was named")
 
@@ -3718,13 +4006,18 @@ def main() -> int:
     log(json.dumps({"e2e_per_step_ms": {**times["e2e"], **desc["e2e"],
                                         **nob["e2e"]}}))
     log(json.dumps({"e2e_per_call_ms": {**dose["e2e"], **fov["e2e"],
-                                        **fusion["e2e"]}}))
+                                        **fusion["e2e"], **cal["e2e"]}}))
     log(json.dumps({"fusion": {
         "configs": fusion["configs"], "card_vs_cpu": fusion["errs"],
         "card": name_power}}))
     log(json.dumps({"cli": {
         "figures": cli["figures"], "card_vs_cpu": cli["card_vs_cpu"],
         "psf_report": cli["psf_report"], "native_tiff": cli["tiff"],
+        "card": name_power}}))
+    log(json.dumps({"calibration": {
+        "fits": {k: {q: v for q, v in f.items() if q != "device_rows"}
+                 for k, f in cal["fits"].items()},
+        "card_vs_cpu": cal["card_vs_cpu"], "noisy": cal["noisy"],
         "card": name_power}}))
     log(json.dumps({"dose_sweep": {
         "bench_cell": dose["bench"], "card_vs_cpu": dose["errs"],

@@ -7,6 +7,11 @@
   on creation, as the JAX package stores them as f32 scalars, so both
   packages compute from the same numbers. The static ``*_support`` fields
   bound the PSF supports; the banded scan windows are built from them.
+  ``replace`` also takes a 0-d float32 tensor for any float field (the
+  calibration fit's differentiable parameters, ``algorithms/
+  calibration.py``): the noise-free engines then compute with torch ops on
+  it, so autograd sees it, and the supports keep the values ``create``
+  gave them, as in the JAX package.
 
 Every class has ``replace(**changes)``, as the JAX package's params carry
 flax's.
@@ -20,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 class Replaceable:
@@ -147,6 +153,20 @@ class RescanPointGeometry(Replaceable):
 def _f(x) -> float:
     """A Python float holding the float32 value of ``x``."""
     return float(np.float32(x))
+
+
+def cache_key_ok(params) -> bool:
+    """Whether ``params`` may key a cache: no field is a tensor (a tensor
+    hashes by identity and carries an autograd graph) and the params hash
+    (a model field may not)."""
+    if any(isinstance(getattr(params, f.name), torch.Tensor)
+           for f in dataclasses.fields(params)):
+        return False
+    try:
+        hash(params)
+    except TypeError:
+        return False
+    return True
 
 
 def _support(sigma, pad: int = 5) -> int:

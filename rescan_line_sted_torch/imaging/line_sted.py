@@ -40,7 +40,11 @@ import functools
 
 import torch
 
-from rescan_line_sted_torch.config import _aperture_support, _support
+from rescan_line_sted_torch.config import (
+    _aperture_support,
+    _support,
+    cache_key_ok,
+)
 from rescan_line_sted_torch.device import as_sample
 from rescan_line_sted_torch.imaging import analytic
 from rescan_line_sted_torch.imaging import boundary as boundaries
@@ -161,12 +165,9 @@ def _scan(sample, params, geom, generator, noise_mode="collapsed",
     if (slit_fits and w <= line_fused.MAX_WIDTH and use_pallas is not False
             and (use_pallas is True or band is None)):
         eff_scaled = bright * eff
-        try:
-            hash(params)
-        except TypeError:   # a model that cannot key the cache: no cache
-            plan = line_fused.line_plan(eff_scaled, gx, slit, slit_support)
-        else:
-            plan = _k3_plan(params, w, slit_support, dev)
+        plan = (_k3_plan(params, w, slit_support, dev)
+                if cache_key_ok(params) else
+                line_fused.line_plan(eff_scaled, gx, slit, slit_support))
         return line_fused.line_sted_fused(sample_y.contiguous(), eff_scaled,
                                           gx, slit, generator, slit_support,
                                           plan=plan)
@@ -217,7 +218,8 @@ def _k3_plan(params, w: int, slit_support: int,
              device: torch.device) -> line_fused.LinePlan:
     """K3's rows, weights and tap run (``line_fused.line_plan``) for the
     profiles ``_scan`` hands it, worked out once per params, width,
-    sampled window and device: a later image makes no host round trip."""
+    sampled window and device: a later image makes no host round trip.
+    Keyed only on params that ``config.cache_key_ok`` admits."""
     eff = params.brightness * effective_line_profile(w, params, device)
     gx = psfs.detection_profile(w, params.sigma_det, device)
     slit = psfs.slit_profile(w, params.slit_halfwidth, device)

@@ -175,7 +175,7 @@ def optimal_rescan_factor(params: RescanParams, width: int) -> torch.Tensor:
     """Optimal rescan factor ``R = 1 + sigma_det^2 / sigma_ill_eff^2``
     (``sigma_ill_eff`` from the depleted line's FWHM). Not capped: strong
     depletion can return R ~ 11+; see ``practical_rescan_factor``."""
-    sd = torch.tensor(params.sigma_det)
+    sd = torch.as_tensor(params.sigma_det)
     return 1.0 + sd.square() / _sigma_ill(params, width).square()
 
 
@@ -185,7 +185,7 @@ def rescan_kernel_sigma(params: RescanParams, width: int,
     sigma_det^2 / R^2`` (sample px), broadcast over ``factors``."""
     sigma_ill = _sigma_ill(params, width)
     t = 1.0 / torch.as_tensor(factors, dtype=torch.float32)
-    sd = torch.tensor(params.sigma_det)
+    sd = torch.as_tensor(params.sigma_det)
     return torch.sqrt(sigma_ill.square() * (1.0 - t).square()
                       + sd.square() * t.square())
 

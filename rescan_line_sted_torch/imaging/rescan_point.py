@@ -89,7 +89,7 @@ def optimal_rescan_factor_point(params, size: int) -> torch.Tensor:
     """Theory-optimal 2D rescan factor ``R = 1 + sigma_det^2 /
     sigma_ill^2``. Not capped: strong depletion pushes it high (R ~ 25 at
     s = 8 with matched widths); see ``practical_rescan_factor_point``."""
-    sd = torch.tensor(params.sigma_det)
+    sd = torch.as_tensor(params.sigma_det)
     return 1.0 + sd.square() / _sigma_ill(params, size).square()
 
 

@@ -36,8 +36,9 @@ def poisson_reference(lam: torch.Tensor,
                       generator: torch.Generator | None = None
                       ) -> torch.Tensor:
     """Plain version of every sampler: ``torch.poisson(clamp(lam, 0))``
-    with NaN rates propagated (``torch.poisson`` itself rejects them)."""
-    lam = lam.clamp_min(0.0)
+    with NaN rates propagated (``torch.poisson`` itself rejects them).
+    Like the kernels' counts, the draws carry no gradient."""
+    lam = lam.detach().clamp_min(0.0)
     nan = torch.isnan(lam)
     counts = torch.poisson(torch.where(nan, 0.0, lam), generator=generator)
     return torch.where(nan, lam, counts)

@@ -57,15 +57,23 @@ def _pupil_grid(sigma_dep, shape, device=None):
     aperture mask of the vortex pupil (first intensity ring at
     ``sigma_dep * sqrt(2)``; the DC sample is excluded, since the vortex
     phase is singular there). Returns ``(fr, phi, f_max, mask)``; f_max is
-    a float32 scalar computed as the JAX package computes it."""
+    the float32 value the JAX package computes, a number or, for a tensor
+    ``sigma_dep``, a 0-d tensor."""
     h, w = shape
     fy = torch.fft.fftfreq(h, device=device, dtype=torch.float32)[:, None]
     fx = torch.fft.fftfreq(w, device=device, dtype=torch.float32)[None, :]
     fr = torch.sqrt(fy * fy + fx * fx)
     phi = torch.atan2(fy, fx)
-    f_max = _f32(_VORTEX_RING_CONST) / (np.sqrt(_f32(2.0)) * _f32(sigma_dep))
-    f_max = min(f_max, _f32(0.5))          # aperture cannot exceed Nyquist
-    mask = ((fr <= float(f_max)) & (fr > 0.0)).to(torch.float32)
+    if isinstance(sigma_dep, torch.Tensor):
+        # full_like: ``number / tensor`` would multiply by a reciprocal
+        f_max = torch.clamp_max(
+            torch.full_like(sigma_dep, _VORTEX_RING_CONST)
+            / (float(np.sqrt(_f32(2.0))) * sigma_dep), 0.5)
+    else:
+        f_max = _f32(_VORTEX_RING_CONST) / (np.sqrt(_f32(2.0))
+                                            * _f32(sigma_dep))
+        f_max = float(min(f_max, _f32(0.5)))  # aperture within Nyquist
+    mask = ((fr <= f_max) & (fr > 0.0)).to(torch.float32)
     return fr, phi, f_max, mask
 
 
@@ -90,7 +98,9 @@ def _vectorial_donut(sigma_dep, shape, charge: int, na: float,
     aperture keeps the scalar model's ring calibration; ``na`` sets
     ``sin(theta_max)``."""
     fr, phi, f_max, mask = _pupil_grid(sigma_dep, shape, device)
-    sin_th = torch.clamp(fr / float(max(f_max, _f32(1e-30))), 0.0, 1.0) * na
+    f_max = (torch.clamp_min(f_max, 1e-30) if isinstance(f_max, torch.Tensor)
+             else max(f_max, float(_f32(1e-30))))
+    sin_th = torch.clamp(fr / f_max, 0.0, 1.0) * na
     cos_th = torch.sqrt(torch.clamp_min(1.0 - sin_th * sin_th, 0.0))
     r2 = float(np.sqrt(_f32(2.0)))
     if polarization in ("circular+", "circular-"):
@@ -204,8 +214,13 @@ class EnvelopedStripeModel:
                                                device)
         x = torch.arange(width, dtype=torch.float32, device=device) \
             - (width // 2)
-        sig = _f32(self.envelope_sigmas) * _f32(params.stripe_period)
-        env = torch.exp(-x.square() / float(_f32(2.0) * sig * sig))
+        period = params.stripe_period
+        if isinstance(period, torch.Tensor):
+            two_sig_sq = 2.0 * (self.envelope_sigmas * period).square()
+        else:
+            sig = _f32(self.envelope_sigmas) * _f32(period)
+            two_sig_sq = float(_f32(2.0) * sig * sig)
+        env = torch.exp(-x.square() / two_sig_sq)
         out = stripe * env
         return _normalized(out)
 
@@ -225,19 +240,28 @@ class InterferenceStripeModel:
         return psfs.line_excitation_profile(width, params.sigma_exc, device)
 
     def depletion(self, width: int, params, device=None) -> torch.Tensor:
+        period = params.stripe_period
+        tensor = isinstance(period, torch.Tensor)
         if self.polarization == "s":
-            vis = _f32(1.0)
+            vis, denom = 1.0, 2.0
+        elif self.polarization == "p" and tensor:
+            sin_th = torch.clamp(torch.full_like(period, self.wavelength_px)
+                                 / (2.0 * period), 0.0, 1.0)
+            vis = torch.abs(1.0 - 2.0 * sin_th * sin_th)
+            denom = 1.0 + vis
         elif self.polarization == "p":
             sin_th = np.clip(_f32(self.wavelength_px)
-                             / (_f32(2.0) * _f32(params.stripe_period)),
+                             / (_f32(2.0) * _f32(period)),
                              _f32(0.0), _f32(1.0))
-            vis = np.abs(_f32(1.0) - _f32(2.0) * sin_th * sin_th)
+            v = np.abs(_f32(1.0) - _f32(2.0) * sin_th * sin_th)
+            vis, denom = float(v), float(_f32(1.0) + v)
         else:
             raise ValueError(f"unknown polarization {self.polarization!r}")
         x = torch.arange(width, dtype=torch.float32, device=device) \
             - (width // 2)
-        fringe = torch.cos(2.0 * math.pi * x / float(params.stripe_period))
-        return (1.0 - float(vis) * fringe) / float(_f32(1.0) + vis)
+        fringe = torch.cos(2.0 * math.pi * x
+                           / (period if tensor else float(period)))
+        return (1.0 - vis * fringe) / denom
 
 
 DEFAULT_LINE_MODEL = GaussianStripeModel()

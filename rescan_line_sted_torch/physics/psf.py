@@ -7,7 +7,10 @@ package's:
   every axis);
 * illumination profiles are peak-normalized, detection profiles are
   sum-normalized;
-* distances are in simulation pixels; everything is float32.
+* distances are in simulation pixels; everything is float32;
+* a scalar parameter is a number or a 0-d float32 tensor (a tensor's
+  gradient flows through every helper; the hard pinhole and slit masks
+  give none, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -17,10 +20,18 @@ import math
 import numpy as np
 import torch
 
-# Scalar arithmetic is done in numpy float32 (as the JAX package does it on
-# f32 scalars), and the result enters torch as a Python scalar, so no
-# host-to-device copy (and no stall) is needed for it.
+# A number's scalar arithmetic is done in numpy float32 (as the JAX package
+# does it on f32 scalars), and the result enters torch as a Python scalar,
+# so no host-to-device copy (and no stall) is needed for it. A 0-d tensor
+# field (a calibration fit's) is computed with torch ops on its own device,
+# so that autograd sees it.
 from rescan_line_sted_torch.config import _f as _f32
+
+
+def _scalar(x):
+    """A field as torch ops take it: a tensor as it is, a number as the
+    Python float of its float32 value."""
+    return x if isinstance(x, torch.Tensor) else _f32(x)
 
 
 def _centered_coords(n: int, device=None) -> torch.Tensor:
@@ -28,7 +39,9 @@ def _centered_coords(n: int, device=None) -> torch.Tensor:
     return torch.arange(n, dtype=torch.float32, device=device) - (n // 2)
 
 
-def _two_sigma_sq(sigma) -> float:
+def _two_sigma_sq(sigma):
+    if isinstance(sigma, torch.Tensor):
+        return 2.0 * sigma.square()
     s = np.float32(sigma)
     return _f32(np.float32(2.0) * s * s)
 
@@ -64,14 +77,18 @@ def detection_psf(shape: tuple[int, int], sigma, device=None) -> torch.Tensor:
 
 def pinhole_mask(shape: tuple[int, int], radius, device=None) -> torch.Tensor:
     """Centered descanned-pinhole integration mask (1 inside, 0 outside)."""
-    r = np.float32(radius)
-    return (radius_sq(shape, device) <= _f32(r * r)).to(torch.float32)
+    if isinstance(radius, torch.Tensor):
+        r_sq = radius.square()
+    else:
+        r = np.float32(radius)
+        r_sq = _f32(r * r)
+    return (radius_sq(shape, device) <= r_sq).to(torch.float32)
 
 
 def slit_profile(width: int, halfwidth, device=None) -> torch.Tensor:
     """Centered descanned-slit integration profile along x, [W]."""
     x = _centered_coords(width, device)
-    return (x.abs() <= _f32(halfwidth)).to(torch.float32)
+    return (x.abs() <= _scalar(halfwidth)).to(torch.float32)
 
 
 def line_excitation_profile(width: int, sigma, device=None) -> torch.Tensor:
@@ -82,7 +99,7 @@ def line_excitation_profile(width: int, sigma, device=None) -> torch.Tensor:
 def stripe_depletion_profile(width: int, period, device=None) -> torch.Tensor:
     """Peak-normalized standing-wave depletion stripe ``sin^2(pi x / P)``."""
     x = _centered_coords(width, device)
-    return torch.sin(math.pi * x / _f32(period)).square()
+    return torch.sin(math.pi * x / _scalar(period)).square()
 
 
 def detection_profile(n: int, sigma, device=None) -> torch.Tensor:
@@ -97,4 +114,4 @@ def detection_profile(n: int, sigma, device=None) -> torch.Tensor:
 
 def effective_psf(exc: torch.Tensor, dep: torch.Tensor, s) -> torch.Tensor:
     """Saturable-depletion effective illumination: ``exc * exp(-s * dep)``."""
-    return exc * torch.exp(-_f32(s) * dep)
+    return exc * torch.exp(-_scalar(s) * dep)

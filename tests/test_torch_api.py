@@ -33,10 +33,8 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("", "imaging", "physics", "kernels", "data", "algorithms",
             "sweeps", "utils", "io", "pipelines")
-# names whose code is still queued (ROADMAP.md queue 1): calibration
-# (slice I)
-QUEUED = {"algorithms": {"fit_acquisition_params", "fit_line_sted_params",
-                         "fit_point_sted_params"}}
+# names whose code is still queued (ROADMAP.md queue 1): none
+QUEUED: dict[str, set[str]] = {}
 # the port's own names for renamed functions
 ALIASES = {"poisson_pallas": "poisson_flat"}
 

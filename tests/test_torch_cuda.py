@@ -1515,3 +1515,43 @@ def test_native_tiff_codec_bytes(tmp_path):
     array_to_tif(arr, str(tmp_path / "n.tif"), use_native=True)
     array_to_tif(arr, str(tmp_path / "p.tif"), use_native=False)
     assert (tmp_path / "n.tif").read_bytes() == (tmp_path / "p.tif").read_bytes()
+
+
+def test_line_fit_on_card_matches_cpu_and_never_syncs(cuda):
+    """The 2048^2 line fit's loss and gradient at its start (the softplus
+    parameterisation of ``algorithms/calibration.py``) on the card against
+    the CPU's (1e-4 relative), and 20 steps of the fit under sync-debug
+    mode "error": the loop reads nothing back."""
+    from rescan_line_sted_torch.algorithms import fit_line_sted_params
+    from rescan_line_sted_torch.data import sparse_points
+
+    n, fields = 2048, ("sigma_det", "depletion")
+    geom = T.LineSTEDGeometry(T.Grid(n, n), chunk=32)
+    true = T.LineSTEDParams.create(sigma_exc=2.5, sigma_det=3.0,
+                                   stripe_period=10.0, depletion=5.0,
+                                   slit_halfwidth=3.0, brightness=100.0)
+    init = true.replace(sigma_det=2.0, depletion=1.0)
+    sample = sparse_points((n, n), spacing=16, device=cuda)
+    data = T.line_sted_image(sample, true, geom).image
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        theta = {f: torch.log(torch.expm1(torch.tensor(
+            getattr(init, f), device=dev))).requires_grad_() for f in fields}
+        p = init.replace(**{f: torch.nn.functional.softplus(t)
+                            for f, t in theta.items()})
+        loss = torch.mean(torch.square(T.line_sted_image(
+            sample.to(dev), p, geom, device=dev).image - data.to(dev)))
+        loss.backward()
+        got[dev.type] = [float(loss.detach())] + [float(theta[f].grad)
+                                                 for f in fields]
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b), got
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fitted, losses = fit_line_sted_params(data, sample, init, geom,
+                                              num_steps=20)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert losses.is_cuda and fitted.sigma_det.is_cuda
+    assert bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]
