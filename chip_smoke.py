@@ -224,7 +224,25 @@ sm_90a), then:
    analytic forward fitted to noisy 2048^2 acquisitions through K3 (line,
    per-step, K3 once) and K2c (point, analytic, K2c once), held to the JAX
    tolerance widened by five shot-noise standard deviations of the
-   least-squares fields (from the photon count, ``shot_noise_sd``).
+   least-squares fields (from the photon count, ``shot_noise_sd``);
+18. drives ``parallel/`` (``phase_parallel``): a world of one rank over
+   NCCL in this process (the flagship through ``rescanned_line_sted_image``
+   on a row-sharded ``DTensor``, the gathered route, and through
+   ``rescanned_line_sted_sharded``, whose halo is the block's own wrap
+   rows; K1 once each, within 1e-5 of the unsharded K1 call), then a world
+   of two gloo ranks sharing this card in spawned processes
+   (``parallel_rank``): the flagship noise-free (K1 once per rank, within
+   1e-5), the NUFFT case R = 1 + pi/16 (within 1e-5), per-step and
+   collapsed noise (K1, and K2c on each rank's rows; totals within 5
+   sigma), a sample repeating every H/2 rows whose identical blocks must
+   draw different, uncorrelated counts (per-rank key words), and
+   ``run_sharded_sweep`` of the 256^2 sweep cell at 16 powers (columns
+   within 1e-5 of the unsharded sweep, noisy totals within 5 sigma, K2c
+   16 per rank); ``--multihost psf-report`` under ``torch.distributed.run``
+   with two processes (rc 0, ``process 0/2`` and ``1/2`` logged, each
+   rank's report equal to one process's); the halo exchange's and each
+   rank's K1 ms inside the sharded call, and the whole call's ms against
+   the unsharded one's, one rank and two.
 
 Prints a ``rule2`` line (K2b's, K2c's and K5's times against their
 library call and their bounds, K1's four modes and K3 against their bounds
@@ -3802,6 +3820,383 @@ def phase_calibration(dev) -> dict:
     return out
 
 
+PARALLEL_WORLD = 2              # ranks of the gloo world, all on cuda:0
+PARALLEL_POWERS = 16            # the sharded sweep's points (256^2 cell)
+PARALLEL_REPEATS = 5
+PARALLEL_CASES = ("flagship", "irrational", "flagship_per_step",
+                  "flagship_collapsed", "periodic_clean", "periodic_per_step")
+
+
+def sharded_times(call, barrier=None, repeats=PARALLEL_REPEATS) -> dict:
+    """Median ms of the whole ``call()`` (host clock around synchronised
+    calls, after ``barrier``), and of its halo exchange (host clock,
+    synchronised around it) and K1 launch (CUDA events) in instrumented
+    calls (module attributes wrapped, then restored)."""
+    import importlib
+
+    from rescan_line_sted_torch.parallel import sharded_rescan
+
+    rbf = importlib.import_module(
+        "rescan_line_sted_torch.kernels.rescan_banded_fused")
+
+    def timed(fn):
+        (barrier or (lambda: None))()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t)
+
+    call()
+    whole = [timed(call) for _ in range(repeats)]
+    rec = {"halo_ms": [], "k1_ms": []}
+    halo, k1 = sharded_rescan.halo_exchange, rbf.rescan_banded_fused
+
+    def timed_halo(*a, **kw):
+        out = []
+        rec["halo_ms"].append(timed(lambda: out.append(halo(*a, **kw))))
+        return out[0]
+
+    def timed_k1(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = k1(*a, **kw)
+        end.record()
+        end.synchronize()
+        rec["k1_ms"].append(start.elapsed_time(end))
+        return out
+
+    sharded_rescan.halo_exchange, rbf.rescan_banded_fused = timed_halo, timed_k1
+    try:
+        for _ in range(repeats):
+            (barrier or (lambda: None))()
+            call()
+    finally:
+        sharded_rescan.halo_exchange, rbf.rescan_banded_fused = halo, k1
+    return {"call_ms": float(np.median(whole)),
+            "call_ms_all": [round(t, 3) for t in whole],
+            "halo_ms": float(np.median(rec["halo_ms"])),
+            "k1_ms": float(np.median(rec["k1_ms"]))}
+
+
+def parallel_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of ``phase_parallel``'s gloo world (a spawned process on
+    cuda:0): the flagship noise-free, per-step and collapsed, the NUFFT
+    case and the periodic sample through ``rescanned_line_sted_image`` on
+    row shards, and the batch-sharded sweep; each run's launches (counters
+    reset just before, read just after), local rows and times go to
+    ``out``."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from rescan_line_sted_torch import rescanned_line_sted_image
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.kernels import _build
+    from rescan_line_sted_torch.parallel import initialize_multihost, make_mesh
+    from rescan_line_sted_torch.sweeps import dose_matched_sweep
+    from rescan_line_sted_torch.sweeps.mesh import run_sharded_sweep
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    facts = {"init": initialize_multihost(f"file://{store}", world, rank,
+                                          backend="gloo"),
+             "backend": dist.get_backend(), "launches": {}}
+    mesh = make_mesh({"space": world})
+    arrays = {}
+
+    def rows(x):
+        return distribute_tensor(x, mesh, [Shard(0)], src_data_rank=None)
+
+    def run(name, fn):
+        dist.barrier()
+        _build.reset_launches()
+        img = fn()
+        torch.cuda.synchronize()
+        facts["launches"][name] = {k: v for k, v in _build.LAUNCHES.items()
+                                   if v}
+        return img
+
+    def scan(smp, params, geom, seed=None, **kw):
+        return rescanned_line_sted_image(
+            rows(smp), params, geom, method="scan",
+            generator=None if seed is None
+            else torch.Generator(dev).manual_seed(seed), **kw).image
+
+    sample = siemens_star((SIZE, SIZE), device=dev)
+    params, geom = flagship()
+    p_ir, g_ir = flagship(rescan_factor=IRRATIONAL)
+    periodic = sample[:SIZE // world].repeat(world, 1)
+    runs = {
+        "flagship": lambda: scan(sample, params, geom),
+        "irrational": lambda: scan(sample, p_ir, g_ir),
+        "flagship_per_step": lambda: scan(sample, params, geom, 31,
+                                          noise_mode="per_step"),
+        "flagship_collapsed": lambda: scan(sample, params, geom, 32),
+        "periodic_clean": lambda: scan(periodic, params, geom),
+        "periodic_per_step": lambda: scan(periodic, params, geom, 33,
+                                          noise_mode="per_step")}
+    for name, fn in runs.items():
+        img = run(name, fn)
+        arrays[name] = img.to_local().cpu().numpy()
+        facts[f"{name}_placements"] = [str(p) for p in img.placements]
+
+    sa = bench_sweep_args(dev)
+    batch = make_mesh({"batch": world})
+    powers = torch.linspace(0.0, 16.0, PARALLEL_POWERS)
+
+    def sweep_fn(s, pw, *gen):
+        return dose_matched_sweep(s, sa["point_base"], sa["line_base"],
+                                  sa["point_geom"], sa["line_geom"], pw,
+                                  sa["dose_budget"], *gen)
+
+    for name, gen in (("sweep_clean", ()),
+                      ("sweep_noisy", (torch.Generator(dev).manual_seed(34),))):
+        got = run(name, lambda gen=gen: run_sharded_sweep(
+            sweep_fn, batch, sa["sample"], (powers,), *gen))
+        for arm in ("point", "line"):
+            for col in SWEEP_COLUMNS:
+                arrays[f"{name}_{arm}_{col}"] = getattr(
+                    getattr(got, arm), col).to_local().cpu().numpy()
+        facts[f"{name}_placements"] = [str(p) for p in
+                                       got.point.image.placements]
+
+    facts["times"] = sharded_times(
+        lambda: scan(sample, params, geom, 35, noise_mode="per_step"),
+        barrier=dist.barrier)
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(facts, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_cli(single: dict, name_power: str) -> dict:
+    """``--multihost psf-report`` under ``torch.distributed.run`` with two
+    processes on this card (gloo: two ranks share it): rc 0, each
+    process's log line, and each rank's report equal to ``single``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           str(PARALLEL_WORLD), "-m", "rescan_line_sted_torch", "--multihost",
+           "psf-report", "--size", "128"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.time()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          env=env, cwd=ROOT)
+    wall = time.time() - t0
+    check(proc.returncode == 0, f"{' '.join(cmd[2:])} exited "
+          f"{proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    for r in range(PARALLEL_WORLD):
+        check(f"multihost: process {r}/{PARALLEL_WORLD}" in proc.stderr,
+              f"torchrun psf-report: no 'process {r}/{PARALLEL_WORLD}' log "
+              f"line:\n{proc.stderr[-2000:]}")
+    reports = [strict_json(line) for line in proc.stdout.splitlines()
+               if line.startswith("{")]
+    check(len(reports) == PARALLEL_WORLD,
+          f"torchrun psf-report: {len(reports)} reports, not one per rank")
+    worst = max(abs(rep[k] - v) / max(abs(v), 1e-30)
+                for rep in reports for k, v in single.items())
+    check(all(rep.keys() == single.keys() for rep in reports)
+          and worst <= 1e-6,
+          f"torchrun psf-report differs from the single-process report "
+          f"({worst:.2e}): {reports} vs {single}")
+    log(f"parallel cli: {' '.join(cmd[2:])}: rc 0 in {wall:.1f} s, logs "
+        f"process 0/2 and 1/2, both reports equal the single-process one "
+        f"(max rel {worst:.1e}) | {name_power}")
+    return {"wall_s": wall, "max_rel": worst}
+
+
+def phase_parallel(dev) -> dict:
+    """``parallel/`` on the card (phase 18): a world of one rank over NCCL
+    in this process, a world of two gloo ranks on this one card in spawned
+    processes, the batch-sharded sweep over them, and ``--multihost`` under
+    torchrun; parity with the unsharded K1 calls, noise statistics, rank
+    streams, launches per rank and times."""
+    import contextlib
+    import io
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from rescan_line_sted_torch import cli, rescanned_line_sted_image
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.parallel import (
+        initialize_multihost, make_mesh, rescanned_line_sted_sharded)
+    from rescan_line_sted_torch.parallel.mesh import full_tensor
+    from rescan_line_sted_torch.sweeps import dose_matched_sweep
+
+    name_power = card()
+    out = {"paths": {}, "errs": {}, "times": {}}
+    t_phase = time.time()
+    sample = siemens_star((SIZE, SIZE), device=dev)
+    params, geom = flagship()
+    p_ir, g_ir = flagship(rescan_factor=IRRATIONAL)
+    ref = rescanned_line_sted_image(sample, params, geom,
+                                    method="scan").image
+    ref_ir = rescanned_line_sted_image(sample, p_ir, g_ir,
+                                       method="scan").image
+    mean_total = float(ref.double().sum())
+    gen = torch.Generator(dev).manual_seed(36)
+    out["times"]["unsharded_ms"] = cuda_ms(lambda: rescanned_line_sted_image(
+        sample, params, geom, method="scan", noise_mode="per_step",
+        generator=gen))
+
+    # a world of one rank over NCCL, in this process
+    tmp = tempfile.mkdtemp(prefix="rls_parallel_")
+    try:
+        initialize_multihost(f"file://{tmp}/store1", 1, 0, backend="nccl")
+        check(dist.get_backend() == "nccl", "the one-rank world runs NCCL")
+        mesh = make_mesh({"space": 1})
+        rows = distribute_tensor(sample, mesh, [Shard(0)],
+                                 src_data_rank=None)
+        for name, fn in (
+                ("parallel_1rank_entry", lambda: rescanned_line_sted_image(
+                    rows, params, geom, method="scan").image),
+                ("parallel_1rank_sharded", lambda: rescanned_line_sted_sharded(
+                    rows, params, geom, mesh).image)):
+            img, out["paths"][name] = drive(name, fn)
+            check(out["paths"][name] == {"rescan_banded_fused": 1},
+                  f"{name}: K1 once and nothing else: {out['paths'][name]}")
+            check([str(p) for p in img.placements] == ["S(0)"],
+                  f"{name}: rows sharded")
+            out["errs"][name] = max_rel(full_tensor(img), ref)
+        out["times"]["1rank"] = sharded_times(
+            lambda: rescanned_line_sted_sharded(
+                rows, params, geom, mesh, generator=gen,
+                noise_mode="per_step"))
+        dist.destroy_process_group()
+
+        # a world of two gloo ranks sharing this card
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=parallel_rank, args=(
+            r, PARALLEL_WORLD, f"{tmp}/store2", tmp))
+            for r in range(PARALLEL_WORLD)]
+        t0 = time.time()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=max(1.0, 600 - (time.time() - t0)))
+        alive = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+        check(not alive, f"parallel ranks timed out: {alive}")
+        check(all(p.exitcode == 0 for p in procs),
+              f"parallel ranks exited {[p.exitcode for p in procs]}")
+        out["times"]["2rank_wall_s"] = time.time() - t0
+        ranks = [(dict(np.load(f"{tmp}/rank{r}.npz")),
+                  json.load(open(f"{tmp}/rank{r}.json")))
+                 for r in range(PARALLEL_WORLD)]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def whole(name):
+        return torch.from_numpy(np.concatenate([a[name] for a, _ in ranks]))
+
+    want = {"flagship": {"rescan_banded_fused": 1},
+            "irrational": {"rescan_banded_fused_spread": 1},
+            "flagship_per_step": {"rescan_banded_fused": 1},
+            "flagship_collapsed": {"rescan_banded_fused": 1,
+                                   "poisson_flat": 1},
+            "periodic_clean": {"rescan_banded_fused": 1},
+            "periodic_per_step": {"rescan_banded_fused": 1},
+            "sweep_clean": {},
+            "sweep_noisy": {"poisson_flat": PARALLEL_POWERS}}
+    for r, (_, facts) in enumerate(ranks):
+        check(facts["backend"] == "gloo" and facts["init"] == [r, 2],
+              f"rank {r}: {facts['init']} over {facts['backend']}")
+        for name, launches in want.items():
+            got = facts["launches"][name]
+            out["paths"][f"parallel_2rank_{name}_rank{r}"] = got
+            check(got == launches, f"rank {r} {name}: launches {got}, "
+                  f"expected {launches}")
+        for name in PARALLEL_CASES:
+            check(facts[f"{name}_placements"] == ["S(0)"],
+                  f"rank {r} {name}: rows sharded")
+    out["errs"]["parallel_2rank_flagship"] = max_rel(whole("flagship"), ref)
+    out["errs"]["parallel_2rank_irrational"] = max_rel(whole("irrational"),
+                                                       ref_ir)
+    for name, err in out["errs"].items():
+        check(err <= 1e-5, f"{name}: {err:.2e} from the unsharded K1 call")
+    z = {}
+    for name in ("flagship_per_step", "flagship_collapsed"):
+        got = whole(name).double()
+        z[name] = (float(got.sum()) - mean_total) / math.sqrt(mean_total)
+        check(abs(z[name]) <= 5 and bool(torch.isfinite(got).all()),
+              f"{name}: total {z[name]:+.2f} sigma from the noise-free one")
+    # the periodic sample gives both ranks the same block: their counts
+    # must differ, and their residuals be uncorrelated
+    (a0, _), (a1, _) = ranks
+    res = [torch.from_numpy(a["periodic_per_step"] - a["periodic_clean"])
+           .double().ravel() for a in (a0, a1)]
+    blocks_equal = bool(np.array_equal(a0["periodic_clean"],
+                                       a1["periodic_clean"]))
+    corr = float(torch.corrcoef(torch.stack(res))[0, 1])
+    bound = 5.0 / math.sqrt(res[0].numel())
+    check(not np.array_equal(a0["periodic_per_step"],
+                             a1["periodic_per_step"]),
+          "the ranks drew the same counts on identical blocks")
+    check(abs(corr) <= bound, f"rank streams correlated: {corr:.2e} "
+          f"(bound {bound:.2e})")
+
+    # the batch-sharded sweep against the unsharded one on the card
+    sa = bench_sweep_args(dev)
+    sa["depletion_powers"] = np.linspace(0.0, 16.0, PARALLEL_POWERS)
+    clean = dose_matched_sweep(**sa)
+    sweep_errs = {}
+    for arm in ("point", "line"):
+        for col in SWEEP_COLUMNS:
+            sweep_errs[f"{arm}.{col}"] = max_rel(
+                whole(f"sweep_clean_{arm}_{col}"),
+                getattr(getattr(clean, arm), col))
+    check(max(sweep_errs.values()) <= 1e-5,
+          f"sharded sweep against the unsharded one: {sweep_errs}")
+    worst = 0.0
+    for arm in ("point", "line"):
+        for img, mean in zip(whole(f"sweep_noisy_{arm}_image"),
+                             getattr(clean, arm).image):
+            mu = float(mean.clamp_min(0).double().sum())
+            zz = (float(img.double().sum()) - mu) / math.sqrt(mu)
+            check(abs(zz) <= 5, f"sharded sweep {arm}: noisy total "
+                  f"{zz:+.2f} sigma from its mean")
+            worst = max(worst, abs(zz))
+    out["errs"]["parallel_2rank_sweep"] = max(sweep_errs.values())
+
+    # the command line under torchrun, against one process
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["psf-report", "--size", "128"])
+    single = strict_json(buf.getvalue().strip().splitlines()[-1])
+    out["cli"] = parallel_cli(single, name_power)
+
+    out["times"]["2rank"] = {f"rank{r}": facts["times"]
+                             for r, (_, facts) in enumerate(ranks)}
+    out["stats"] = {"noisy_total_sigma": z, "rank_corr": corr,
+                    "rank_corr_bound": bound,
+                    "periodic_blocks_equal": blocks_equal,
+                    "sweep_noisy_worst_sigma": worst,
+                    "sweep_card_vs_unsharded": sweep_errs}
+    out["phase_s"] = time.time() - t_phase
+    log(f"parallel: 1 rank (NCCL) and 2 gloo ranks on one card, flagship "
+        f"{SIZE}^2 against the unsharded K1 call (max rel): "
+        f"{json.dumps(out['errs'])} | {name_power}")
+    log(f"parallel: per-step totals {json.dumps(z)} sigma; rank residual "
+        f"correlation {corr:+.2e} (bound {bound:.2e}); sharded sweep noisy "
+        f"totals within {worst:.2f} sigma | {name_power}")
+    log(f"parallel times (ms): unsharded {out['times']['unsharded_ms']:.3f}; "
+        f"{json.dumps({k: v for k, v in out['times'].items() if k != 'unsharded_ms'})}"
+        f" | {name_power}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3854,6 +4249,8 @@ def main() -> int:
     paths.update(cli["paths"])
     cal = phase_calibration(dev)
     paths.update(cal["paths"])
+    par = phase_parallel(dev)
+    paths.update(par["paths"])
     log(f"after timing: {clocks()}")
     log(f"smoke run took {time.time() - t0:.1f} s after the card was named")
 
@@ -4019,6 +4416,9 @@ def main() -> int:
                  for k, f in cal["fits"].items()},
         "card_vs_cpu": cal["card_vs_cpu"], "noisy": cal["noisy"],
         "card": name_power}}))
+    log(json.dumps({"parallel": {
+        "errs": par["errs"], "times": par["times"], "stats": par["stats"],
+        "cli": par["cli"], "phase_s": par["phase_s"], "card": name_power}}))
     log(json.dumps({"dose_sweep": {
         "bench_cell": dose["bench"], "card_vs_cpu": dose["errs"],
         "cuda_generator_syncs": dose["syncs"], "figure_2048": dose["figure"],

@@ -45,6 +45,7 @@ from rescan_line_sted_torch.imaging.rescan import rescanned_line_sted_image
 from rescan_line_sted_torch.imaging.rescan_point import (
     rescan_point_system_kernel,
 )
+from rescan_line_sted_torch.parallel.mesh import gather_dtensors
 from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.physics.noise import (
     derived_generators,
@@ -184,6 +185,7 @@ def rescan_operator(geom, params, angle=None, device=None) -> LinearOperator:
     return LinearOperator(lambda est: views[0](est)[0], geom.grid.shape)
 
 
+@gather_dtensors
 def multi_orientation_rescan(
     sample,
     params,
@@ -225,6 +227,7 @@ def multi_orientation_rescan(
         for s, g in zip(rotated, gens)])
 
 
+@gather_dtensors
 def rescan_fusion(
     canvases: torch.Tensor,
     params,

@@ -20,8 +20,10 @@ from __future__ import annotations
 import torch
 
 from rescan_line_sted_torch.kernels import fftconv
+from rescan_line_sted_torch.parallel.mesh import gather_dtensors
 
 
+@gather_dtensors
 def richardson_lucy_views(
     data: torch.Tensor,
     psfs: torch.Tensor,

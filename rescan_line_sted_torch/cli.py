@@ -8,6 +8,8 @@ pipelines on the CUDA card, or on the CPU with ``--platform cpu``::
     python -m rescan_line_sted_torch figure all --size 256 --out out/
     python -m rescan_line_sted_torch psf-report --depletion 8
     python -m rescan_line_sted_torch --platform cpu psf-report --vectorial
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m rescan_line_sted_torch --multihost psf-report
 """
 
 from __future__ import annotations
@@ -158,8 +160,10 @@ def main(argv=None) -> None:
              "error, never a quiet fall back to the CPU)")
     parser.add_argument(
         "--multihost", action="store_true",
-        help="join the multi-process runtime before running (not ported "
-             "yet: ROADMAP.md slice J)")
+        help="join the multi-process runtime before running "
+             "(parallel.initialize_multihost: torchrun's or SLURM's "
+             "environment). Opt-in: single-host boxes with launcher-like "
+             "env vars must not accidentally wait on a coordinator.")
     sub = parser.add_subparsers(dest="command", required=True)
 
     fig = sub.add_parser("figure", help="run a figure-equivalent pipeline")
@@ -211,10 +215,12 @@ def main(argv=None) -> None:
 
     args = parser.parse_args(argv)
     if args.multihost:
-        raise SystemExit(
-            "--multihost needs parallel.initialize_multihost, which is not "
-            "ported yet (ROADMAP.md queue 1, slice J: parallel/ on "
-            "torch.distributed)")
+        from rescan_line_sted_torch.parallel import initialize_multihost
+
+        proc, nprocs = initialize_multihost(
+            backend="gloo" if args.platform == "cpu" else None)
+        logging.getLogger(__name__).info(
+            "multihost: process %d/%d", proc, nprocs)
     args.func(args)
 
 

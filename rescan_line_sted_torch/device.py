@@ -2,12 +2,27 @@
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+import torch.distributed as dist
+
+
+def rank_card() -> torch.device:
+    """This process's CUDA card: ``cuda:{LOCAL_RANK % device_count}`` under
+    a process group (the rank within its host when the launcher sets
+    ``LOCAL_RANK``, else the global rank), the current card otherwise
+    (``cuda:0`` unless the caller chose another)."""
+    if dist.is_available() and dist.is_initialized():
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        return torch.device("cuda", local % torch.cuda.device_count())
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def resolve(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means the CUDA card.
+    """``device`` as a ``torch.device``; ``None`` means this process's CUDA
+    card (``rank_card``).
 
     Raises when ``device`` is None and no card is visible: the port never
     falls back to the CPU quietly (pass ``device="cpu"`` for that).
@@ -17,7 +32,7 @@ def resolve(device=None) -> torch.device:
             raise RuntimeError(
                 "no CUDA device is visible; pass device=\"cpu\" to run the "
                 "port's plain PyTorch versions on the CPU")
-        return torch.device("cuda")
+        return rank_card()
     return torch.device(device)
 
 

@@ -52,12 +52,14 @@ from rescan_line_sted_torch.imaging.point_sted import AcquisitionResult
 from rescan_line_sted_torch.imaging.shifts import shifted_profiles
 from rescan_line_sted_torch.kernels import fftconv, line_fused
 from rescan_line_sted_torch.kernels.poisson import poisson_rows_tiered
+from rescan_line_sted_torch.parallel.mesh import gather_dtensors
 from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.physics import psf as psfs
 from rescan_line_sted_torch.physics.dose import line_sted_dose
 from rescan_line_sted_torch.physics.noise import maybe_poisson
 
 
+@gather_dtensors
 def line_sted_image(
     sample,
     params,

@@ -35,6 +35,7 @@ from rescan_line_sted_torch.imaging.line_sted import (
     analytic_images,
     line_sted_image,
 )
+from rescan_line_sted_torch.parallel.mesh import gather_dtensors
 from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.utils.rotate import rotate_image
 
@@ -47,6 +48,7 @@ def orientation_kernels(shape: tuple[int, int], params, angles,
     return rotate_image(base, angles)
 
 
+@gather_dtensors
 def multi_orientation_line_sted(
     sample,
     params,

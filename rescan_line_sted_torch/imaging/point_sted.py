@@ -37,6 +37,7 @@ from rescan_line_sted_torch.imaging import boundary as boundaries
 from rescan_line_sted_torch.imaging.shifts import shifted_images
 from rescan_line_sted_torch.kernels import fftconv
 from rescan_line_sted_torch.kernels.poisson import poisson_rows_tiered
+from rescan_line_sted_torch.parallel.mesh import gather_dtensors
 from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.physics import psf as psfs
 from rescan_line_sted_torch.physics.dose import DoseReport, point_sted_dose
@@ -49,6 +50,7 @@ class AcquisitionResult(Replaceable):
     dose: DoseReport
 
 
+@gather_dtensors
 def point_sted_image(
     sample,
     params,

@@ -64,8 +64,14 @@ Boundaries: ``"circular"`` (the grid wraps), ``"padded"`` (acquire on a
 zero-padded grid and crop, ``imaging/boundary.py``) and ``"apodized"``
 (taper the sample's edges to zero).
 
-Not ported yet: row-sharded samples (``NotImplementedError`` naming
-ROADMAP.md open item 12).
+Row-sharded samples (a ``DTensor``, ``Shard(0)`` on one mesh axis of
+more than one rank, ``Replicate()`` elsewhere) take the JAX package's
+routing: the scan goes to ``parallel.rescanned_line_sted_sharded`` (K1 on
+every rank, a halo exchange of the detection support) wherever the
+unsharded call would take K1; any other call, or one whose sharded
+preconditions fail (``ShardedPreconditionError``), gathers the sample
+(``full_tensor``), runs the unsharded engine on the rank's card and
+returns the canvas re-sharded by rows, as GSPMD shards the JAX scan.
 """
 
 from __future__ import annotations
@@ -93,6 +99,11 @@ from rescan_line_sted_torch.kernels.rescan_banded_fused import (
     rescan_banded_fused,
 )
 from rescan_line_sted_torch.kernels.rescan_fused import rescan_fused, runs_fit
+from rescan_line_sted_torch.parallel.mesh import (
+    gather_dtensors,
+    is_dtensor,
+    whole,
+)
 from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.physics import psf as psfs
 from rescan_line_sted_torch.physics.dose import line_sted_dose
@@ -131,10 +142,12 @@ def rescanned_line_sted_image(
     routes without band windows as the JAX argument does (module doc);
     geometries with band windows always take K1.
     """
-    if hasattr(sample, "device_mesh"):
-        raise NotImplementedError(
-            "row-sharded samples are not ported yet (ROADMAP.md open "
-            "item 12: parallel/ on torch.distributed)")
+    if is_dtensor(sample):
+        return _row_sharded_call(
+            sample, params, geom, generator=generator, method=method,
+            noise_mode=noise_mode, reassignment=reassignment,
+            boundary=boundary, margin=margin, device=device,
+            use_pallas=use_pallas)
     sample = as_sample(sample, geom.grid.shape, device)
     if boundary not in ("circular", "padded", "apodized"):
         raise ValueError(f"unknown boundary {boundary!r}")
@@ -161,6 +174,59 @@ def rescanned_line_sted_image(
         raise ValueError(f"unknown method {method!r}")
     return AcquisitionResult(
         image=image, dose=line_sted_dose(params, geom, sample.device))
+
+
+def _row_sharded_mesh(sample):
+    """``(mesh, axis)`` when ``sample`` is a 2-D ``DTensor`` whose rows are
+    split over exactly ONE mesh axis of more than one rank (``Shard(0)``
+    there, ``Replicate()`` on every other axis); None otherwise."""
+    if not is_dtensor(sample) or sample.ndim != 2:
+        return None
+    mesh = sample.device_mesh
+    placements = sample.placements
+    if not all(p.is_shard(0) or p.is_replicate() for p in placements):
+        return None
+    split = [i for i, p in enumerate(placements) if p.is_shard(0)]
+    if len(split) != 1 or mesh.size(split[0]) <= 1:
+        return None
+    names = mesh.mesh_dim_names
+    return mesh, (names[split[0]] if names else split[0])
+
+
+def _route_row_sharded(sample, params, geom, generator, noise_mode,
+                       reassignment):
+    """The row-sharded scan (``parallel.rescanned_line_sted_sharded``)
+    where the unsharded call would take K1 (band windows present;
+    ``use_pallas`` does not choose there); None when the sample is not
+    row-sharded, the scan takes no K1, or the sharded engine's
+    preconditions fail (``ShardedPreconditionError``, caught alone: any
+    other error, a plain ``ValueError`` of argument validation included,
+    propagates as it would unsharded)."""
+    hit = _row_sharded_mesh(sample)
+    if hit is None or _k1_windows(params, geom, reassignment) is None:
+        return None
+    from rescan_line_sted_torch.parallel import sharded_rescan
+
+    mesh, axis = hit
+    try:
+        return sharded_rescan.rescanned_line_sted_sharded(
+            sample, params, geom, mesh, axis=axis, generator=generator,
+            noise_mode=noise_mode, reassignment=reassignment)
+    except sharded_rescan.ShardedPreconditionError:
+        return None
+
+
+def _row_sharded_call(sample, params, geom, **kw):
+    """``rescanned_line_sted_image`` of a ``DTensor`` sample (module doc):
+    the row-sharded scan, else the gathered route."""
+    params = whole(params)
+    if kw["method"] == "scan" and kw["boundary"] == "circular":
+        routed = _route_row_sharded(sample, params, geom, kw["generator"],
+                                    kw["noise_mode"], kw["reassignment"])
+        if routed is not None:
+            return routed
+    return gather_dtensors(rescanned_line_sted_image)(
+        sample, params, geom, **kw)
 
 
 def _sigma_ill(params, width: int, device=None) -> torch.Tensor:
@@ -379,26 +445,19 @@ def _resolve_reassignment(geom, reassignment: str) -> str:
     return reassignment
 
 
-def _banded_inputs(sample, params, geom, reassignment="auto"):
-    """Arguments of the banded fused scan for this acquisition, and the
-    epilogue that turns its folded canvases into the image.
-
-    Returns ``(args, kwargs, finish)``: ``finish(rescan_banded_fused(*args,
-    **kwargs, generator=...))`` is the ``[H/b, wc]`` canvas. Integer and
-    rational steps place through classes (``_apply_class_residues``); any
-    other subpixel step through K1's NUFFT spreading mode
-    (``_apply_nufft_deconv``). Returns None where the banded route does not
-    apply (no band windows, windows that do not fit the canvas, or windows
-    beyond K1's shared memory, ``banded_fits``, whatever the device).
-    """
+def _k1_windows(params, geom, reassignment="auto"):
+    """``(d_in, d_out, pq)`` where the scan takes K1: its band windows and
+    the placement step ``(p, q)`` (``(None, 1)`` rounded, None for NUFFT
+    spreading); None where the banded route does not apply (no band
+    windows, windows that do not fit the canvas, or windows beyond K1's
+    shared memory, ``banded_fits``, whatever the device)."""
     reassignment = _resolve_reassignment(geom, reassignment)
-    h, w = geom.grid.shape
+    w = geom.grid.shape[1]
     b = geom.binning
     chunk = geom.chunk
     if w % chunk:
         raise ValueError("chunk must divide width")
-    hc, wc = geom.canvas_shape
-    dev = sample.device
+    wc = geom.canvas_shape[1]
     step = (float(geom.rescan_factor) - 1.0) / b
     if reassignment == "rounded":
         pq = (None, 1)                     # round() is integral for any R
@@ -412,7 +471,30 @@ def _banded_inputs(sample, params, geom, reassignment="auto"):
             or not banded_fits(windowed[0], windowed[1] // b, chunk, b,
                                n_spread)):
         return None
-    d_in, d_out = windowed
+    return windowed[0], windowed[1], pq
+
+
+def _banded_inputs(sample, params, geom, reassignment="auto"):
+    """Arguments of the banded fused scan for this acquisition, and the
+    epilogue that turns its folded canvases into the image.
+
+    Returns ``(args, kwargs, finish)``: ``finish(rescan_banded_fused(*args,
+    **kwargs, generator=...))`` is the ``[H/b, wc]`` canvas. Integer and
+    rational steps place through classes (``_apply_class_residues``); any
+    other subpixel step through K1's NUFFT spreading mode
+    (``_apply_nufft_deconv``). Returns None where the scan does not take
+    K1 (``_k1_windows``).
+    """
+    found = _k1_windows(params, geom, reassignment)
+    if found is None:
+        return None
+    d_in, d_out, pq = found
+    h, w = geom.grid.shape
+    b = geom.binning
+    chunk = geom.chunk
+    hc, wc = geom.canvas_shape
+    dev = sample.device
+    step = (float(geom.rescan_factor) - 1.0) / b
 
     eff = effective_line_profile(w, params, dev)
     otf_y = fftconv.profile_to_otf1d(

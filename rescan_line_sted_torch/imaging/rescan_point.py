@@ -62,6 +62,7 @@ from rescan_line_sted_torch.imaging.rescan import _rebin
 from rescan_line_sted_torch.imaging.shifts import shifted_images
 from rescan_line_sted_torch.kernels import fftconv
 from rescan_line_sted_torch.kernels.poisson import poisson_rows_tiered
+from rescan_line_sted_torch.parallel.mesh import gather_dtensors
 from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.physics import psf as psfs
 from rescan_line_sted_torch.physics.dose import point_sted_dose
@@ -109,6 +110,7 @@ def practical_rescan_factor_point(params, size: int,
                                         snap)
 
 
+@gather_dtensors
 def rescanned_point_sted_image(
     sample,
     params,

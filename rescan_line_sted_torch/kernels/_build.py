@@ -181,14 +181,36 @@ def require_cuda_f32(name: str, *tensors) -> None:
             raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def key_words(generator, device) -> tuple[int, int, torch.Tensor | None]:
+KEY_MOD = 2**31 - 1     # key words lie in [0, KEY_MOD), as torch.randint draws
+
+
+def key_words(generator, device, key=None
+              ) -> tuple[int, int, torch.Tensor | None]:
     """The kernel's two 31-bit Philox key words, drawn from ``generator``
     with ``torch.randint`` and never read back on the host from a card:
     ``(s0, s1, None)`` by value from a CPU generator, or ``(0, 0, keys)``
     from a CUDA generator on ``device``, ``keys`` the two words left on
     the card (int64) for the kernel to read. Both draw the same words from
     the same generator state; the CUDA path stays valid under CUDA-graph
-    capture. No generator (a noise-free call) gives ``(0, 0, None)``."""
+    capture. No generator (a noise-free call) gives ``(0, 0, None)``.
+
+    ``key`` gives the words instead of a generator (``draw_key``,
+    ``offset_key``): a pair of ints, or an int64 tensor of two on the host
+    or on ``device`` (left there, as a CUDA generator's words are)."""
+    if key is not None:
+        if generator is not None:
+            raise ValueError("pass a generator or key words, not both")
+        if not isinstance(key, torch.Tensor):
+            s0, s1 = key
+            return int(s0), int(s1), None
+        if key.shape != (2,):
+            raise ValueError(f"key words: expected two, got {key.shape}")
+        if key.device.type == "cpu":
+            s0, s1 = key.tolist()
+            return int(s0), int(s1), None
+        if key.device != torch.device(device):
+            raise ValueError(f"key words on {key.device}, tensor on {device}")
+        return 0, 0, key.to(torch.int64).contiguous()
     if generator is None:
         return 0, 0, None
     on_host = generator.device.type == "cpu"
@@ -198,9 +220,37 @@ def key_words(generator, device) -> tuple[int, int, torch.Tensor | None]:
     if not on_host and gen_device != torch.device(device):
         raise ValueError(f"generator on {generator.device}, tensor on "
                          f"{device}")
-    s = torch.randint(0, 2**31 - 1, (2,), generator=generator,
+    s = torch.randint(0, KEY_MOD, (2,), generator=generator,
                       device=generator.device, dtype=torch.int64)
     if on_host:
         s0, s1 = s.tolist()
         return s0, s1, None
     return 0, 0, s
+
+
+def draw_key(generator, device):
+    """The key words a kernel would draw from ``generator`` (``key_words``),
+    in the form the wrappers' ``key`` argument takes: a pair of ints from a
+    CPU generator, an int64 tensor of two on the card from a CUDA one."""
+    s0, s1, keys = key_words(generator, device)
+    return (s0, s1) if keys is None else keys
+
+
+def offset_key(key, index: int):
+    """``key`` with its second word offset by ``index`` modulo ``KEY_MOD``:
+    the key of stream ``index`` (a rank's), as the JAX package offsets a
+    device's seed (``seed.at[1].add(axis_index * stride)``). Stream 0 is
+    ``key`` itself. A tensor key stays on its device, with no host read."""
+    if isinstance(key, torch.Tensor):
+        out = key.clone()
+        out[1:].add_(index).remainder_(KEY_MOD)
+        return out
+    return int(key[0]), (int(key[1]) + index) % KEY_MOD
+
+
+def key_generator(key, device="cpu") -> torch.Generator:
+    """A generator on ``device`` seeded from the key words (the plain
+    versions draw with ``torch.poisson`` from a CPU one): distinct words
+    seed distinct generators. A key on the card is read back."""
+    s0, s1 = key.tolist() if isinstance(key, torch.Tensor) else key
+    return torch.Generator(device).manual_seed(int(s0) * KEY_MOD + int(s1))

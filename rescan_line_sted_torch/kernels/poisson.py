@@ -156,17 +156,23 @@ def poisson_rows_tiered(lam: torch.Tensor,
     return out
 
 
-def poisson_flat(lam: torch.Tensor, generator: torch.Generator
-                 ) -> torch.Tensor:
+def poisson_flat(lam: torch.Tensor, generator: torch.Generator | None = None,
+                 key=None) -> torch.Tensor:
     """K2c: Poisson counts of ``lam`` (any shape), K2a's tiers per warp of
     128 consecutive rates. The key words come from ``generator`` without a
     host-device sync (``_build.key_words``): a CUDA generator leaves them
-    on the card for the kernel to read."""
+    on the card for the kernel to read. ``key`` gives the two words instead
+    (``_build.draw_key`` / ``offset_key``: a rank's stream; on the CPU the
+    plain version draws from ``_build.key_generator(key)``); pass one of
+    the two."""
+    if (generator is None) == (key is None):
+        raise ValueError("poisson_flat: pass a generator or key words")
     if not lam.is_cuda:
-        return poisson_reference(lam, generator)
+        return poisson_reference(lam, generator if key is None
+                                 else _build.key_generator(key))
     _build.require_cuda_f32("poisson_flat", lam)
     out = torch.empty_like(lam)
-    s0, s1, keys = _build.key_words(generator, lam.device)
+    s0, s1, keys = _build.key_words(generator, lam.device, key)
     code = _build.lib().rls_poisson_flat(
         lam.data_ptr(), out.data_ptr(), lam.numel(), s0, s1,
         None if keys is None else keys.data_ptr(),

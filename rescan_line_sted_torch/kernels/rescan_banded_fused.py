@@ -275,6 +275,7 @@ def rescan_banded_fused(
     q: int = 1, generator: torch.Generator | None = None,
     spread_weights: torch.Tensor | None = None,
     offsets2: torch.Tensor | None = None,
+    key=None,
 ) -> torch.Tensor:
     """Banded fused rescan scan over all W column positions (module doc).
 
@@ -284,7 +285,10 @@ def rescan_banded_fused(
     (binned pixels) per scan position; classes: [W] class index in [0, q)
     (None = all zero); d_in/d_out: the band windows of
     ``imaging.rescan._illum_band``. ``generator`` draws per-camera-frame
-    shot noise; None = noise-free.
+    shot noise; None = noise-free. ``key`` gives the draws' two Philox key
+    words instead (``_build.draw_key`` / ``offset_key``: a rank's stream;
+    a CPU ``sample_y`` draws from ``_build.key_generator(key)``); pass
+    one of the two.
 
     NUFFT spreading placement (``imaging.rescan._nufft_spread_tables``):
     ``spread_weights`` [W, 2 * P/2] per-position window taps split by
@@ -298,12 +302,14 @@ def rescan_banded_fused(
     placement, ``_wide`` for windows whose resident factors exceed the
     card's shared memory); a CPU one runs ``rescan_banded_fused_reference``.
     """
+    if key is not None and generator is not None:
+        raise ValueError("pass a generator or key words, not both")
     if not sample_y.is_cuda:
         return rescan_banded_fused_reference(
             sample_y, eff_scaled, gx, int_offsets, wc=wc, d_in=d_in,
             d_out=d_out, chunk=chunk, binning=binning, classes=classes, q=q,
-            generator=generator, spread_weights=spread_weights,
-            offsets2=offsets2)
+            generator=generator if key is None else _build.key_generator(key),
+            spread_weights=spread_weights, offsets2=offsets2)
     h, w = sample_y.shape
     n_spread, q = _spread_args(w, classes, q, spread_weights, offsets2)
     _check(h, w, wc=wc, d_in=d_in, d_out=d_out, chunk=chunk,
@@ -321,13 +327,14 @@ def rescan_banded_fused(
                             sa_lo, sa_hi, m0, cls, *taps)
     out = torch.empty((q, wc, hb), dtype=torch.float32,
                       device=sample_y.device)
-    s0, s1, keys = _build.key_words(generator, sample_y.device)
+    s0, s1, keys = _build.key_words(generator, sample_y.device, key)
     info = (ctypes.c_int * 5)()
     code = _build.lib().rls_rescan_banded_fused(
         g_t.data_ptr(), ill_w.data_ptr(), sample_ext.data_ptr(),
         sa_lo.data_ptr(), sa_hi.data_ptr(), m0.data_ptr(), cls.data_ptr(),
         taps[0].data_ptr() if taps else None, out.data_ptr(), h, w, chunk,
-        d_in, dob, b, q, wc, n_spread, int(generator is not None), s0, s1,
+        d_in, dob, b, q, wc, n_spread,
+        int(generator is not None or key is not None), s0, s1,
         None if keys is None else keys.data_ptr(),
         _build.stream_handle(sample_y.device), info)
     _build.check(code, "rescan_banded_fused")

@@ -32,7 +32,7 @@ from rescan_line_sted_torch.sweeps.dose import (
 torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGES = ("", "imaging", "physics", "kernels", "data", "algorithms",
-            "sweeps", "utils", "io", "pipelines")
+            "sweeps", "utils", "io", "pipelines", "parallel")
 # names whose code is still queued (ROADMAP.md queue 1): none
 QUEUED: dict[str, set[str]] = {}
 # the port's own names for renamed functions

@@ -107,10 +107,23 @@ def test_cli_json_safe_maps_nonfinite_to_null():
     strict_loads(json.dumps(got))
 
 
-def test_cli_multihost_waits_for_slice_j():
-    with pytest.raises(SystemExit) as err:
-        cli_main(["--multihost", "--platform", "cpu", "psf-report"])
-    assert "slice J" in str(err.value) and "ROADMAP.md" in str(err.value)
+def test_cli_multihost_waits_for_slice_j(monkeypatch, capsys, caplog):
+    """Slice J has landed: ``--multihost`` joins the launcher's ranks
+    (``parallel.initialize_multihost``) and logs ``process r/n``; with no
+    launcher's environment it is the JAX CLI's no-op, ``process 0/1``,
+    and the report is the single-process one."""
+    from rescan_line_sted_torch.parallel import is_initialized
+
+    for var in ("RANK", "WORLD_SIZE", "SLURM_PROCID", "SLURM_NTASKS"):
+        monkeypatch.delenv(var, raising=False)
+    cli_main(["--platform", "cpu", "psf-report", "--size", "32"])
+    single = strict_loads(capsys.readouterr().out.strip().splitlines()[-1])
+    with caplog.at_level("INFO"):
+        cli_main(["--multihost", "--platform", "cpu", "psf-report",
+                  "--size", "32"])
+    multi = strict_loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert "multihost: process 0/1" in caplog.text
+    assert multi == single and not is_initialized()
 
 
 def test_cli_boundary_only_for_the_sweep(tmp_path):
@@ -136,8 +149,11 @@ def test_cli_runs_with_jax_blocked(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     rep = strict_loads(out.stdout.strip().splitlines()[-1])
     assert rep["depletion"] == 8.0 and rep["point_fwhm_x"] > 0
-    out = _blocked("--platform", "cpu", "--multihost", "psf-report")
-    assert out.returncode == 1 and "slice J" in out.stderr
+    multi = _blocked("--platform", "cpu", "--multihost", "psf-report",
+                     "--vectorial")
+    assert multi.returncode == 0, multi.stderr[-3000:]
+    assert "multihost: process 0/1" in multi.stderr
+    assert strict_loads(multi.stdout.strip().splitlines()[-1]) == rep
 
 
 def test_cli_figure_all_with_jax_blocked(tmp_path):

@@ -152,8 +152,8 @@ def _fixed_key(monkeypatch, generator):
     copy.set_state(generator.get_state())
     words = _host_key(copy)
     monkeypatch.setattr(_build, "key_words",
-                        lambda g, d: (*words, None) if g is not None
-                        else (0, 0, None))
+                        lambda g, d, key=None: (*words, None)
+                        if g is not None else (0, 0, None))
 
 
 @pytest.mark.parametrize("kernel", ["k1", "k3", "k4"])
@@ -363,6 +363,66 @@ def test_banded_kernel_repeatable_in_every_mode(cuda, mode):
     torch.cuda.synchronize()
     assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
     assert torch.isfinite(runs[0]).all() and (runs[0] >= 0).all()
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2c"])
+@pytest.mark.parametrize("form", ["ints", "card"])
+def test_key_argument_seeds_the_draws(cuda, kernel, form):
+    """K1's and K2c's ``key`` (a rank's stream): the same words give the
+    same counts, different words different ones, whether the words come by
+    value or as an int64 pair on the card; the words a CUDA generator
+    draws, passed as ``key``, give that generator's counts; K2c's counts
+    follow its host reference for those words."""
+    if kernel == "k1":
+        args, kw = _case(2, 1, 1.5, 8, cuda)
+        s, e, gx, offs = args
+        name = "rescan_banded_fused"
+
+        def run(**k):
+            return rescan_banded_fused(50.0 * s, 40.0 * e, gx, offs, **kw,
+                                       **k)
+    else:
+        lam = torch.full((256, 256), 2.0, device=cuda)
+        name = "poisson_flat"
+
+        def run(**k):
+            return poisson_flat(lam, **k)
+
+    def key(s1):
+        return (7, s1) if form == "ints" else torch.tensor(
+            [7, s1], dtype=torch.int64, device=cuda)
+    before = _build.LAUNCHES[name]
+    a, b, c = run(key=key(11)), run(key=key(11)), run(key=key(12))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 3
+    assert torch.equal(a, b) and not torch.equal(a, c) and a.sum() > 0
+    gen = torch.Generator(cuda).manual_seed(21)
+    state = gen.get_state()
+    drawn = _build.draw_key(gen, cuda)
+    gen.set_state(state)
+    assert torch.equal(run(key=drawn), run(generator=gen))
+    if kernel == "k2c":
+        want = poisson_rows_tiered_reference(lam, (7, 11), flat=True)
+        diff = (a.cpu() - want).abs()
+        assert float(diff.max()) <= 1 and int((diff > 0).sum()) <= 4
+
+
+def test_rank_keys_on_card_give_independent_streams(cuda):
+    """``sharded_rescan.rank_key`` on a CUDA generator: no host read, the
+    rank's words offset on the card; two ranks' K2c counts on the same
+    rates differ and are uncorrelated."""
+    from rescan_line_sted_torch.parallel.sharded_rescan import rank_key
+
+    lam = torch.full((512, 512), 5.0, device=cuda)
+    draws = []
+    for rank in (0, 1):
+        gen = torch.Generator(cuda).manual_seed(4)
+        key = rank_key(gen, cuda, rank)
+        assert key.device == cuda
+        draws.append(poisson_flat(lam, key=key).double().cpu() - 5.0)
+    assert not torch.equal(draws[0], draws[1])
+    corr = float(torch.corrcoef(torch.stack([d.ravel() for d in draws]))[0, 1])
+    assert abs(corr) < 5.0 / 512
 
 
 def test_banded_kernel_noise(cuda):

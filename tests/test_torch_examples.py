@@ -17,8 +17,8 @@ EXAMPLES = sorted(
     os.path.basename(p)[:-3] for p in glob.glob(
         os.path.join(ROOT, "rescan_line_sted_torch", "examples", "*.py"))
     if not p.endswith("__init__.py"))
-# parallel/ is slice J (ROADMAP.md): scaling.py waits for it
-WAITING = {"scaling"}
+# every JAX example has its port
+WAITING: set[str] = set()
 BLOCK = ("import runpy, sys\n"
          "for name in ('jax', 'jaxlib', 'flax', 'rescan_line_sted_tpu'):\n"
          "    sys.modules[name] = None\n")
