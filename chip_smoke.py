@@ -353,6 +353,120 @@ def cuda_ms(fn, repeats: int = REPEATS) -> float:
     return float(np.median(event_ms(fn, repeats)))
 
 
+SAMPLER_REPEATS = 21   # a sampler call's event time is mostly host time,
+                       # which varies 2x from call to call: median of 21
+QUEUED_CALLS = 100
+SLEEP_CYCLES = 100_000_000     # ~0.05 s of the card's clock: longer than
+                               # the host's launching of QUEUED_CALLS calls
+
+
+def queued_ms(fn, calls: int = QUEUED_CALLS, repeats: int = 3) -> dict:
+    """Device ms per call of ``fn()`` with the host's launch work hidden:
+    the calls queue behind ``torch.cuda._sleep(SLEEP_CYCLES)``, so the card
+    runs them back to back; CUDA events around ``calls`` calls, median of
+    ``repeats``. ``hidden`` says whether the host's launching ended before
+    the sleep did (else the time includes host time)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    end.record()
+    end.synchronize()
+    sleep_ms = start.elapsed_time(end)
+    per, host = [], []
+    for _ in range(repeats):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn()
+        host.append((time.perf_counter_ns() - t0) / 1e6)
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / calls)
+    return {"device_ms": float(np.median(per)), "host_ms": max(host),
+            "sleep_ms": sleep_ms, "hidden": max(host) < sleep_ms}
+
+
+def host_us(fn, calls: int = 1000, batch: int = 100) -> float:
+    """Mean host microseconds of ``fn()`` over ``calls`` calls (after a
+    warm-up), in batches of ``batch`` with the card synchronised between
+    them, so that a full launch queue never makes the host wait."""
+    for _ in range(20):
+        fn()
+    total = 0
+    for _ in range(calls // batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(batch):
+            fn()
+        total += time.perf_counter_ns() - t0
+    torch.cuda.synchronize()
+    return total / (calls // batch * batch) / 1e3
+
+
+def cold_host_us(fn, repeats: int = REPEATS) -> float:
+    """Median host microseconds of one ``fn()`` right after the card is
+    synchronised, as ``cuda_ms`` calls it: the host part of a single
+    call's event time."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append((time.perf_counter_ns() - t0) / 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def wrapper_host_us(lam, kernel, cpu_gen, dev_gen) -> dict:
+    """Host microseconds of each step of a sampler wrapper (K2b, or K2c
+    with its layout) on rates ``lam``, each timed alone (``host_us``): the
+    checks, the output's allocation, the key words with either generator,
+    K2c's layout, the stream's handle, the ctypes call with its launch and
+    without (0 elements: the C entry returns before launching), the whole
+    wrapper with either generator, and ``torch.poisson``'s host time on
+    the same rates."""
+    from rescan_line_sted_torch.kernels import _build
+    from rescan_line_sted_torch.kernels.poisson import (
+        flat_layout, poisson_flat)
+
+    lib, dev = _build.lib(), lam.device
+    out = torch.empty_like(lam)
+    clamped = lam.clamp_min(0)
+    stream = _build.stream_handle(dev)
+    steps = {"checks": lambda: _build.require_cuda_f32("k", lam),
+             "empty_like": lambda: torch.empty_like(lam),
+             "key_words_cpu_generator": lambda: _build.key_words(cpu_gen, dev),
+             "key_words_cuda_generator": lambda: _build.key_words(dev_gen,
+                                                                  dev),
+             "stream_handle": lambda: _build.stream_handle(dev)}
+    if kernel is poisson_flat:
+        per, blocks = flat_layout(lam.numel(), _build.sm_count(dev))
+        steps["layout"] = lambda: flat_layout(lam.numel(),
+                                              _build.sm_count(dev))
+        steps["ctypes_launch"] = lambda: lib.rls_poisson_flat(
+            lam.data_ptr(), out.data_ptr(), lam.numel(), 1, 2, None, per,
+            blocks, stream)
+        steps["ctypes_no_launch"] = lambda: lib.rls_poisson_flat(
+            lam.data_ptr(), out.data_ptr(), 0, 1, 2, None, per, blocks,
+            stream)
+    else:
+        cols = lam.shape[-1]
+        steps["ctypes_launch"] = lambda: lib.rls_poisson_rows_tiered(
+            lam.data_ptr(), out.data_ptr(), lam.numel() // cols, cols, 1, 2,
+            None, stream)
+        steps["ctypes_no_launch"] = lambda: lib.rls_poisson_rows_tiered(
+            lam.data_ptr(), out.data_ptr(), 0, cols, 1, 2, None, stream)
+    steps["wrapper_cpu_generator"] = lambda: kernel(lam, cpu_gen)
+    steps["wrapper_cuda_generator"] = lambda: kernel(lam, dev_gen)
+    steps["torch_poisson"] = lambda: torch.poisson(clamped, dev_gen)
+    return {k: host_us(fn) for k, fn in steps.items()}
+
+
 def tier_kmax(lam: float) -> int | None:
     """The count at which K2a's tier for a constant rate ``lam`` truncates
     (its excess mass lands there); None for the untruncated bright tier."""
@@ -451,6 +565,8 @@ def phase_sampler(dev) -> dict:
     torch.cuda.synchronize()
     worst["k2b_draw_for_draw"] = max(draw_for_draw(dev), k2b_ragged(dev))
     worst["k2c_draw_for_draw"] = draw_for_draw(dev, flat=True)
+    k2c_layouts(dev)
+    generator_key_path(dev)
     no_sync(dev)
     k2b_seed_spread(dev)
     log(f"sampler phase passed: max |mean(kernel) - mean(plain)| {worst}")
@@ -458,20 +574,77 @@ def phase_sampler(dev) -> dict:
 
 
 def host_key(generator) -> tuple[int, int]:
-    """The two Philox key words ``_build.key_words`` draws from
-    ``generator`` (the kernels' key), read on the host."""
+    """The two Philox key words ``_build.key_words`` takes from
+    ``generator`` (the kernels' key), by value: a CUDA generator's come
+    from its seed and offset, with no device work."""
     from rescan_line_sted_torch.kernels import _build
 
     s0, s1, keys = _build.key_words(generator, generator.device)
-    return (s0, s1) if keys is None else tuple(keys.tolist())
+    check(keys is None, "key words must come by value outside capture")
+    return s0, s1
+
+
+def k2c_layouts(dev) -> None:
+    """K2c's one-element-per-thread layout against its four-element one,
+    count for count under one key: on the dose sweep's point image at
+    s = 0 (nearly every group bright: Knuth and PTRS) and on a ragged
+    length with NaN and negative rates and a misaligned start."""
+    from rescan_line_sted_torch.kernels.poisson import poisson_flat
+    from rescan_line_sted_torch.sweeps import dose_matched_sweep
+
+    g = torch.Generator().manual_seed(8)
+    ragged = 4.0 * torch.rand(100003 + 1, generator=g) - 1.0
+    ragged[1::1013] = float("nan")
+    cases = {"dose_sweep point image 0": dose_matched_sweep(
+                 **bench_sweep_args(dev)).point.image[0].contiguous(),
+             "ragged, NaN and negative": ragged.to(dev)[1:]}
+    for name, lam in cases.items():
+        one, four = (poisson_flat(lam, key=(17, 23), _per_thread=p)
+                     for p in (1, 4))
+        same = torch.equal(one.nan_to_num(-1), four.nan_to_num(-1))
+        log(f"K2c layouts on {name} {list(lam.shape)}: one and four "
+            f"elements per thread {'equal' if same else 'DIFFER'}, "
+            f"{int((one.nan_to_num(-1) != four.nan_to_num(-1)).sum())} "
+            f"counts apart, NaN {int(torch.isnan(one).sum())}")
+        check(same and torch.equal(torch.isnan(one), torch.isnan(lam))
+              and bool((one[lam <= 0] == 0).all()),
+              f"K2c layouts on {name}: counts must be identical")
+
+
+def generator_key_path(dev) -> None:
+    """The CUDA generator's key words by value: consecutive takes from one
+    generator give new words (its offset advances by 4), a generator
+    seeded alike gives the same words, and K2b's and K2c's counts follow
+    them: new counts from consecutive calls, the same from a re-seeded
+    generator."""
+    from rescan_line_sted_torch.kernels.poisson import (
+        poisson_flat, poisson_rows_tiered)
+
+    gen = torch.Generator(dev).manual_seed(77)
+    words = [host_key(gen) for _ in range(3)]
+    check(len(set(words)) == 3 and gen.get_offset() == 12,
+          f"consecutive key words must differ: {words}")
+    check(host_key(torch.Generator(dev).manual_seed(77)) == words[0],
+          "a generator seeded alike must give the same key words")
+    lam = 3.0 * torch.rand((64, 2048), generator=torch.Generator(
+        ).manual_seed(3)).to(dev)
+    for fn in (poisson_rows_tiered, poisson_flat):
+        gen = torch.Generator(dev).manual_seed(78)
+        a, b = fn(lam, gen), fn(lam, gen)
+        again = fn(lam, torch.Generator(dev).manual_seed(78))
+        check(not torch.equal(a, b) and torch.equal(a, again),
+              f"{fn.__name__}: a CUDA generator's consecutive calls must "
+              "differ, and a re-seeded one repeat them")
+    log(f"CUDA generator key words by value: {json.dumps(words)}; "
+        "consecutive calls differ, a re-seeded generator repeats them")
 
 
 def no_sync(dev) -> None:
     """K2b and K2c with a CUDA generator, and a second per-step line image
     on K3 (512^2, ``use_pallas=True``, a CUDA generator), under
-    ``torch.cuda.set_sync_debug_mode("error")``: the key words stay on
-    the card and K3's plan comes from the line engine's cache, so nothing
-    synchronises (a sync raises)."""
+    ``torch.cuda.set_sync_debug_mode("error")``: the key words come from
+    the generator's seed and offset on the host and K3's plan from the
+    line engine's cache, so nothing synchronises (a sync raises)."""
     from rescan_line_sted_torch.kernels import _build
     from rescan_line_sted_torch.kernels.poisson import (
         poisson_flat, poisson_rows_tiered)
@@ -1483,16 +1656,21 @@ def k1_frames(args, kw) -> torch.Tensor:
 
 
 def sampler_times(lam, cpu_gen, dev_gen, kernel=None) -> dict:
-    """A sampler's CUDA-event times on rates ``lam``: the kernel (if given)
-    with a CPU generator (``ms``: key words by value) and a CUDA one
-    (``cuda_gen_ms``: key words drawn and read on the card), the plain
-    version and ``torch.poisson``, with the bound of reading and writing
-    every element once. A call shorter than the host's launch work times
-    the host, so each also gets its device time under the profiler
-    (``*_device_ms``). With a kernel, the work counts of its composite
-    bound (``phase_primitives``): each element at its own tier (a lower
-    bound of its warp's), one Philox block per four single draws, two
-    draws per bright element (a PTRS acceptance at the first attempt)."""
+    """A sampler's times on rates ``lam``: the kernel (if given) with a CPU
+    generator (``ms``) and a CUDA one (``cuda_gen_ms``; key words by value
+    from either), the plain version and ``torch.poisson`` (``library_``),
+    each the CUDA-event time of one call, median of ``SAMPLER_REPEATS``,
+    beside the bound of reading and writing every element once. A call
+    shorter than the host's launch work times the host, so each also gets
+    its device time under the profiler (``*device_ms``); the kernel and
+    ``torch.poisson`` also their device time per call with the host's
+    launch work hidden (``*queued``, ``queued_ms``) and the host time of
+    one call after a sync (``*cold_host_us``); the kernel its wrapper's
+    host time by step (``host_us``, ``wrapper_host_us``) and the work
+    counts of its composite bound (``phase_primitives``): each element at
+    its own tier (a lower bound of its warp's), one Philox block per four
+    single draws, two draws per bright element (a PTRS acceptance at the
+    first attempt)."""
     from rescan_line_sted_torch.kernels import primitives as prim
     from rescan_line_sted_torch.kernels.poisson import poisson_reference
 
@@ -1506,9 +1684,13 @@ def sampler_times(lam, cpu_gen, dev_gen, kernel=None) -> dict:
     t = {"shape": list(lam.shape), "bound_ms": bound, "bound_by": by}
     for name, fn in calls.items():
         key = "" if name == "kernel" else name + "_"
-        t[key + "ms"] = cuda_ms(fn)
+        t[key + "ms"] = cuda_ms(fn, SAMPLER_REPEATS)
         t[key + "device_ms"] = device_busy(fn)[0]
+        if name != "plain":
+            t[key + "queued"] = queued_ms(fn)
+            t[key + "cold_host_us"] = cold_host_us(fn, SAMPLER_REPEATS)
     if kernel is not None:
+        t["host_us"] = wrapper_host_us(lam, kernel, cpu_gen, dev_gen)
         cn = prim.tiered_counts(lam)
         t["counts"] = {"exps": cn["exps"], "philox_blocks": cn["uniforms"] / 4,
                        "inv_terms": cn["inv_terms"],

@@ -41,7 +41,8 @@ static __device__ __forceinline__ uint32_t word_of(uint4 bits, uint32_t word) {
 }
 
 // The key words: by value, or from device memory where the caller drew
-// them on the card (two int64, _build.key_words: no host-device sync).
+// them on the card under CUDA-graph capture (two int64, _build.key_words:
+// a replay draws new ones, with no host-device sync).
 static __device__ __forceinline__ uint2 load_key(uint2 key, const long long* key_dev) {
   return key_dev == nullptr ? key
                             : make_uint2(static_cast<uint32_t>(key_dev[0]),

@@ -15,24 +15,31 @@
 // optional, so K2c takes K2a's tier ladder per warp of 128 consecutive
 // rates.
 //
-// Both give each thread four consecutive elements (16-byte loads and stores
-// where aligned, scalar ones on a ragged or misaligned tail), so one
+// K2b gives each thread four consecutive elements (16-byte loads and
+// stores where aligned, scalar ones on a ragged or misaligned tail), so one
 // single-draw Philox block serves a thread's four uniforms (two where a
-// row of K2b's starts off a multiple of four): a zero warp costs no draw,
-// the Bernoulli and CDF-inversion tiers a quarter block per element. Only
-// warps whose max is 10 or more (or NaN) draw Knuth + PTRS on the
-// multi-draw stream, each loop ended once its count is settled
+// row starts off a multiple of four): a zero warp costs no draw, the
+// Bernoulli and CDF-inversion tiers a quarter block per element. K2c does
+// the same on inputs large enough to fill the card; below that, four per
+// thread leaves SMs idle and runs each thread's four bright draws one after
+// another, so K2c gives each thread one element and one block (the host
+// chooses, kernels/poisson.py flat_layout), the tier still from the max
+// over the same 128 consecutive rates, here four warps combined through
+// shared memory. Only groups whose max is 10 or more (or NaN) draw Knuth +
+// PTRS on the multi-draw stream, each loop ended once its count is settled
 // (sample_poisson_at). Element i keeps its single-draw uniform (word i % 4
-// of block i / 4, i the flat index), so the stream does not depend on the
-// layout.
+// of block i / 4, i the flat index) and its multi-draw stream, so the
+// counts do not depend on the layout.
 //
 // Bound on the card: bytes (a rate read and a count written, 8 per
 // element) where the rates sit on the single-draw tiers; the Philox blocks
 // and inversion terms of those tiers come next, then the bright tier's
-// ~(rate + 1) / 4 blocks per Knuth element and 1-2 per PTRS element.
-// Neither kernel stages anything in shared memory: each element is
-// independent. Both read their key words from device memory when the
-// caller drew them on the card (no host-device sync).
+// ~(rate + 1) / 4 blocks per Knuth element and 1-2 per PTRS element. On
+// small inputs the launch and the host's wrapper bound the call instead:
+// the key words come by value, from a CPU generator or from a CUDA
+// generator's seed and offset (kernels/_build.py key_words), so no other
+// kernel runs first. Under CUDA-graph capture the caller draws them on the
+// card and the kernels read them from device memory (key_dev).
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -95,6 +102,7 @@ poisson_rows_tiered_kernel(const float* __restrict__ lam, float* __restrict__ ou
 }
 
 constexpr int kFlatThreads = 256;
+constexpr int kFlatWarps = kFlatThreads / 32;
 
 // Four consecutive elements per thread, the tier from the max over the
 // warp's 128 rates. The loop bound is uniform across each warp (the tier's
@@ -145,6 +153,39 @@ poisson_flat_kernel(const float* __restrict__ lam, float* __restrict__ out,
   }
 }
 
+// One element per thread, for inputs too small to fill the card four per
+// thread. A tier still covers 128 consecutive rates, here four warps: each
+// warp reduces its max, and the four maxima meet in shared memory. Blocks
+// start on multiples of 256, so the groups are those of the four-per-thread
+// layout, and the loop bound is uniform across the block (__syncthreads).
+// Element i takes word i % 4 of single-draw block i / 4, one block per
+// element: the words the four-per-thread layout gives it.
+__global__ void __launch_bounds__(kFlatThreads)
+poisson_flat_one_kernel(const float* __restrict__ lam, float* __restrict__ out,
+                        long long n, uint2 key, const long long* __restrict__ key_dev) {
+  __shared__ uint32_t warp_max[kFlatWarps];
+  key = rls::load_key(key, key_dev);
+  const int warp = threadIdx.x >> 5;
+  const int first = warp & ~3;  // the first of this group's four warps
+  const long long stride = static_cast<long long>(gridDim.x) * kFlatThreads;
+  for (long long b0 = static_cast<long long>(blockIdx.x) * kFlatThreads; b0 < n;
+       b0 += stride) {
+    const long long i = b0 + threadIdx.x;
+    float v[1] = {i < n ? lam[i] : 0.0f};
+    const uint32_t mxb = __reduce_max_sync(0xffffffffu, rls::clamp_max_bits(v));
+    if ((threadIdx.x & 31) == 0) warp_max[warp] = mxb;
+    __syncthreads();
+    const uint32_t group_max = max(max(warp_max[first], warp_max[first + 1]),
+                                   max(warp_max[first + 2], warp_max[first + 3]));
+    __syncthreads();  // warp_max is written again on the next pass
+    const auto idx = static_cast<unsigned long long>(i);
+    rls::tiered_by(
+        group_max, v, [&](int) { return rls::single_draw(idx, key); },
+        [&](int) { return idx; }, key);
+    if (i < n) out[i] = v[0];
+  }
+}
+
 }  // namespace
 
 static bool aligned16(const float* a, const float* b) {
@@ -152,7 +193,7 @@ static bool aligned16(const float* a, const float* b) {
 }
 
 // K2b. key_dev: null to use (seed0, seed1), else a device pointer to the
-// two key words as int64 (drawn on the card, read by the kernel).
+// two key words as int64 (drawn on the card under CUDA-graph capture).
 extern "C" int rls_poisson_rows_tiered(const float* lam, float* out, int rows,
                                        int cols, unsigned seed0, unsigned seed1,
                                        const long long* key_dev, void* stream) {
@@ -166,17 +207,29 @@ extern "C" int rls_poisson_rows_tiered(const float* lam, float* out, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2c. key_dev: null to use (seed0, seed1), else a device pointer to the
-// two key words as int64 (drawn on the card, read by the kernel).
+// K2c. key_dev as for K2b. per_thread (1 or 4) and blocks: the layout and
+// grid the host chose (kernels/poisson.py flat_layout, from the card's SM
+// count, rls_sm_count).
 extern "C" int rls_poisson_flat(const float* lam, float* out, long long n,
                                 unsigned seed0, unsigned seed1, const long long* key_dev,
-                                void* stream) {
+                                int per_thread, int blocks, void* stream) {
+  if ((per_thread != 1 && per_thread != 4) || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    const long long groups = (n + 3) / 4;
-    const long long want = (groups + kFlatThreads - 1) / kFlatThreads;
-    const int grid = static_cast<int>(std::min(want, 132LL * 64));
-    poisson_flat_kernel<<<grid, kFlatThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        lam, out, n, make_uint2(seed0, seed1), key_dev, aligned16(lam, out));
+    auto s = static_cast<cudaStream_t>(stream);
+    const uint2 key = make_uint2(seed0, seed1);
+    if (per_thread == 1) {
+      poisson_flat_one_kernel<<<blocks, kFlatThreads, 0, s>>>(lam, out, n, key, key_dev);
+    } else {
+      poisson_flat_kernel<<<blocks, kFlatThreads, 0, s>>>(lam, out, n, key, key_dev,
+                                                          aligned16(lam, out));
+    }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The number of SMs of card `device` (read once per card by the caller).
+extern "C" int rls_sm_count(int device, int* count) {
+  return static_cast<int>(
+      cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount, device));
 }

@@ -8,10 +8,11 @@
 //   max < 10      single-uniform CDF inversion, kmax 3/4/6/8/24 by the max;
 //   max >= 10/NaN 24-round Knuth + 10-attempt Hormann PTRS (Stirling lgamma).
 // On the TPU the tier came from a sub-block's max; here it comes from the
-// max over a WARP's rates (128 per warp in K2b and K2c, four per lane;
-// 32 x 16 in K1 and K4), so the branch is warp-uniform (no divergence) and
-// each tier's truncation bound still holds because the max bounds every
-// rate it covers.
+// max over a group of rates (a warp's 128 in K2b and K2c, four per lane,
+// or four warps' 128 in K2c's one-per-thread layout; 32 x 16 in K1 and
+// K4), so the branch is uniform across each warp (no divergence) and each
+// tier's truncation bound still holds because the max bounds every rate it
+// covers.
 //
 // Bound on the card: integer arithmetic of Philox-10 and one exp per
 // element; the Bernoulli and inversion tiers take one Philox word per
@@ -103,23 +104,29 @@ static __device__ __noinline__ float sample_poisson_at(float lam,
   return rintf(lam);  // no acceptance in kPtrsRounds attempts
 }
 
-// K2a's tier ladder for N elements per lane, in place: element i of this
-// lane has global index index_of(i) and single-draw uniform uniform_of(i)
-// (single_draw of that index; asked only where the tier needs it). ONE
-// tier serves all 32 x N rates of the warp: it comes from their max, so
-// EVERY lane of the warp must call this; lanes without elements pass
-// rates of 0. The bright tier draws each element with sample_poisson_at.
-template <int N, typename Uniform, typename Index>
-static __device__ __forceinline__ void tiered(float (&lam)[N], Uniform uniform_of,
-                                              Index index_of, uint2 key) {
+// Clamps N rates in place and returns the max of their bits: non-negative
+// floats order like their bits, and any NaN sorts above +inf.
+template <int N>
+static __device__ __forceinline__ uint32_t clamp_max_bits(float (&lam)[N]) {
   uint32_t mxb = 0u;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     lam[i] = clamp_rate(lam[i]);
-    // non-negative floats order like their bits; any NaN sorts above +inf
     mxb = max(mxb, __float_as_uint(lam[i]));
   }
-  mxb = __reduce_max_sync(0xffffffffu, mxb);
+  return mxb;
+}
+
+// K2a's tier ladder for N clamped rates, in place, given mxb, the max bits
+// (clamp_max_bits) over every rate the tier covers: element i has global
+// index index_of(i) and single-draw uniform uniform_of(i) (single_draw of
+// that index; asked only where the tier needs it). The caller reduces mxb
+// over its group, so every thread of the group takes the same branch. The
+// bright tier draws each element with sample_poisson_at.
+template <int N, typename Uniform, typename Index>
+static __device__ __forceinline__ void tiered_by(uint32_t mxb, float (&lam)[N],
+                                                 Uniform uniform_of, Index index_of,
+                                                 uint2 key) {
   const float mx = __uint_as_float(mxb);
   if (mxb == 0u) {
 #pragma unroll
@@ -146,6 +153,16 @@ static __device__ __forceinline__ void tiered(float (&lam)[N], Uniform uniform_o
 #pragma unroll
     for (int i = 0; i < N; ++i) lam[i] = inversion<24>(uniform_of(i), lam[i]);
   }
+}
+
+// The ladder for N elements per lane, the tier from the max over the
+// WARP's 32 x N rates, so EVERY lane of the warp must call this; lanes
+// without elements pass rates of 0.
+template <int N, typename Uniform, typename Index>
+static __device__ __forceinline__ void tiered(float (&lam)[N], Uniform uniform_of,
+                                              Index index_of, uint2 key) {
+  tiered_by(__reduce_max_sync(0xffffffffu, clamp_max_bits(lam)), lam, uniform_of,
+            index_of, key);
 }
 
 // The ladder for N elements of consecutive indices index0 + i whose

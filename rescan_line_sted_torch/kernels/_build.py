@@ -52,7 +52,8 @@ _LL = ctypes.c_longlong
 # C signatures of the entry points (every one returns a cudaError_t code)
 _SIGNATURES = {
     "rls_poisson_rows_tiered": [_P, _P, _I, _I, _U, _U, _P, _P],
-    "rls_poisson_flat": [_P, _P, _LL, _U, _U, _P, _P],
+    "rls_poisson_flat": [_P, _P, _LL, _U, _U, _P, _I, _I, _P],
+    "rls_sm_count": [_I, ctypes.POINTER(_I)],
     "rls_rescan_banded_fused": [_P] * 9 + [_I] * 10 + [_U, _U, _P, _P,
                                                     ctypes.POINTER(_I)],
     "rls_rescan_banded_fused_smem": [_I] * 5 + [ctypes.POINTER(_LL)],
@@ -170,9 +171,9 @@ def stream_handle(device: torch.device) -> int:
 def require_cuda_f32(name: str, *tensors) -> None:
     """Raise unless every tensor is a contiguous float32 CUDA tensor on one
     device (the kernels read raw pointers)."""
-    dev = tensors[0].device
+    first = tensors[0]
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if not t.is_cuda or (t is not first and t.device != first.device):
             raise ValueError(f"{name}: expected CUDA tensors on one device, "
                              f"got {t.device}")
         if t.dtype.is_floating_point and t.dtype != torch.float32:
@@ -181,22 +182,64 @@ def require_cuda_f32(name: str, *tensors) -> None:
             raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of CUDA ``device`` (``cudaDeviceGetAttribute``,
+    read once per card)."""
+    index = device.index
+    if index not in _SMS:
+        count = ctypes.c_int()
+        check(lib().rls_sm_count(index, ctypes.byref(count)), "rls_sm_count")
+        _SMS[index] = count.value
+    return _SMS[index]
+
+
 KEY_MOD = 2**31 - 1     # key words lie in [0, KEY_MOD), as torch.randint draws
+_M64 = 2**64 - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def mix_words(seed: int, counter: int) -> tuple[int, int]:
+    """Two key words in ``[0, KEY_MOD)`` from a generator's seed and a
+    counter (its Philox offset / 4), by a fixed 64-bit mix (splitmix64 of
+    an odd multiple of the seed plus the counter), so that distinct
+    (seed, counter) pairs give unrelated words."""
+    h = _splitmix64((seed * 0xD1342543DE82EF95 + counter) & _M64)
+    return (h >> 32) % KEY_MOD, (h & 0xFFFFFFFF) % KEY_MOD
+
+
+def generator_words(generator) -> tuple[int, int]:
+    """A CUDA generator's key words on the host, with no device work: mixed
+    from its seed and its Philox offset, which then advances by 4 (CUDA
+    generators keep their offset in multiples of 4, as torch's own kernels
+    advance it). A later draw from the generator, ours or torch's, starts
+    at the new offset; ``manual_seed`` or ``set_state`` restore the words."""
+    offset = generator.get_offset()
+    generator.set_offset(offset + 4)
+    return mix_words(generator.initial_seed(), offset // 4)
 
 
 def key_words(generator, device, key=None
               ) -> tuple[int, int, torch.Tensor | None]:
-    """The kernel's two 31-bit Philox key words, drawn from ``generator``
-    with ``torch.randint`` and never read back on the host from a card:
-    ``(s0, s1, None)`` by value from a CPU generator, or ``(0, 0, keys)``
-    from a CUDA generator on ``device``, ``keys`` the two words left on
-    the card (int64) for the kernel to read. Both draw the same words from
-    the same generator state; the CUDA path stays valid under CUDA-graph
-    capture. No generator (a noise-free call) gives ``(0, 0, None)``.
+    """The kernel's two 31-bit Philox key words from ``generator``, by value
+    as ``(s0, s1, None)`` with no host-device sync: from a CPU generator the
+    two words ``torch.randint`` draws; from a CUDA generator on ``device``
+    ``generator_words`` (no kernel launch). Under CUDA-graph capture a CUDA
+    generator's words are drawn on the card instead, ``(0, 0, keys)``,
+    ``keys`` an int64 tensor of two for the kernel to read. No generator
+    (a noise-free call) gives ``(0, 0, None)``.
 
     ``key`` gives the words instead of a generator (``draw_key``,
     ``offset_key``): a pair of ints, or an int64 tensor of two on the host
-    or on ``device`` (left there, as a CUDA generator's words are)."""
+    or on ``device`` (left there for the kernel to read)."""
     if key is not None:
         if generator is not None:
             raise ValueError("pass a generator or key words, not both")
@@ -213,25 +256,32 @@ def key_words(generator, device, key=None
         return 0, 0, key.to(torch.int64).contiguous()
     if generator is None:
         return 0, 0, None
-    on_host = generator.device.type == "cpu"
     gen_device = generator.device
-    if not on_host and gen_device.index is None:   # "cuda": the current card
-        gen_device = torch.device("cuda", torch.cuda.current_device())
-    if not on_host and gen_device != torch.device(device):
-        raise ValueError(f"generator on {generator.device}, tensor on "
-                         f"{device}")
-    s = torch.randint(0, KEY_MOD, (2,), generator=generator,
-                      device=generator.device, dtype=torch.int64)
-    if on_host:
-        s0, s1 = s.tolist()
+    if gen_device.type == "cpu":
+        s0, s1 = torch.randint(0, KEY_MOD, (2,), generator=generator,
+                               dtype=torch.int64).tolist()
         return s0, s1, None
-    return 0, 0, s
+    index = gen_device.index
+    if index is None:                   # "cuda": the current card
+        index = torch.cuda.current_device()
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    if device.index != index or device.type != "cuda":
+        raise ValueError(f"generator on {gen_device}, tensor on {device}")
+    if torch.cuda.is_current_stream_capturing():
+        # a graph replays its kernels, not this host code: words taken on
+        # the host now would be baked into every replay, while torch.randint
+        # on the card takes the graph's Philox offset anew on each replay
+        return 0, 0, torch.randint(0, KEY_MOD, (2,), generator=generator,
+                                   device=gen_device, dtype=torch.int64)
+    s0, s1 = generator_words(generator)
+    return s0, s1, None
 
 
 def draw_key(generator, device):
     """The key words a kernel would draw from ``generator`` (``key_words``),
-    in the form the wrappers' ``key`` argument takes: a pair of ints from a
-    CPU generator, an int64 tensor of two on the card from a CUDA one."""
+    in the form the wrappers' ``key`` argument takes: a pair of ints, or,
+    under CUDA-graph capture, an int64 tensor of two on the card."""
     s0, s1, keys = key_words(generator, device)
     return (s0, s1) if keys is None else keys
 
@@ -251,6 +301,6 @@ def offset_key(key, index: int):
 def key_generator(key, device="cpu") -> torch.Generator:
     """A generator on ``device`` seeded from the key words (the plain
     versions draw with ``torch.poisson`` from a CPU one): distinct words
-    seed distinct generators. A key on the card is read back."""
+    seed distinct generators. A key tensor on the card is read back."""
     s0, s1 = key.tolist() if isinstance(key, torch.Tensor) else key
     return torch.Generator(device).manual_seed(int(s0) * KEY_MOD + int(s1))

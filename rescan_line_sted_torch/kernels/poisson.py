@@ -20,6 +20,8 @@ so a card run can be checked count by count.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -138,8 +140,9 @@ def poisson_rows_tiered(lam: torch.Tensor,
                         generator: torch.Generator) -> torch.Tensor:
     """K2b: Poisson counts of ``lam`` [..., cols], sampler tier chosen per
     warp of 128 adjacent columns of a row (mostly-dark rows stay on cheap
-    tiers). The key words come from ``generator`` without a host-device
-    sync, as K2c's do."""
+    tiers). The key words come from ``generator`` by value, with no
+    host-device sync and no kernel launch (``_build.key_words``), as K2c's
+    do."""
     if not lam.is_cuda:
         return poisson_reference(lam, generator)
     _build.require_cuda_f32("poisson_rows_tiered", lam)
@@ -156,27 +159,61 @@ def poisson_rows_tiered(lam: torch.Tensor,
     return out
 
 
+FLAT_THREADS = 256          # K2c's threads per block
+# K2c gives each thread one element while four per thread would launch
+# fewer than this many blocks per SM, and four from there on. Measured on
+# an H100 (scripts/torch_k2b_k4_ab.py, PERF.md): below it one per thread
+# runs bright groups' serial draws side by side (2.1x faster at 2^16
+# bright rates, 1.25x at 2^18) and costs dim rates at most 1.4 us; above
+# it the dim rates' Philox blocks, four times as many, cost 1.7-2.4x
+ONE_PER_THREAD_BELOW = 2
+GRID_PER_SM = 64            # K2c's grid cap: blocks per SM (grid-stride)
+
+
+@functools.lru_cache(maxsize=256)
+def flat_layout(n: int, sms: int, per_thread: int | None = None
+                ) -> tuple[int, int]:
+    """K2c's layout for ``n`` rates on a card of ``sms`` SMs: (elements per
+    thread, blocks of ``FLAT_THREADS``). One element per thread below
+    ``ONE_PER_THREAD_BELOW`` blocks of four per thread per SM, where four
+    would leave SMs idle; four at and above it. ``per_thread`` (1 or 4)
+    forces a layout. The grid never exceeds ``GRID_PER_SM`` blocks per SM;
+    the kernels grid-stride over the rest. Cached: a caller's shapes
+    repeat."""
+    four = -(-n // (4 * FLAT_THREADS))
+    if per_thread is None:
+        per_thread = 1 if four < ONE_PER_THREAD_BELOW * sms else 4
+    if per_thread not in (1, 4):
+        raise ValueError(f"K2c: 1 or 4 elements per thread, not {per_thread}")
+    blocks = four if per_thread == 4 else -(-n // FLAT_THREADS)
+    return per_thread, max(1, min(blocks, GRID_PER_SM * sms))
+
+
 def poisson_flat(lam: torch.Tensor, generator: torch.Generator | None = None,
-                 key=None) -> torch.Tensor:
-    """K2c: Poisson counts of ``lam`` (any shape), K2a's tiers per warp of
-    128 consecutive rates. The key words come from ``generator`` without a
-    host-device sync (``_build.key_words``): a CUDA generator leaves them
-    on the card for the kernel to read. ``key`` gives the two words instead
-    (``_build.draw_key`` / ``offset_key``: a rank's stream; on the CPU the
-    plain version draws from ``_build.key_generator(key)``); pass one of
-    the two."""
+                 key=None, _per_thread: int | None = None) -> torch.Tensor:
+    """K2c: Poisson counts of ``lam`` (any shape), K2a's tiers per group of
+    128 consecutive rates, one or four elements per thread
+    (``flat_layout``; ``_per_thread`` forces one, for tests). The key words
+    come from ``generator`` by value, with no host-device sync and no
+    kernel launch (``_build.key_words``). ``key`` gives the two words
+    instead (``_build.draw_key`` / ``offset_key``: a rank's stream; on the
+    CPU the plain version draws from ``_build.key_generator(key)``); pass
+    one of the two."""
     if (generator is None) == (key is None):
         raise ValueError("poisson_flat: pass a generator or key words")
     if not lam.is_cuda:
         return poisson_reference(lam, generator if key is None
                                  else _build.key_generator(key))
     _build.require_cuda_f32("poisson_flat", lam)
+    dev = lam.device
+    n = lam.numel()
     out = torch.empty_like(lam)
-    s0, s1, keys = _build.key_words(generator, lam.device, key)
+    s0, s1, keys = _build.key_words(generator, dev, key)
+    per_thread, blocks = flat_layout(n, _build.sm_count(dev), _per_thread)
     code = _build.lib().rls_poisson_flat(
-        lam.data_ptr(), out.data_ptr(), lam.numel(), s0, s1,
-        None if keys is None else keys.data_ptr(),
-        _build.stream_handle(lam.device))
+        lam.data_ptr(), out.data_ptr(), n, s0, s1,
+        None if keys is None else keys.data_ptr(), per_thread, blocks,
+        _build.stream_handle(dev))
     _build.check(code, "poisson_flat")
     _build.LAUNCHES["poisson_flat"] += 1
     return out

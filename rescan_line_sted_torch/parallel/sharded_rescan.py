@@ -95,7 +95,8 @@ def rank_key(generator, device, index: int):
     """The key words of stream ``index`` (a rank's index on the sharded
     axis): the two words drawn from ``generator`` as an unsharded kernel
     call draws them (``_build.draw_key``), the second offset by ``index``
-    (``_build.offset_key``). None without a generator."""
+    (``_build.offset_key``): a pair of ints, with no host-device sync.
+    None without a generator."""
     if generator is None:
         return None
     return _build.offset_key(_build.draw_key(generator, device), index)

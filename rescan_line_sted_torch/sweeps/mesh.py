@@ -27,8 +27,9 @@ def rank_generator(generator: torch.Generator, index: int
     """A generator on ``generator``'s device for stream ``index``: seeded
     from the key words drawn from ``generator`` (seeded alike on every
     rank), the second offset by ``index`` (``_build.offset_key``), so ranks
-    that run different points draw independent noise. A CUDA generator's
-    words are read back once."""
+    that run different points draw independent noise. The words come by
+    value, with nothing read back from the card (outside CUDA-graph
+    capture)."""
     key = _build.offset_key(_build.draw_key(generator, generator.device),
                             index)
     return _build.key_generator(key, generator.device)

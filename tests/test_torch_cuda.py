@@ -47,10 +47,12 @@ def _rel(got, want):
 
 
 def _host_key(generator):
-    """The two Philox key words ``_build.key_words`` draws from
-    ``generator``, read on the host."""
+    """The two Philox key words ``_build.key_words`` takes from
+    ``generator``: by value from a CPU generator and, outside CUDA-graph
+    capture, from a CUDA one."""
     s0, s1, keys = _build.key_words(generator, generator.device)
-    return (s0, s1) if keys is None else tuple(keys.tolist())
+    assert keys is None
+    return s0, s1
 
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=KERNEL_IDS)
@@ -110,7 +112,7 @@ def test_rows_tiered_ragged_draw_for_draw(cuda, cols, shift, on_card):
     columns of a row) against its host reference count by count: rows that
     end inside a Philox block or a warp, and views that do not start on 16
     bytes (scalar loads), with a CPU generator and a CUDA one (key words
-    read on the card)."""
+    from its seed and offset)."""
     rows = 2048 // max(1, cols // 32)
     full = 1.4 * torch.rand(rows * cols + shift,
                             generator=torch.Generator().manual_seed(cols))
@@ -126,9 +128,9 @@ def test_rows_tiered_ragged_draw_for_draw(cuda, cols, shift, on_card):
 
 
 def test_rows_tiered_cuda_generator_never_syncs(cuda):
-    """K2b with a CUDA generator draws its key words on the card and reads
-    them there: no sync under sync-debug mode "error"; its counts equal the
-    host reference under the same words."""
+    """K2b with a CUDA generator takes its key words on the host from the
+    generator's seed and offset: no sync under sync-debug mode "error";
+    its counts equal the host reference under the same words."""
     lam = 3.0 * torch.rand((96, 2048),
                            generator=torch.Generator().manual_seed(1))
     dev = lam.to(cuda)
@@ -145,22 +147,24 @@ def test_rows_tiered_cuda_generator_never_syncs(cuda):
     assert float(diff.max()) <= 1 and int((diff > 0).sum()) <= 4
 
 
-def _fixed_key(monkeypatch, generator):
-    """Make the kernels take by value the key words that ``generator`` (a
-    copy of its state is used) would give them."""
+def _card_key(monkeypatch, generator):
+    """Make the kernels read from the card, as under CUDA-graph capture,
+    the key words ``generator`` (a copy of its state is used) would give
+    them by value."""
     copy = torch.Generator(generator.device)
     copy.set_state(generator.get_state())
-    words = _host_key(copy)
+    words = torch.tensor(_host_key(copy), dtype=torch.int64,
+                         device=generator.device)
     monkeypatch.setattr(_build, "key_words",
-                        lambda g, d, key=None: (*words, None)
+                        lambda g, d, key=None: (0, 0, words)
                         if g is not None else (0, 0, None))
 
 
 @pytest.mark.parametrize("kernel", ["k1", "k3", "k4"])
 def test_key_words_on_card_match_by_value(cuda, kernel, monkeypatch):
-    """K1, K3 and K4 read their key words on the card from a CUDA
-    generator; the same words passed by value (drawn from a copy of the
-    generator's state) give the same canvas."""
+    """K1, K3 and K4 take a CUDA generator's key words by value (its seed
+    and offset); the same words left on the card for the kernel to read,
+    as under CUDA-graph capture, give the same canvas."""
     from rescan_line_sted_torch.kernels.line_fused import line_sted_fused
     from rescan_line_sted_torch.kernels.rescan_fused import rescan_fused
 
@@ -185,10 +189,10 @@ def test_key_words_on_card_match_by_value(cuda, kernel, monkeypatch):
             return rescan_fused(3.0 * s, eff, gx, offs, 512, generator=g)
     gen = torch.Generator(cuda).manual_seed(12)
     state = gen.get_state()
-    on_card = run(gen)
-    gen.set_state(state)
-    _fixed_key(monkeypatch, gen)
     by_value = run(gen)
+    gen.set_state(state)
+    _card_key(monkeypatch, gen)
+    on_card = run(gen)
     assert torch.equal(on_card, by_value) and on_card.sum() > 0
 
 
@@ -408,18 +412,28 @@ def test_key_argument_seeds_the_draws(cuda, kernel, form):
 
 
 def test_rank_keys_on_card_give_independent_streams(cuda):
-    """``sharded_rescan.rank_key`` on a CUDA generator: no host read, the
-    rank's words offset on the card; two ranks' K2c counts on the same
+    """``sharded_rescan.rank_key`` on a CUDA generator: no sync (sync-debug
+    mode "error") and no device work, the rank's words by value (rank 0's
+    the unsharded call's) and distinct; two ranks' K2c counts on the same
     rates differ and are uncorrelated."""
     from rescan_line_sted_torch.parallel.sharded_rescan import rank_key
 
     lam = torch.full((512, 512), 5.0, device=cuda)
-    draws = []
+    draws, keys = [], []
     for rank in (0, 1):
         gen = torch.Generator(cuda).manual_seed(4)
-        key = rank_key(gen, cuda, rank)
-        assert key.device == cuda
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            key = rank_key(gen, cuda, rank)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert isinstance(key, tuple) and all(
+            isinstance(w, int) and 0 <= w < _build.KEY_MOD for w in key)
+        keys.append(key)
         draws.append(poisson_flat(lam, key=key).double().cpu() - 5.0)
+    assert keys[0] == _host_key(torch.Generator(cuda).manual_seed(4))
+    assert keys[0] != keys[1]
     assert not torch.equal(draws[0], draws[1])
     corr = float(torch.corrcoef(torch.stack([d.ravel() for d in draws]))[0, 1])
     assert abs(corr) < 5.0 / 512
@@ -1171,11 +1185,16 @@ def test_flat_bright_tier_statistics(cuda, lam_val, with_bright):
     assert stats.chi2.sf(chi2, max(int(keep.sum()) - 1, 1)) > 1e-6
 
 
-def test_flat_cuda_generator_never_syncs(cuda):
-    """With a CUDA generator K2c draws its key words on the card and reads
-    them there: the call raises under sync-debug mode "error" if anything
-    synchronises. Its counts equal the host reference under the words that
-    ``_build.key_words`` draws from the same generator state."""
+def test_flat_cuda_generator_never_syncs(cuda, monkeypatch):
+    """With a CUDA generator K2c takes its key words on the host from the
+    generator's seed and offset: the call raises under sync-debug mode
+    "error" if anything synchronises, and taking the words launches no
+    kernel (no ``torch.randint``, and the profiler sees no device work)
+    and advances the offset by 4. Its counts equal the host reference
+    under the words that ``_build.key_words`` takes from the same
+    generator state."""
+    from torch.profiler import ProfilerActivity, profile
+
     lam = _flat_rates(1 << 16, 3, 3.0).to(cuda)
     poisson_flat(lam, torch.Generator(cuda).manual_seed(0))   # build, warm
     torch.cuda.synchronize()
@@ -1190,6 +1209,107 @@ def test_flat_cuda_generator_never_syncs(cuda):
     assert float(diff.max()) <= 1 and int((diff > 0).sum()) <= 4
     with pytest.raises(ValueError, match="generator"):
         _build.key_words(torch.Generator(cuda), torch.device("cpu"))
+    gen = torch.Generator(cuda).manual_seed(9)
+    torch.cuda.synchronize()
+    monkeypatch.setattr(torch, "randint", None)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = _build.key_words(gen, cuda)
+        torch.cuda.synchronize()
+    assert got == (*key, None) and gen.get_offset() == 4
+    assert not [e for e in prof.events() if e.device_type ==
+                torch.autograd.DeviceType.CUDA]
+
+
+def _layout_rates(case):
+    """Rates for K2c's two layouts: every group bright (Knuth under 10,
+    PTRS above), mixed tiers with bright groups, a ragged length, NaN and
+    negative rates, and a size above the one-per-thread threshold."""
+    g = torch.Generator().manual_seed(7)
+    if case == "bright":
+        return 15.0 * torch.rand((256, 256), generator=g)
+    if case == "mixed":
+        return _flat_rates(1 << 18, 5, 8.0, bright_every=3)
+    if case == "ragged":
+        return _flat_rates((1 << 16) + 77, 6, 1.2, bright_every=5)
+    if case == "nan_negative":
+        lam = 4.0 * torch.rand(100003, generator=g) - 1.0
+        lam[::1013] = float("nan")
+        lam[4096:8192] = -0.5
+        return lam
+    return _flat_rates(3 << 21, 8, 3.0, bright_every=11)
+
+
+@pytest.mark.parametrize("case", ["bright", "mixed", "ragged", "nan_negative",
+                                  "large"])
+@pytest.mark.parametrize("misalign", [0, 1])
+def test_flat_layouts_give_identical_counts(cuda, case, misalign):
+    """K2c's one-element-per-thread layout and its four-element one give
+    identical counts under one key, the bright tier included (each element
+    keeps its single-draw word and its multi-draw stream), on aligned and
+    misaligned views; the default layout is one of them; NaN rates give
+    NaN and negative ones 0."""
+    lam = _layout_rates(case)
+    full = torch.cat([torch.zeros(misalign), lam.reshape(-1)]).to(cuda)
+    dev = full[misalign:].reshape(lam.shape)
+    one = poisson_flat(dev, key=(123, 456), _per_thread=1)
+    four = poisson_flat(dev, key=(123, 456), _per_thread=4)
+    default = poisson_flat(dev, key=(123, 456))
+    assert torch.equal(one.nan_to_num(-1), four.nan_to_num(-1))
+    assert torch.equal(default.nan_to_num(-1), one.nan_to_num(-1))
+    assert torch.equal(torch.isnan(one), torch.isnan(dev))
+    assert (one[dev <= 0] == 0).all() and float(one.nansum()) > 0
+
+
+@pytest.mark.parametrize("kernel", KERNELS, ids=KERNEL_IDS)
+def test_cuda_generator_counts_match_reference(cuda, kernel):
+    """K2b and K2c on one CUDA generator: each call's counts equal the
+    host reference under the words ``_host_key`` takes from a generator
+    in the same state (below the bright cut), and consecutive calls take
+    new words and give new counts."""
+    flat = kernel is poisson_flat
+    lam = 1.4 * torch.rand((96, 2048),
+                           generator=torch.Generator().manual_seed(5))
+    dev = lam.to(cuda)
+    gen = torch.Generator(cuda).manual_seed(31)
+    twin = torch.Generator(cuda).manual_seed(31)
+    runs = []
+    for _ in range(3):
+        got = kernel(dev, gen).cpu()
+        want = poisson_rows_tiered_reference(lam, _host_key(twin), flat)
+        diff = (got - want).abs()
+        assert float(diff.max()) <= 1 and int((diff > 0).sum()) <= 4
+        runs.append(got)
+    assert not torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[1], runs[2])
+
+
+def test_flat_under_graph_capture_draws_anew_per_replay(cuda):
+    """K2c captured in a CUDA graph with the card's default generator: its
+    key words are drawn on the card inside the graph, so two replays give
+    different counts, each with the Poisson mean and dispersion."""
+    gen = torch.cuda.default_generators[cuda.index]
+    lam = torch.full((512, 512), 5.0, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        poisson_flat(lam, gen)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _build.LAUNCHES["poisson_flat"]
+    with torch.cuda.graph(graph):
+        out = poisson_flat(lam, gen)
+    assert _build.LAUNCHES["poisson_flat"] == before + 1
+    runs = []
+    for _ in range(2):
+        graph.replay()
+        runs.append(out.double().cpu())
+    assert not torch.equal(runs[0], runs[1])
+    n = lam.numel()
+    for x in runs:
+        assert (x == x.round()).all() and (x >= 0).all()
+        assert abs(float(x.mean()) - 5.0) <= 5 * np.sqrt(5.0 / n)
+        disp = float(((x - 5.0) ** 2 / 5.0).mean())
+        assert abs(disp - 1.0) <= 5 * np.sqrt((2.0 + 1.0 / 5.0) / n)
 
 
 # ---- K5: loads in flight, missed frames skipped, the sum order kept ----------

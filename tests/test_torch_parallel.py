@@ -58,7 +58,7 @@ import torch_parallel_worker as worker  # noqa: E402
 WORLDS = (1, 2, 4)
 W = worker.W
 CASES = worker.CASES
-TOL = 2e-5
+TOL = 1e-5
 PARAMS = dict(sigma_exc=1.2, sigma_det=1.2, depletion=4.0, brightness=50.0)
 
 

@@ -18,6 +18,10 @@ from scipy import stats
 from rescan_line_sted_torch.kernels import _build
 from rescan_line_sted_torch.kernels.poisson import (
     _INV_TIERS,
+    FLAT_THREADS,
+    GRID_PER_SM,
+    ONE_PER_THREAD_BELOW,
+    flat_layout,
     inversion_from_uniform,
     philox4x32_10,
     poisson_flat,
@@ -213,6 +217,87 @@ def test_key_words_from_a_cpu_generator():
                          generator=torch.Generator().manual_seed(3))
     assert got == (*want.tolist(), None)
     assert _build.key_words(None, "cpu") == (0, 0, None)
+
+
+def test_key_mix_words_are_in_range_and_distinct():
+    """A CUDA generator's words come from its seed and its offset / 4 by a
+    fixed mix: every word in [0, KEY_MOD), the pairs distinct over 10^5
+    (seed, counter) pairs (small and full 64-bit seeds), and distinct again
+    for ranks 0-7 under ``offset_key`` (a rank's stream)."""
+    seeds = [*range(300), *(2**64 - 1 - k for k in range(50)),
+             *(0x5DEECE66D * k for k in range(1, 51))]
+    words = [_build.mix_words(s, c) for s in seeds for c in range(250)]
+    assert len(words) == 100_000
+    assert all(0 <= w < _build.KEY_MOD for k in words for w in k)
+    assert len(set(words)) == len(words)
+    ranked = {_build.offset_key(k, r) for k in words for r in range(8)}
+    assert len(ranked) == 8 * len(words)
+    assert _build.mix_words(7, 3) == _build.mix_words(7 + 2**64, 3)
+
+
+class _OffsetGenerator:
+    """A CUDA generator's Philox state as ``generator_words`` reads it."""
+
+    def __init__(self, seed, offset=0):
+        self.seed, self.offset = seed, offset
+
+    def initial_seed(self):
+        return self.seed
+
+    def get_offset(self):
+        return self.offset
+
+    def set_offset(self, offset):
+        assert offset % 4 == 0
+        self.offset = offset
+
+
+def test_generator_words_advance_the_offset():
+    """Each call takes the words of (seed, offset / 4) and advances the
+    offset by 4, so consecutive calls differ; a restored offset gives the
+    same words again, and another seed other words."""
+    gen = _OffsetGenerator(1234, offset=8)
+    first = [_build.generator_words(gen) for _ in range(5)]
+    assert gen.offset == 8 + 4 * 5
+    assert first == [_build.mix_words(1234, 2 + k) for k in range(5)]
+    assert len(set(first)) == 5
+    gen.set_offset(8)
+    assert [_build.generator_words(gen) for _ in range(5)] == first
+    other = _OffsetGenerator(1235, offset=8)
+    assert _build.generator_words(other) != first[0]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+def test_flat_layout_threshold_and_cap(sms):
+    """K2c's layout: one element per thread while four per thread would
+    give fewer than ONE_PER_THREAD_BELOW blocks per SM, four from there
+    on; the grid covers n in one pass until it reaches its cap of
+    GRID_PER_SM blocks per SM, and never exceeds it."""
+    last = (ONE_PER_THREAD_BELOW * sms - 1) * 4 * FLAT_THREADS
+    cap = GRID_PER_SM * sms
+    for n in (1, 255, 256, 257, 65536 % last + 1, last // 2, last):
+        per, blocks = flat_layout(n, sms)
+        assert per == 1 and 1 <= blocks <= cap
+        assert blocks == min(-(-n // FLAT_THREADS), cap)
+    for n in (last + 1, last + 4 * FLAT_THREADS, 2048 * 3072,
+              4 * 2048 * 2048, 2**31 + 5):
+        per, blocks = flat_layout(n, sms)
+        assert per == 4 and 1 <= blocks <= cap
+        assert blocks == min(-(-n // (4 * FLAT_THREADS)), cap)
+
+
+@pytest.mark.parametrize("per_thread", [1, 4])
+@pytest.mark.parametrize("n", [1, 1000, 65536, 2048 * 3072, 2**33])
+def test_flat_layout_forced(per_thread, n):
+    """A forced layout keeps its elements per thread at any n, under the
+    same cap; 0 elements still launch one block; other layouts raise."""
+    per, blocks = flat_layout(n, 132, per_thread)
+    assert per == per_thread and 1 <= blocks <= GRID_PER_SM * 132
+    assert blocks == min(-(-n // (per_thread * FLAT_THREADS)),
+                         GRID_PER_SM * 132)
+    assert flat_layout(0, 132, per_thread) == (per_thread, 1)
+    with pytest.raises(ValueError, match="per thread"):
+        flat_layout(n, 132, 2)
 
 
 @pytest.mark.parametrize("lam_val", [0.05, 0.7, 5.0, 30.0, 300.0])
