@@ -2526,6 +2526,43 @@ def prim_checks(dev) -> tuple[dict, dict]:
     return errs, plain_ms
 
 
+def prim_normal_checks(dev) -> dict:
+    """K6's two product bodies on seeded standard-normal operands
+    (``primitives.normal_operands``: values one TF32 pass does not hold,
+    unlike the rate calls' eighths) at each of ``NORMAL_SHAPES`` and
+    ``NORMAL_REPS``, each held within ``NORMAL_TOL`` of the float64
+    product. On the same inputs one TF32 pass (hi * hi alone,
+    ``tf32_passes_reference(passes=1)`` on the host) must miss that bar,
+    so the check tells a tf32x3 with wrong or missing lo passes apart.
+    Returns the relative errors (max |err| / max |product|) per case."""
+    from rescan_line_sted_torch.kernels import primitives as prim
+
+    errs = {}
+    for m, k, n in prim.NORMAL_SHAPES:
+        a, b = prim.normal_operands(m, k, n)
+        for reps in prim.NORMAL_REPS:
+            want = prim.product_float64(a, b, reps)
+            case = f"{m}x{k}x{n}, reps {reps}"
+            errs[case] = {"one_tf32_pass": max_rel(
+                prim.tf32_passes_reference(a, b, reps, passes=1), want)}
+            check(errs[case]["one_tf32_pass"] > prim.NORMAL_TOL,
+                  f"one TF32 pass must miss {prim.NORMAL_TOL} on normal "
+                  f"operands {case}: {errs[case]}")
+            for name in ("sgemm", "tf32x3"):
+                got = getattr(prim, name)(a.to(dev), b.to(dev), reps)
+                torch.cuda.synchronize()
+                errs[case][name] = max_rel(got, want)
+            log(f"K6 products on normal operands {case} against float64: "
+                f"max rel err sgemm {errs[case]['sgemm']:.3e}, tf32x3 "
+                f"{errs[case]['tf32x3']:.3e}, one TF32 pass (host) "
+                f"{errs[case]['one_tf32_pass']:.3e} (tolerance "
+                f"{prim.NORMAL_TOL})")
+            check(max(errs[case]["sgemm"], errs[case]["tf32x3"])
+                  <= prim.NORMAL_TOL,
+                  f"K6 products on normal operands {case}: {errs[case]}")
+    return errs
+
+
 def prim_bound(name, rate) -> tuple[float, str]:
     """The datasheet bound of one rate call of a K6 kernel (``rate``: the
     entry of ``primitive_rates``): its arithmetic steps at the fp32 peak
@@ -2553,25 +2590,33 @@ def prim_bound(name, rate) -> tuple[float, str]:
 
 
 def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
-    """K6: every microkernel against its plain version; the rates
-    (``primitive_rates``, counters reset before and read after); reps
-    cuBLAS products against sgemm; the composite bound of K1 (flagship,
-    its frames' tiers counted per element, in each of its four modes: the
-    convolution at the tf32x3 rate, the spreading taps at the FFMA one), K3
-    (line_2048), K4
-    (nobands_2048), K2c (``k2c``: its timing dicts on the flagship
-    canvas and nobands_512_scatter's frames, with their counts) and K2b
-    (``k2b``: on each caller's frames) from those
+    """K6: every microkernel against its plain version; the two product
+    bodies on normal operands against float64 (``prim_normal_checks``);
+    the rates (``primitive_rates``, counters reset before and read after),
+    the product bodies' with their share of the datasheet peak; reps
+    cuBLAS products against sgemm and tf32x3; the composite bound of K1
+    (flagship, its frames' tiers counted per element, in each of its four
+    modes: the convolution at the tf32x3 rate, the spreading taps at the
+    FFMA one), K3 (line_2048), K4 (nobands_2048), K2c (``k2c``: its timing
+    dicts on the flagship canvas and nobands_512_scatter's frames, with
+    their counts) and K2b (``k2b``: on each caller's frames) from those
     rates, each held under the kernel's noisy time measured in this run
     (``k1``, ``k3``, ``k4``: their timing dicts, K3's and K4's with their
     counts)."""
     from rescan_line_sted_torch.kernels import primitives as prim
 
     errs, plain_ms = prim_checks(dev)
+    normal = prim_normal_checks(dev)
     rates, launches = drive("primitives", lambda: prim.primitive_rates(dev))
     log(f"K6 rates on {card()} ({clocks()}): " + json.dumps(
         {k: {"rate": f"{v['rate']:.4e}", "reps": v["reps"],
              "ms": round(v["ms"], 4)} for k, v in rates.items()}))
+    peaks = {"sgemm": PEAK_FLOPS / 2, "tf32x3": PEAK_TF32 / 6}
+    for name, unit in (("sgemm", "FFMA"), ("tf32x3", "three TF32 passes")):
+        log(f"K6 {name}: {rates[name]['rate']:.4e} fp32 FMA/s, "
+            f"{rates[name]['rate'] / peaks[name]:.1%} of the datasheet peak "
+            f"{peaks[name]:.4e} ({unit}), {rates[name]['reps']} reps in "
+            f"{rates[name]['ms']:.4f} ms, on {card()}")
     m, k, n = prim.GEMM_SHAPE
     g = torch.Generator().manual_seed(0)
     a = (torch.randint(0, 8, (m, k), generator=g) / 8).to(dev)
@@ -2589,7 +2634,8 @@ def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
         log(f"{reps} cuBLAS fp32 products {m}x{k}x{n} (TF32 off): "
             f"{library_ms[name]:.4f} ms = "
             f"{reps * m * k * n / (library_ms[name] * 1e-3):.4e} FMA/s, "
-            f"against K6 {name} {rates[name]['rate']:.4e}")
+            f"against K6 {name} {rates[name]['rate']:.4e} in "
+            f"{rates[name]['ms']:.4f} ms, on {card()}")
 
     # K1, K2b, K2c and K4 take four elements' uniforms from one Philox
     # block; K3's draws are in its Knuth rounds. K1's convolution runs on
@@ -2631,6 +2677,10 @@ def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
                     philox_blocks=k4["uniforms"])
     log(f"composite bound rescan_fused with one Philox block per draw: "
         f"{json.dumps(prim.composite_bound(one_each, rates))}")
+    log(f"composite bounds (ms) at this run's K6 rates (tf32x3 "
+        f"{rates['tf32x3']['rate']:.4e} FMA/s) on {card()}: " + json.dumps(
+            {name: round(bounds[name]["total_ms"], 4)
+             for name in (*K1_MODES, "line_sted_fused", "rescan_fused")}))
     for name, bd in bounds.items():
         log(f"composite bound {name}: {json.dumps(bd)}; the kernel ran "
             f"{measured[name]:.4f} ms noisy, "
@@ -2650,8 +2700,12 @@ def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
     for name in library_ms:
         entries[name]["library_call"] = (
             f"{rates[name]['reps']} torch.mm, TF32 off")
+        entries[name]["peak_share"] = rates[name]["rate"] / peaks[name]
+        entries[name]["normal_operands_rel_err"] = {
+            case: e[name] for case, e in normal.items()}
     return {"errs": errs, "rates": rates, "launches": launches,
-            "bounds": bounds, "entries": entries, "library_ms": library_ms}
+            "bounds": bounds, "entries": entries, "library_ms": library_ms,
+            "normal": normal}
 
 
 SWEEP_SIZE = 256               # bench.py:71, the dose sweep's grid
@@ -3509,6 +3563,23 @@ def strict_json(line: str):
     return json.loads(line, parse_constant=no_const)
 
 
+def json_objects(text: str) -> list:
+    """Every JSON object that begins a line of ``text`` or follows one on
+    it, refusing NaN and Infinity as ``strict_json`` does. Processes that
+    share one pipe (torchrun's ranks) can put two objects on one line: an
+    unbuffered ``print`` writes its newline apart from its text."""
+    def no_const(c):
+        raise ValueError(f"non-RFC JSON constant {c} in {text[:200]}")
+    decoder = json.JSONDecoder(parse_constant=no_const)
+    objects = []
+    for line in text.splitlines():
+        pos = 0
+        while line.startswith("{", pos):
+            obj, pos = decoder.raw_decode(line, pos)
+            objects.append(obj)
+    return objects
+
+
 def run_cli(argv) -> dict:
     """``python -m rescan_line_sted_torch`` in this process: its last
     stdout line as strict JSON."""
@@ -4174,8 +4245,7 @@ def parallel_cli(single: dict, name_power: str) -> dict:
         check(f"multihost: process {r}/{PARALLEL_WORLD}" in proc.stderr,
               f"torchrun psf-report: no 'process {r}/{PARALLEL_WORLD}' log "
               f"line:\n{proc.stderr[-2000:]}")
-    reports = [strict_json(line) for line in proc.stdout.splitlines()
-               if line.startswith("{")]
+    reports = json_objects(proc.stdout)
     check(len(reports) == PARALLEL_WORLD,
           f"torchrun psf-report: {len(reports)} reports, not one per rank")
     worst = max(abs(rep[k] - v) / max(abs(v), 1e-30)

@@ -13,9 +13,10 @@ CPU tensor. The plain versions are the float32 chains (the fma chain
 rounded once per step as ``fmaf`` rounds), the exp chain in float64, or
 the same float32 steps on the same Philox stream (``kernels.poisson``).
 The TPU's matrix-unit body is measured twice too: in fp32 FFMA
-(``sgemm``) and on the tensor cores in three TF32 passes (``tf32x3``,
-K1's convolution engine); both compute the same product, whose plain
-version is its closed form in float64.
+(``sgemm``) and on the tensor cores in three TF32 passes (``tf32x3``, on
+``wgmma``: the rate K1's convolution is charged at); both compute the same
+product, whose plain version is its closed form in float64
+(``tf32_passes_reference`` emulates the passes themselves).
 
 ``calls(device, check=True)`` gives every kernel and its plain version on
 the inputs the rates use, with constants at which each rep moves the
@@ -60,6 +61,8 @@ UNROLL = 16                     # dependent operations per unrolled step
 WIN_ROWS, CANVAS_ROWS, COLS = 136, 3080, 512     # the TPU body's placement
 WINDOW = WIN_ROWS * COLS        # elements of one placement window
 GEMM_SHAPE = (4096, 128, 512)   # (M, K, N) of the TPU's mxu body
+TILE = 128                      # the product kernels' C tile: M, N % 128
+TF32_MASK = -8192               # 0xffffe000 as an int32: TF32's 19 bits
 FILL = 132 * 2048               # threads that fill an H100: 132 SMs x 2048
 PLACE_CANVASES = 33             # place_add canvases: 16 x 33 blocks, 4 per SM
 INV_LAM = 0.3                   # the TPU bodies' rate
@@ -85,6 +88,13 @@ CHECK_INV_LAM = math.factorial(UNROLL) ** (1.0 / UNROLL)
 CHECKS = {"fma": (32, 0.0), "uniform": (32, 0.0), "uniform_block": (16, 0.0),
           "exp": (32, 1e-5), "inv_term": (48, 0.0), "knuth_round": (32, 0.0),
           "place_add": (48, 0.0), "sgemm": (2, 1e-6), "tf32x3": (2, 1e-6)}
+# The product bodies on ``normal_operands`` (the checks' eighths above are
+# exact in TF32's high part, so they cannot tell the passes apart): each
+# (M, K, N) at reps 1 and 3, held within NORMAL_TOL of the float64 product,
+# which one TF32 pass misses.
+NORMAL_SHAPES = (GEMM_SHAPE, (256, 64, 128))
+NORMAL_REPS = (1, 3)
+NORMAL_TOL = 1e-5
 
 
 def _reps(reps: int) -> int:
@@ -219,14 +229,59 @@ def place_add_reference(canvas: torch.Tensor, window: torch.Tensor,
     return out
 
 
-def sgemm_reference(a: torch.Tensor, b: torch.Tensor, reps: int
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' exact TF32 split of float32 ``x``: ``x_hi = x &
+    0xffffe000`` and ``x_lo = (x - x_hi) & 0xffffe000`` on the bits."""
+    x = x.float().contiguous()
+    hi = (x.view(torch.int32) & TF32_MASK).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & TF32_MASK).view(torch.float32)
+    return hi, lo
+
+
+def tf32_passes_reference(a: torch.Tensor, b: torch.Tensor, reps: int,
+                          passes: int = 3) -> torch.Tensor:
+    """``sum_rep`` of the TF32 passes of ``a @ (b + rep * 1e-9)`` in
+    float64, each rep's ``b + rep * 1e-9`` rounded to float32 and split as
+    the kernel splits it: ``passes=3`` hi * hi + hi * lo + lo * hi (the
+    tf32x3 kernel's products), ``passes=1`` hi * hi alone (one TF32 pass,
+    which misses 1e-5 on values TF32 does not hold exactly)."""
+    if passes not in (1, 3):
+        raise ValueError("passes is 1 or 3")
+    ah, al = (t.double() for t in tf32_split(a))
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float64,
+                      device=a.device)
+    for rep in range(reps):
+        pert = np.float32(rep) * np.float32(1e-9)
+        bh, bl = (t.double() for t in tf32_split(b.float() + float(pert)))
+        out += ah @ bh
+        if passes == 3:
+            out += ah @ bl + al @ bh
+    return out
+
+
+def normal_operands(m: int, k: int, n: int, seed: int = 0
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded standard-normal float32 ``a`` [m, k] and ``b`` [k, n] (numpy):
+    values one TF32 pass does not hold, unlike the rate calls' eighths."""
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.standard_normal((m, k), np.float32)),
+            torch.from_numpy(rng.standard_normal((k, n), np.float32)))
+
+
+def product_float64(a: torch.Tensor, b: torch.Tensor, reps: int
                     ) -> torch.Tensor:
     """``sum_rep a @ (b + rep * 1e-9)`` in closed form, float64: ``reps a @
     b + 1e-9 reps (reps - 1) / 2 * rowsum(a)``."""
     a64, b64 = a.double(), b.double()
-    c = reps * (a64 @ b64) \
+    return reps * (a64 @ b64) \
         + 1e-9 * reps * (reps - 1) / 2 * a64.sum(1, keepdim=True)
-    return c.float()
+
+
+def sgemm_reference(a: torch.Tensor, b: torch.Tensor, reps: int
+                    ) -> torch.Tensor:
+    """``product_float64`` rounded to float32: the product bodies' plain
+    version."""
+    return product_float64(a, b, reps).float()
 
 
 # ---- the kernels ----------------------------------------------------------
@@ -322,43 +377,41 @@ def place_add(canvas: torch.Tensor, window: torch.Tensor,
     return canvas
 
 
-def sgemm(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
-    """``sum_rep a @ (b + rep * 1e-9)`` [M, N] in fp32 FFMA (no tensor
-    cores); M % 128 == 0, N % 64 == 0, K % 8 == 0."""
+def _product(name: str, a: torch.Tensor, b: torch.Tensor, reps: int,
+             k_step: int) -> torch.Tensor:
     (m, k), (k2, n) = a.shape, b.shape
-    if k != k2 or m % 128 or n % 64 or k % 8 or reps <= 0:
-        raise ValueError("sgemm takes a [M, K] and b [K, N] with M % 128, "
-                         "N % 64 and K % 8 zero, and reps > 0")
+    if k != k2 or m % TILE or n % TILE or k % k_step or not 0 < k <= TILE \
+            or reps <= 0:
+        raise ValueError(f"{name} takes a [M, K] and b [K, N] with M % {TILE}"
+                         f", N % {TILE} and K % {k_step} zero, K <= {TILE},"
+                         " and reps > 0")
     if not a.is_cuda:
         return sgemm_reference(a, b, reps)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _build.require_cuda_f32("primitives_sgemm", a, b, out)
-    code = _build.lib().rls_prim_sgemm(
+    _build.require_cuda_f32(f"primitives_{name}", a, b, out)
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"{name}: a and b must start 16-byte aligned")
+    code = getattr(_build.lib(), f"rls_prim_{name}")(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, reps,
         _build.stream_handle(a.device))
-    _build.check(code, "primitives_sgemm")
-    _build.LAUNCHES["primitives_sgemm"] += 1
+    _build.check(code, f"primitives_{name}")
+    _build.LAUNCHES[f"primitives_{name}"] += 1
     return out
+
+
+def sgemm(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
+    """``sum_rep a @ (b + rep * 1e-9)`` [M, N] in fp32 FFMA (no tensor
+    cores); M % 128 == 0, N % 128 == 0, K % 8 == 0 and K <= 128 (the
+    kernel's 128 x 128 tiles keep K resident in shared memory)."""
+    return _product("sgemm", a, b, reps, 8)
 
 
 def tf32x3(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
     """``sgemm``'s product on the tensor cores, each k-step of 8 in three
-    TF32 passes (hi * hi + hi * lo + lo * hi, fp32 accumulation); M % 64,
-    N % 64 and K % 8 zero, K <= 128 (the tiles stay in shared memory)."""
-    (m, k), (k2, n) = a.shape, b.shape
-    if k != k2 or m % 64 or n % 64 or k % 8 or k > 128 or reps <= 0:
-        raise ValueError("tf32x3 takes a [M, K] and b [K, N] with M % 64, "
-                         "N % 64 and K % 8 zero, K <= 128, and reps > 0")
-    if not a.is_cuda:
-        return sgemm_reference(a, b, reps)
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    _build.require_cuda_f32("primitives_tf32x3", a, b, out)
-    code = _build.lib().rls_prim_tf32x3(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, reps,
-        _build.stream_handle(a.device))
-    _build.check(code, "primitives_tf32x3")
-    _build.LAUNCHES["primitives_tf32x3"] += 1
-    return out
+    TF32 passes (hi * hi into one fp32 accumulator, hi * lo + lo * hi into
+    a second); M % 128 == 0, N % 128 == 0, K % 32 == 0 and K <= 128 (the
+    kernel's TMA slices of 32, resident in shared memory)."""
+    return _product("tf32x3", a, b, reps, 32)
 
 
 # ---- rates and the composite bound ---------------------------------------

@@ -1049,6 +1049,41 @@ def test_primitive_matches_plain(cuda, name):
     assert got.shape == want.shape and _rel(got, want) <= tol
 
 
+@pytest.mark.parametrize("reps", [1, 3])
+@pytest.mark.parametrize("shape", [(4096, 128, 512), (256, 64, 128)])
+def test_products_on_normal_operands(cuda, shape, reps):
+    """sgemm and tf32x3 on seeded standard-normal operands
+    (``primitives.normal_operands``, values TF32's high part does not
+    hold) within ``NORMAL_TOL`` of the float64 product, one launch each;
+    one TF32 pass (hi * hi alone, the plain helper) misses that bar on the
+    same inputs, so a tf32x3 with wrong or missing lo passes fails here."""
+    from rescan_line_sted_torch.kernels import primitives as prim
+
+    m, k, n = shape
+    a, b = prim.normal_operands(m, k, n)
+    want = prim.product_float64(a, b, reps)
+    assert _rel(prim.tf32_passes_reference(a, b, reps, passes=1),
+                want) > prim.NORMAL_TOL
+    for name in ("sgemm", "tf32x3"):
+        before = _build.LAUNCHES[f"primitives_{name}"]
+        got = getattr(prim, name)(a.to(cuda), b.to(cuda), reps)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[f"primitives_{name}"] == before + 1
+        assert got.shape == (m, n) and _rel(got, want) <= prim.NORMAL_TOL
+
+
+def test_products_refuse_misaligned_operands(cuda):
+    """The product kernels read 16-byte vectors (sgemm) and TMA boxes
+    (tf32x3): an operand that starts off a 16-byte boundary raises."""
+    from rescan_line_sted_torch.kernels import primitives as prim
+
+    b = torch.ones((128, 128), device=cuda)
+    a = torch.ones(128 * 128 + 1, device=cuda)[1:].view(128, 128)
+    for name in ("sgemm", "tf32x3"):
+        with pytest.raises(ValueError, match="aligned"):
+            getattr(prim, name)(a, b, 1)
+
+
 def test_primitive_rates_and_bound(cuda):
     """Every rate is positive and finite; the composite bound of a count
     set is the sum of its terms."""

@@ -128,10 +128,92 @@ def test_tf32x3_matches_jax_mxu():
 
 def test_sgemm_reference_sums_the_perturbed_products():
     g = torch.Generator().manual_seed(1)
-    a, b = torch.rand((128, 16), generator=g), torch.rand((16, 64),
+    a, b = torch.rand((128, 16), generator=g), torch.rand((16, 128),
                                                           generator=g)
     want = sum(a.double() @ (b.double() + r * 1e-9) for r in range(5))
     assert _rel(prim.sgemm(a, b, 5), want) <= 1e-6
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("sgemm", (100, 8, 128)), ("sgemm", (128, 8, 64)),
+    ("sgemm", (128, 12, 128)), ("sgemm", (128, 136, 128)),
+    ("tf32x3", (64, 128, 128)), ("tf32x3", (128, 128, 192)),
+    ("tf32x3", (128, 40, 128)), ("tf32x3", (128, 8, 128)),
+    ("tf32x3", (128, 160, 128))])
+def test_product_shapes_the_tiles_refuse(name, shape):
+    """Both product kernels take 128 x 128 tiles of C with K resident in
+    shared memory: sgemm K % 8 zero up to 128, tf32x3 K in TMA slices of
+    32 up to 128. Other shapes raise on every device."""
+    m, k, n = shape
+    with pytest.raises(ValueError, match=name):
+        getattr(prim, name)(torch.ones((m, k)), torch.ones((k, n)), 1)
+
+
+@pytest.mark.parametrize("name", ["sgemm", "tf32x3"])
+@pytest.mark.parametrize("shape", [prim.GEMM_SHAPE, (256, 64, 128),
+                                   (128, 32, 128)])
+def test_product_shapes_the_tiles_take(name, shape):
+    """GEMM_SHAPE and the card test's [256, 64] x [64, 128] are taken; on
+    a CPU tensor the wrapper gives its plain version."""
+    m, k, n = shape
+    a, b = prim.normal_operands(m, k, n, seed=5)
+    got = getattr(prim, name)(a, b, 2)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert torch.equal(got, prim.sgemm_reference(a, b, 2))
+
+
+@pytest.mark.parametrize("values", ["normal", "eighths", "tiny", "wide"])
+def test_tf32_split_matches_numpy_bit_masks(values):
+    """``tf32_split`` is the kernels' split, bit for bit: x_hi = x &
+    0xffffe000 and x_lo = (x - x_hi) & 0xffffe000 as numpy computes them on
+    the float32 bits (subnormals, negatives and magnitudes across the
+    exponent range included), and hi + lo recovers x to 2^-21 of |x| (to
+    2^-136 among the subnormals, whose split drops 13 bits of 2^-149)."""
+    rng = np.random.default_rng(7)
+    x = {"normal": rng.standard_normal(4096),
+         "eighths": rng.integers(-64, 64, 4096) / 8,
+         "tiny": rng.standard_normal(4096) * 1e-39,
+         "wide": rng.standard_normal(4096) * 10.0 ** rng.integers(
+             -30, 30, 4096)}[values].astype(np.float32)
+    hi, lo = prim.tf32_split(torch.from_numpy(x))
+    mask = np.uint32(0xFFFFE000)
+    want_hi = (x.view(np.uint32) & mask).view(np.float32)
+    want_lo = ((x - want_hi).view(np.uint32) & mask).view(np.float32)
+    assert np.array_equal(hi.numpy().view(np.uint32), want_hi.view(np.uint32))
+    assert np.array_equal(lo.numpy().view(np.uint32), want_lo.view(np.uint32))
+    rest = np.abs(x.astype(np.float64) - hi.double().numpy()
+                  - lo.double().numpy())
+    assert np.all(rest <= np.maximum(
+        2.0 ** -21 * np.abs(x.astype(np.float64)), 2.0 ** -136))
+
+
+@pytest.mark.parametrize("reps", prim.NORMAL_REPS)
+@pytest.mark.parametrize("shape", prim.NORMAL_SHAPES)
+def test_tf32_passes_on_normal_operands(shape, reps):
+    """On the card checks' normal operands the three TF32 passes
+    (hi * hi + hi * lo + lo * hi, as the kernel splits) hold
+    ``NORMAL_TOL`` against the float64 product and one pass (hi * hi)
+    misses it: the check the card runs can tell the passes apart."""
+    a, b = prim.normal_operands(*shape)
+    want = prim.product_float64(a, b, reps)
+    assert _rel(prim.tf32_passes_reference(a, b, reps, 3), want) \
+        <= prim.NORMAL_TOL / 10
+    assert _rel(prim.tf32_passes_reference(a, b, reps, 1), want) \
+        > 10 * prim.NORMAL_TOL
+
+
+def test_one_tf32_pass_holds_the_eighths():
+    """The rate calls' operands are eighths, exact in TF32's high part, and
+    their perturbation is below an ulp of the products: one TF32 pass
+    holds ``CHECKS``' tolerance there, so those checks alone could not
+    see a tf32x3 whose lo passes were wrong (hence the normal operands)."""
+    m, k, n = 256, 64, 128
+    g = torch.Generator().manual_seed(0)
+    a = torch.randint(0, 8, (m, k), generator=g) / 8
+    b = torch.randint(0, 8, (k, n), generator=g) / 8
+    reps, tol = prim.CHECKS["tf32x3"]
+    assert _rel(prim.tf32_passes_reference(a, b, reps, 1),
+                prim.product_float64(a, b, reps)) <= tol
 
 
 def test_uniform_matches_body_transcription():
