@@ -116,7 +116,15 @@ sm_90a), then:
    ``primitives.CHECKS`` (where a kernel that ran another count of reps
    fails), measures this card's primitive rates through
    ``primitives.primitive_rates`` (counters reset before and read after),
-   times the sgemm and tf32x3 rate calls' products in cuBLAS, and prints
+   holds place_add bit for bit on ``primitives.PLACE_CASES`` too,
+   charges each rate's bound to the unit that limits it (the elementwise
+   bodies' ``BODY_NEEDS``, the instructions one rep of the function
+   needs, at sm_90's per-SM rates times this card's SMs and clock, each
+   held under its count in the built library's SASS by ``cuobjdump``;
+   place_add's read-modify-write at the shared-memory rate) and prints
+   each body's rate, bound, unit and share,
+   times the sgemm and tf32x3 rate calls' products in cuBLAS and
+   place_add's sum as one ``index_add_``, and prints
    the composite bound (``primitives.composite_bound``) of K1 in each of
    its four modes (its convolution at the tf32x3 rate), K3 at line_2048
    and K4 at nobands_2048 beside their datasheet bounds (K1's three TF32
@@ -260,6 +268,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -305,6 +314,53 @@ PEAK_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores
 PEAK_TF32 = 495e12        # H100 SXM TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
+# ---- bounds charged to the unit that limits them ----------------------------
+
+# sm_90's rates per SM per clock, in one thread's instructions (shared memory:
+# bytes). From the CUDA C++ Programming Guide: the throughput table of
+# "Arithmetic Instructions", column 9.0, unless named.
+# scripts/torch_unit_rates.py measures the arithmetic ones on the card.
+UNIT_RATES = {
+    "FP32": 128,              # 32-bit fp add, multiply, multiply-add
+    "integer multiply": 64,   # 32-bit integer multiply, multiply-add
+    "ALU": 64,                # 32-bit integer add, shift, compare, min, max,
+                              # bitwise (and the fp compares)
+    "MUFU": 16,               # 32-bit fp rcp, rsqrt, log2, exp2, sin, cos
+    "conversion": 16,         # "all other type conversions" (I2F, F2I, F2F)
+    "I2FP": 64,               # sm_90's 32-bit int -> fp32 (I2FP.F32.U32):
+                              # not in the table; 62.6 measured by the script
+    "issue": 128,             # 4 warp schedulers, one warp instruction each a
+                              # clock ("Compute Capability 9.x")
+    "shared memory": 128,     # 32 banks of 4 bytes a clock ("Shared Memory")
+}
+# integer multiply slots of one IMAD.WIDE (a 32 x 32 -> 64-bit product, both
+# words), as two 32-bit multiplies; IMAD's rate over IMAD.WIDE's, measured
+# by scripts/torch_unit_rates.py on an H100 80GB HBM3 in Philox's pattern,
+# is 2.17 (IMAD.HI's 2.03), so two does not overstate it
+IMAD_WIDE_SLOTS = 2
+# what a Philox-4x32-10 block needs wherever it is drawn: rounds 3 to 10, two
+# 32 x 32 -> 64-bit products and two three-way XORs each. Rounds 1 and 2
+# work on the counter and the key, which a stream holds or steps by a
+# constant, so a build may hoist them or reach them by adds (the
+# multi-draw stream's build does: 17.25 products a block).
+PHILOX_BLOCK = {"product": 16, "ALU": 16}
+# what one rep of each elementwise K6 body's function needs, in instructions
+# by unit ("product": IMAD_WIDE_SLOTS integer multiply slots); loop control,
+# index arithmetic and the uniform datapath are left out
+BODY_NEEDS = {
+    "fma": {"FP32": 1},                                  # FFMA
+    # a block of which one word serves (the last round's one product, its
+    # XOR left out); bits >> 9, I2F, the FFMA into (0, 1), the FADD
+    "uniform": {"product": 15, "ALU": 14 + 1, "I2FP": 1, "FP32": 2},
+    # a block, its four words each >> 9, I2F, FFMA, FADD
+    "uniform_block": {"product": 16, "ALU": 16 + 4, "I2FP": 4, "FP32": 8},
+    # expf (six FP32 ops, the exponent's shift, ex2) and the FMUL by scale
+    "exp": {"FP32": 7, "MUFU": 1, "ALU": 1},
+    "inv_term": {"FP32": 3, "ALU": 1},                   # FSET; FADD FMUL FADD
+    # a quarter block; >> 9, I2F, FFMA; FMUL; FSET, FADD
+    "knuth_round": {"product": 4, "ALU": 4 + 2, "I2FP": 1, "FP32": 3},
+}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -330,6 +386,150 @@ def card() -> str:
 def clocks() -> str:
     return "clocks sm, max sm, mem: " + nvidia_smi(
         "clocks.sm,clocks.max.sm,clocks.mem")
+
+
+def unit_work(needs: dict, count: float = 1.0) -> dict:
+    """Operations by unit of ``UNIT_RATES`` of ``count`` times ``needs``
+    (instructions by unit): a ``"product"`` takes IMAD_WIDE_SLOTS integer
+    multiply slots, and every instruction one issue slot."""
+    work = {"issue": count * sum(needs.values())}
+    for unit, n in needs.items():
+        if unit == "product":
+            unit, n = "integer multiply", n * IMAD_WIDE_SLOTS
+        work[unit] = work.get(unit, 0.0) + count * n
+    return work
+
+
+def add_work(*works: dict) -> dict:
+    out: dict = {}
+    for work in works:
+        for unit, n in work.items():
+            out[unit] = out.get(unit, 0.0) + n
+    return out
+
+
+def fma_philox_work(fma: float, blocks: float) -> dict:
+    """K3's and K4's work by unit: ``fma`` FFMAs (FP32 and issue) and
+    ``blocks`` times PHILOX_BLOCK (integer multiply, ALU and issue)."""
+    return add_work(unit_work({"FP32": 1}, fma),
+                    unit_work(PHILOX_BLOCK, blocks))
+
+
+def unit_bound(work: dict, sms: int, clock_hz: float, nbytes: float = 0.0,
+               hbm_bytes_per_s: float = PEAK_BYTES
+               ) -> tuple[float, str, dict]:
+    """The least time (ms) of ``work`` (unit -> operations, or bytes for
+    shared memory, over the whole call) on a card of ``sms`` SMs at
+    ``clock_hz``, each unit at its ``UNIT_RATES`` rate and in parallel
+    with the others, against ``nbytes`` of device memory at
+    ``hbm_bytes_per_s``; the unit that sets it (``"HBM"`` for the bytes)
+    and every unit's time."""
+    t = {u: 1e3 * n / (UNIT_RATES[u] * sms * clock_hz)
+         for u, n in work.items() if n}
+    t["HBM"] = 1e3 * nbytes / hbm_bytes_per_s
+    unit = max(t, key=lambda u: (t[u], u != "issue"))   # a tie: the pipe
+    return t[unit], unit, t
+
+
+_MAX_CLOCK: list = []
+
+
+def max_sm_clock_hz() -> float:
+    """This card's maximum SM clock (``nvidia-smi clocks.max.sm``), read
+    once: the clock of ``unit_bound``."""
+    if not _MAX_CLOCK:
+        _MAX_CLOCK.append(1e6 * float(nvidia_smi("clocks.max.sm").split()[0]))
+    return _MAX_CLOCK[0]
+
+
+def unit_roofline(work: dict, nbytes: float) -> tuple[float, str, str]:
+    """``unit_bound`` on this card (its SMs from ``_build.sm_count``):
+    the ms, ``"operations"`` or ``"bytes"``, and the unit that sets it."""
+    from rescan_line_sted_torch.kernels import _build
+
+    ms, unit, _ = unit_bound(work, _build.sm_count(torch.device("cuda", 0)),
+                             max_sm_clock_hz(), nbytes)
+    return ms, "bytes" if unit == "HBM" else "operations", unit
+
+
+def sass_unit(op: str) -> str | None:
+    """The unit of ``BODY_NEEDS`` one SASS instruction counts toward:
+    ``"product"`` for ``IMAD.WIDE`` and ``IMAD.HI`` (the high word of a
+    product whose low word is an ``IMAD``), ``"integer multiply"`` for
+    the other ``IMAD``s; None for the uniform datapath (``U...``), memory
+    and control."""
+    base = op.split(".")[0]
+    if base in ("FFMA", "FADD", "FMUL", "FFMA32I", "FADD32I", "FMUL32I"):
+        return "FP32"
+    if base in ("IMAD", "IMAD32I", "IMUL", "IMUL32I"):
+        return ("product" if ".WIDE" in op or ".HI" in op
+                else "integer multiply")
+    if base == "MUFU":
+        return "MUFU"
+    if base == "I2FP":
+        return "I2FP"
+    if base in ("I2F", "F2I", "F2IP", "F2F", "F2FP", "FRND"):
+        return "conversion"
+    if base in ("IADD3", "IADD", "VIADD", "IADD32I", "LOP3", "LOP", "LOP32I",
+                "SHF", "SHL", "SHR", "ISETP", "ISET", "FSETP", "FSET", "SEL",
+                "FSEL", "FMNMX", "IMNMX", "VIMNMX", "LEA", "PRMT", "MOV",
+                "MOV32I", "PLOP3", "IABS"):
+        return "ALU"
+    return None
+
+
+_SASS_INS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);")
+# an elementwise body's instruction that each rep issues a known number of
+# times: the loop's count of it over that number is its reps
+REP_MARKERS = {"fma": ("FFMA", 1), "uniform": ("I2F", 1),
+               "uniform_block": ("I2F", 4), "exp": ("MUFU", 1),
+               "inv_term": ("FMUL", 1), "knuth_round": ("FMUL", 1)}
+
+
+def sass_loop(sass: str, kernel: str) -> list[str]:
+    """The opcodes of the longest loop of ``kernel``'s SASS (``cuobjdump
+    -sass`` text; ``kernel`` a part of its mangled name, e.g.
+    ``14uniform_kernelE``): from a backward branch's target to the
+    branch."""
+    part = next((f for f in re.split(r"\n\s*Function : ", sass)[1:]
+                 if kernel in f.split("\n", 1)[0]), None)
+    if part is None:
+        raise ValueError(f"no SASS function matching {kernel!r}")
+    ins = [(int(a, 16), op, rest) for a, op, rest in _SASS_INS.findall(part)]
+    loops = [(int(m.group(1), 16), a) for a, op, rest in ins
+             if op.startswith("BRA")
+             for m in [re.search(r"0x([0-9a-f]+)", rest)]
+             if m and int(m.group(1), 16) < a]
+    if not loops:
+        raise ValueError(f"{kernel}: no loop in its SASS")
+    lo, hi = max(loops, key=lambda l: l[1] - l[0])
+    return [op for a, op, _ in ins if lo <= a <= hi]
+
+
+def sass_counts(ops: list[str], marker: str, per_rep: int) -> dict:
+    """Per rep, a loop body's instructions (``ops``) by ``sass_unit`` and
+    in all (``instructions``), the loop's reps being its count of opcodes
+    starting with ``marker`` over ``per_rep``."""
+    marks = sum(op.startswith(marker) for op in ops)
+    if marks == 0 or marks % per_rep:
+        raise ValueError(f"{marks} {marker} in the loop: not a whole number "
+                         f"of reps at {per_rep} each")
+    reps = marks // per_rep
+    counts = {"instructions": len(ops) / reps}
+    for op in ops:
+        unit = sass_unit(op)
+        if unit:
+            counts[unit] = counts.get(unit, 0.0) + 1 / reps
+    return {"reps_per_loop": reps, **counts}
+
+
+def sass_shortfall(needs: dict, counts: dict) -> dict:
+    """The units in which a build's SASS per rep (``sass_counts``) holds
+    fewer instructions than ``needs``: there the needs overcount, and a
+    bound from them would be too long."""
+    return {u: (counts.get(u, 0.0), n) for u, n in needs.items()
+            if counts.get(u, 0.0) < n - 1e-9}
 
 
 def event_ms(fn, repeats) -> list:
@@ -1374,19 +1574,17 @@ def k3_inputs(params, sample):
             psf.slit_profile(w, params.slit_halfwidth, dev))
 
 
-PHILOX_OPS = 40   # a Philox-4x32-10 block: 10 rounds of two 32 x 32 -> 64-bit
-                  # multiplies, two operations each
-
-
 def k3_bound(args, slit_support, noisy=True) -> tuple[float, str, dict]:
-    """Least time (ms) of one K3 call and what bounds it. Operations, at
-    the fp32 peak: an FMA (2) per nonzero tap of each computed row at every
-    position and lane and, for a noisy call, the Philox blocks its draws
-    take on these rates (below 10: a quarter block per Knuth round, whose
-    loop ends once the count is settled: min(rate + 1, 24) rounds in
-    expectation; at 10 or above one block, a PTRS acceptance at the first
-    attempt; none at 0), PHILOX_OPS each. Bytes: the sample read and the
-    image written once. Returns the counts too."""
+    """Least time (ms) of one K3 call and what bounds it. Operations
+    (``unit_roofline``): an FMA per nonzero tap of each computed row at
+    every position and lane, at the FP32 rate, and, for a noisy call, the
+    Philox blocks its draws take on these rates (below 10: a quarter block
+    per Knuth round, whose loop ends once the count is settled: min(rate +
+    1, 24) rounds in expectation; at 10 or above one block, a PTRS
+    acceptance at the first attempt; none at 0), each PHILOX_BLOCK's
+    products and XORs (``fma_philox_work``). Bytes: the sample read and the
+    image written once. Returns the counts too, with the limiting unit
+    (``bound_unit``)."""
     from rescan_line_sted_torch.kernels.line_fused import (
         _rows, _span, _taps, line_sted_fused_reference)
     from rescan_line_sted_torch.kernels.primitives import knuth_counts
@@ -1409,8 +1607,9 @@ def k3_bound(args, slit_support, noisy=True) -> tuple[float, str, dict]:
     n = {"rows": int(ws.size), "run": _span(taps)[1],
          "taps": int(taps.sum()), "fma": int(taps.sum()) * h * w,
          "philox_blocks": blocks, **sampler}
-    return (*roofline(2.0 * n["fma"] + PHILOX_OPS * blocks,
-                      4 * (2 * h * w + 3 * w)), n)
+    ms, by, n["bound_unit"] = unit_roofline(
+        fma_philox_work(n["fma"], blocks), 4 * (2 * h * w + 3 * w))
+    return ms, by, n
 
 
 def phase_k3(dev) -> dict:
@@ -1872,14 +2071,15 @@ def k4_inputs(params, geom, sample):
 
 
 def k4_bound(args, noisy=True) -> tuple[float, str, dict]:
-    """Least time (ms) of one K4 call and what bounds it. Operations, at
-    the fp32 peak: an FMA (2) per pair of nonzero eff and gx taps at every
-    position and sample row and, for a noisy call, the Philox blocks its
-    draws take on this run's binned rates: a quarter block per element of
-    rate in (0, 10) (one single-draw uniform, four to a block), one block
-    at 10 or above (a PTRS acceptance at the first attempt), none at 0;
-    PHILOX_OPS each. Bytes: the sample
-    read and the canvas written once. Returns the counts too."""
+    """Least time (ms) of one K4 call and what bounds it. Operations
+    (``unit_roofline``): an FMA per pair of nonzero eff and gx taps at
+    every position and sample row, at the FP32 rate, and, for a noisy
+    call, the Philox blocks its draws take on this run's binned rates: a
+    quarter block per element of rate in (0, 10) (one single-draw uniform,
+    four to a block), one block at 10 or above (a PTRS acceptance at the
+    first attempt), none at 0; each PHILOX_BLOCK's products and XORs
+    (``fma_philox_work``). Bytes: the sample read and the canvas written
+    once. Returns the counts too, with the limiting unit (``bound_unit``)."""
     from rescan_line_sted_torch.kernels.primitives import tiered_counts
     from rescan_line_sted_torch.kernels.rescan_fused import _run, _window
 
@@ -1916,8 +2116,10 @@ def k4_bound(args, noisy=True) -> tuple[float, str, dict]:
     n["drawn_low"], n["drawn_high"] = low, high
     n.update(sampler)
     n["philox_blocks"] = low / 4 + high
-    return (*roofline(2.0 * n["fma"] + PHILOX_OPS * n["philox_blocks"],
-                      4 * (h * w + (h // b) * wc)), n)
+    ms, by, n["bound_unit"] = unit_roofline(
+        fma_philox_work(n["fma"], n["philox_blocks"]),
+        4 * (h * w + (h // b) * wc))
+    return ms, by, n
 
 
 def phase_k4(dev) -> dict:
@@ -2563,13 +2765,43 @@ def prim_normal_checks(dev) -> dict:
     return errs
 
 
-def prim_bound(name, rate) -> tuple[float, str]:
-    """The datasheet bound of one rate call of a K6 kernel (``rate``: the
-    entry of ``primitive_rates``): its arithmetic steps at the fp32 peak
-    (a Philox-10 block as PHILOX_OPS, an exp as one), against its output
-    written once (place_add: the canvases read and written once, sgemm:
-    A and B read, C written; tf32x3 the same, its three TF32 passes at the
-    tensor cores' TF32 peak)."""
+def k6_sass() -> dict:
+    """Per elementwise K6 body: its loop's instructions per rep by
+    ``sass_unit`` and in all (``sass_counts``), counted in the SASS of the
+    library this run built (``cuobjdump -sass``), and the reps one pass of
+    the loop runs. Fails where a body holds fewer instructions of a unit
+    than BODY_NEEDS gives it (``sass_shortfall``): its bound would be too
+    long."""
+    import shutil
+
+    from rescan_line_sted_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for name, (marker, per_rep) in REP_MARKERS.items():
+        kernel = f"{name}_kernel"
+        out[name] = sass_counts(
+            sass_loop(sass, f"{len(kernel)}{kernel}E"), marker, per_rep)
+        short = sass_shortfall(BODY_NEEDS[name], out[name])
+        check(not short, f"K6 {name}'s build issues fewer instructions per "
+                         f"rep than its function needs (unit: (build, "
+                         f"needs)): {short}")
+    return out
+
+
+def prim_bound(name, rate) -> tuple[float, str, str]:
+    """The bound of one rate call of a K6 kernel (``rate``: the entry of
+    ``primitive_rates``), charged to the unit that limits it
+    (``unit_roofline``): an elementwise body's BODY_NEEDS per rep on FILL
+    threads against its output written once; place_add's
+    read-modify-write, a load and a store of 4 bytes per window element,
+    at the shared-memory rate against the canvases read and written once;
+    sgemm's FMAs at the fp32 peak and tf32x3's three TF32 passes at the
+    tensor cores' (``roofline``), against A and B read and C written.
+    Returns the ms, ``"operations"`` or ``"bytes"``, and the unit."""
     from rescan_line_sted_torch.kernels import primitives as prim
 
     reps = rate["reps"]
@@ -2577,24 +2809,91 @@ def prim_bound(name, rate) -> tuple[float, str]:
         m, k, n = prim.GEMM_SHAPE
         nbytes = 4 * (m * k + k * n + m * n)
         if name == "tf32x3":      # three TF32 passes per product
-            return roofline(0.0, nbytes, tc_flops=6.0 * m * k * n * reps)
-        return roofline(2.0 * m * k * n * reps, nbytes)
+            ms, by = roofline(0.0, nbytes, tc_flops=6.0 * m * k * n * reps)
+        else:
+            ms, by = roofline(2.0 * m * k * n * reps, nbytes)
+        unit = "TF32 tensor cores" if name == "tf32x3" else "FP32"
+        return ms, by, unit if by == "operations" else "HBM"
     if name == "place_add":
         elems = prim.PLACE_CANVASES * prim.CANVAS_ROWS * prim.COLS
-        return roofline(float(prim.PLACE_CANVASES * reps * prim.WINDOW),
-                        4 * (2 * elems + prim.WINDOW + reps))
-    ops = {"fma": 2, "uniform": PHILOX_OPS + 2,
-           "uniform_block": PHILOX_OPS + 8, "exp": 2, "inv_term": 5,
-           "knuth_round": PHILOX_OPS / 4 + 3}[name]
-    return roofline(float(ops) * prim.FILL * reps, 4 * prim.FILL)
+        return unit_roofline(
+            {"shared memory": 8.0 * prim.PLACE_CANVASES * reps * prim.WINDOW},
+            4 * (2 * elems + prim.WINDOW + reps))
+    return unit_roofline(unit_work(BODY_NEEDS[name], prim.FILL * reps),
+                         4 * prim.FILL)
+
+
+def place_add_cases(dev) -> dict:
+    """place_add bit for bit against its plain version (in-order adds on
+    the card) on ``primitives.PLACE_CASES``, one launch each; offsets
+    outside [0, 2944] raise. Returns each case's reps and canvases."""
+    from rescan_line_sted_torch.kernels import _build
+    from rescan_line_sted_torch.kernels import primitives as prim
+
+    window = torch.rand((prim.WIN_ROWS, prim.COLS),
+                        generator=torch.Generator().manual_seed(6)).to(dev)
+    out = {}
+    for i in range(len(prim.PLACE_CASES)):
+        name, canvas, offsets = prim.place_add_case(i, dev)
+        want = prim.place_add_reference(canvas, window, offsets)
+        before = _build.LAUNCHES["primitives_place_add"]
+        got = prim.place_add(canvas, window, offsets)
+        torch.cuda.synchronize()
+        check(_build.LAUNCHES["primitives_place_add"] == before + 1
+              and torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"K6 place_add bit for bit on {name}")
+        out[name] = {"reps": offsets.numel(), "canvases": canvas.shape[0]}
+        del canvas, want
+    for bad in ([0, 2945], [-1]):
+        try:
+            prim.place_add(torch.zeros((1, prim.CANVAS_ROWS, prim.COLS),
+                                       device=dev), window,
+                           torch.tensor(bad, device=dev))
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, f"K6 place_add must refuse offsets {bad}")
+    log(f"K6 place_add bit for bit against in-order adds on {len(out)} "
+        f"cases: {json.dumps(out)}; offsets 2945 and -1 refused")
+    return out
+
+
+PLACE_LIBRARY_BYTES = 12 << 30   # index_add_'s source at most
+
+
+def place_add_library(dev, reps: int) -> dict:
+    """place_add's sum as one PyTorch call: ``index_add_`` along the
+    canvases' rows, the reps' window rows as the index and the windows,
+    repeated, as the source (materialized: [canvases, reps * 136, 512]),
+    at the rate call's reps or as many as PLACE_LIBRARY_BYTES of source
+    hold; its ms (CUDA events) and ms per window."""
+    from rescan_line_sted_torch.kernels import primitives as prim
+
+    g = prim.PLACE_CANVASES
+    reps = min(reps, PLACE_LIBRARY_BYTES // (4 * g * prim.WINDOW))
+    canvas = torch.zeros((g, prim.CANVAS_ROWS, prim.COLS), device=dev)
+    window = torch.rand((prim.WIN_ROWS, prim.COLS),
+                        generator=torch.Generator().manual_seed(0)).to(dev)
+    offs = prim.place_offsets(reps, dev).long()
+    index = (offs[:, None]
+             + torch.arange(prim.WIN_ROWS, device=dev)).reshape(-1)
+    source = window.repeat(reps, 1).expand(g, -1, -1).contiguous()
+    ms = cuda_ms(lambda: canvas.index_add_(1, index, source))
+    del source
+    return {"reps": int(reps), "ms": ms, "ms_per_window": ms / (g * reps)}
 
 
 def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
-    """K6: every microkernel against its plain version; the two product
-    bodies on normal operands against float64 (``prim_normal_checks``);
-    the rates (``primitive_rates``, counters reset before and read after),
-    the product bodies' with their share of the datasheet peak; reps
-    cuBLAS products against sgemm and tf32x3; the composite bound of K1
+    """K6: every microkernel against its plain version; place_add bit for
+    bit on its edge cases (``place_add_cases``); the two product bodies on
+    normal operands against float64 (``prim_normal_checks``); the rates
+    (``primitive_rates``, counters reset before and read after), the
+    product bodies' with their share of the datasheet peak, and every
+    body's bound charged to its limiting unit (``prim_bound``, the
+    elementwise bodies' from BODY_NEEDS, held under their SASS counted by
+    ``k6_sass``) and its share; reps
+    cuBLAS products against sgemm and tf32x3 and one ``index_add_``
+    against place_add (``place_add_library``); the composite bound of K1
     (flagship, its frames' tiers counted per element, in each of its four
     modes: the convolution at the tf32x3 rate, the spreading taps at the
     FFMA one), K3 (line_2048), K4 (nobands_2048), K2c (``k2c``: its timing
@@ -2606,7 +2905,13 @@ def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
     from rescan_line_sted_torch.kernels import primitives as prim
 
     errs, plain_ms = prim_checks(dev)
+    place_cases = place_add_cases(dev)
     normal = prim_normal_checks(dev)
+    t0 = time.time()
+    sass = k6_sass()
+    log(f"K6 SASS instructions per rep by unit (cuobjdump of the built "
+        f"library, {time.time() - t0:.1f} s), each at or above its "
+        f"function's needs {json.dumps(BODY_NEEDS)}: {json.dumps(sass)}")
     rates, launches = drive("primitives", lambda: prim.primitive_rates(dev))
     log(f"K6 rates on {card()} ({clocks()}): " + json.dumps(
         {k: {"rate": f"{v['rate']:.4e}", "reps": v["reps"],
@@ -2688,16 +2993,38 @@ def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
         check(measured[name] >= bd["total_ms"],
               f"{name} ran {measured[name]} ms, under its composite bound "
               f"{bd['total_ms']} ms: the bound overcounts")
+    place_lib = place_add_library(dev, rates["place_add"]["reps"])
+    place_rate = rates["place_add"]["rate"]
+    log(f"index_add_ of place_add's sum, {place_lib['reps']} reps on "
+        f"{prim.PLACE_CANVASES} canvases: {place_lib['ms']:.4f} ms, "
+        f"{place_lib['ms_per_window'] * 1e3:.4f} us per window, against K6 "
+        f"place_add {1e3 / place_rate * 1e3:.4f} us per window "
+        f"({place_rate:.4e} windows/s), on {card()}")
+    library_ms["place_add"] = place_lib["ms"]
     entries = {}
     for name, rate in rates.items():
-        bound, by = prim_bound(name, rate)
+        bound, by, unit = prim_bound(name, rate)
         entries[name] = {"ms": rate["ms"], "reps": rate["reps"],
                          "rate_per_s": rate["rate"], "bound_ms": bound,
-                         "bound_by": by, "plain_ms": plain_ms[name],
+                         "bound_by": by, "bound_unit": unit,
+                         "bound_share": bound / rate["ms"],
+                         "needs_per_rep": BODY_NEEDS.get(name),
+                         "sass_per_rep": sass.get(name),
+                         "plain_ms": plain_ms[name],
                          "plain_at": "the rate call's inputs, the check's "
                                      "reps",
                          "library_ms": library_ms.get(name)}
-    for name in library_ms:
+        log(f"K6 {name}: {rate['rate']:.4e} per s ({rate['reps']} reps in "
+            f"{rate['ms']:.4f} ms), bound {bound:.4f} ms by {unit}: "
+            f"{bound / rate['ms']:.1%} of the bound, on {card()}")
+    entries["place_add"].update(
+        library_call=f"index_add_ of {place_lib['reps']} reps' windows",
+        library_reps=place_lib["reps"],
+        library_ms_per_window=place_lib["ms_per_window"],
+        ms_per_window=1e3 / place_rate, edge_cases=place_cases)
+    for name in [n for n in entries if entries[n]["library_ms"] is None]:
+        entries[name]["library_call"] = "(no one PyTorch call)"
+    for name in ("sgemm", "tf32x3"):
         entries[name]["library_call"] = (
             f"{rates[name]['reps']} torch.mm, TF32 off")
         entries[name]["peak_share"] = rates[name]["rate"] / peaks[name]

@@ -25,7 +25,9 @@
 //   place_add    add a [136, 512] window into a [3080, 512] device canvas at
 //                a row offset read from device memory per rep, in order,
 //                without atomics (the TPU's 8-aligned base plus roll was a
-//                workaround for its tiling and is not carried over)
+//                workaround for its tiling and is not carried over): each
+//                8-column slice of a canvas resident in shared memory for
+//                every rep, brought and written back once by TMA
 //   sgemm        [M, K] x [K, N] fp32 on FFMA (no tensor cores, no TF32),
 //                B perturbed by rep * 1e-9 per rep as the TPU body did, so
 //                no rep is hoisted: 128 x 128 CTA tiles resident in shared
@@ -39,8 +41,8 @@
 //                the product, not the three passes
 //
 // Bound on the card: each is bound by what it measures (FFMA issue, the
-// integer multiplier, the special-function unit, L2 read-modify-write, the
-// tensor cores' TF32 rate);
+// integer multiplier, the special-function unit, shared-memory bandwidth,
+// the tensor cores' TF32 rate);
 // the products inside inv_term and knuth_round use __fmul_rn / __fadd_rn so
 // the host's float32 transcription reproduces them exactly.
 #include <cuda.h>
@@ -57,8 +59,6 @@ constexpr int kThreads = 256;
 constexpr int kWinRows = 136;      // the TPU body's placement window
 constexpr int kCanvasRows = 3080;  // and its canvas
 constexpr int kCols = 512;
-constexpr int kSlice = 32;         // canvas columns per place_add block
-constexpr int kPlaceRows = 8;      // row phases per place_add block
 
 __global__ void __launch_bounds__(kThreads) fma_kernel(float* out, int n, int reps) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
@@ -146,25 +146,6 @@ knuth_round_kernel(float* out, int n, int reps, float threshold, uint2 key) {
     }
   }
   out[i] = __fadd_rn(small, prod);
-}
-
-// Block (kSlice, kPlaceRows) owns kSlice columns of canvas blockIdx.y; a
-// warp adds one window row's 32 columns (128 coalesced bytes). Consecutive
-// windows overlap rows that other threads of the block add, so a barrier
-// keeps the reps in order.
-__global__ void __launch_bounds__(kSlice * kPlaceRows)
-place_add_kernel(float* canvas, const float* __restrict__ win,
-                 const int* __restrict__ offsets, int reps) {
-  const int col = blockIdx.x * kSlice + threadIdx.x;
-  float* c = canvas + static_cast<long long>(blockIdx.y) * kCanvasRows * kCols + col;
-  const float* wcol = win + col;
-  for (int i = 0; i < reps; ++i) {
-    const int base = offsets[i];
-#pragma unroll
-    for (int r = threadIdx.y; r < kWinRows; r += kPlaceRows)
-      c[(base + r) * kCols] += wcol[r * kCols];
-    __syncthreads();
-  }
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -501,6 +482,97 @@ bool tensor_map(CUtensorMap* map, const float* p, int rows, int cols, int box_ro
 }
 
 
+// ---- place_add: the canvas slice resident in shared memory ----------------
+// A CTA owns kPlCols = 8 columns of one canvas, [3080, 8] fp32 = 98.5 KB,
+// as the TPU body kept its canvas in VMEM: TMA brings the slice in once (14
+// boxes of 220 rows), every rep adds into shared memory, and TMA writes the
+// slice back once. Two CTAs fit an SM, so one's TMA copies and barriers
+// overlap the other's adds (16 columns at one CTA per SM ran 5-11% slower
+// on an H100 80GB HBM3); 64 slices x 33 canvases = 2112 CTAs, 8 full waves
+// on 132 SMs at the rate call's shape.
+// Thread t keeps its window values in registers: column t % 8 of window
+// rows t / 8 + 68 j (j < 2), so a warp covers 4 rows x 8 columns, 32
+// consecutive words: no bank conflict. Consecutive windows overlap rows
+// that other threads add, so a barrier after each rep keeps every element's
+// adds in the reps' order (fixed canvas rows per thread would need no
+// barrier, but then a thread's window rows change with the offset and the
+// window is read from shared memory too: three accesses per element where
+// this takes two). The offsets come in blocks of kPlOffs through shared
+// memory, four to one 16-byte broadcast read.
+constexpr int kPlCols = 8, kPlPhases = 68, kPlThreads = kPlCols * kPlPhases;   // 544
+constexpr int kPlRows = kWinRows / kPlPhases;   // window rows per thread
+constexpr int kPlBoxRows = 220, kPlBoxes = kCanvasRows / kPlBoxRows;            // 14
+constexpr int kPlOffs = 2048;
+constexpr int kPlSlice = kCanvasRows * kPlCols;                                  // floats
+constexpr int kPlSmem = (kPlSlice + kPlOffs) * 4 + 16 + 128;   // + barrier, alignment
+static_assert(kPlPhases * kPlRows == kWinRows && kPlBoxes * kPlBoxRows == kCanvasRows, "place_add");
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const float* src, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(x), "r"(y), "r"(smem_u32(src))
+      : "memory");
+}
+
+__global__ void __launch_bounds__(kPlThreads, 2)
+place_add_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ win,
+                 const int* __restrict__ offsets, int reps) {
+  extern __shared__ __align__(16) unsigned char pl_smem[];
+  float* slice = reinterpret_cast<float*>(pl_smem + ((128 - (smem_u32(pl_smem) & 127)) & 127));
+  int* offs = reinterpret_cast<int*>(slice + kPlSlice);
+  const uint32_t bar = smem_u32(offs + kPlOffs);
+  const int tid = threadIdx.x, col = tid % kPlCols, r0 = tid / kPlCols;
+  const int x0 = blockIdx.x * kPlCols, y0 = blockIdx.y * kCanvasRows;
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();   // the barrier is initialised before anyone waits on it
+  if (tid == 0) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+                 "r"(kPlSlice * 4) : "memory");
+    for (int b = 0; b < kPlBoxes; ++b)
+      tma_load(slice + b * kPlBoxRows * kPlCols, &map, bar, x0, y0 + b * kPlBoxRows);
+  }
+  float w[kPlRows];
+#pragma unroll
+  for (int j = 0; j < kPlRows; ++j) w[j] = win[(r0 + kPlPhases * j) * kCols + x0 + col];
+  float* mine = slice + r0 * kPlCols + col;
+  mbar_wait(bar, 0);
+  for (int i0 = 0; i0 < reps; i0 += kPlOffs) {
+    const int nb = min(kPlOffs, reps - i0);
+    __syncthreads();   // the previous block's offsets are read
+    for (int e = tid; e < nb; e += kPlThreads) offs[e] = offsets[i0 + e];
+    __syncthreads();
+    for (int i = 0; i < nb; i += 4) {
+      const int4 o4 = *reinterpret_cast<const int4*>(offs + i);
+      const int o[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (i + q < nb) {
+          float* p = mine + o[q] * kPlCols;
+          float v[kPlRows];
+#pragma unroll
+          for (int j = 0; j < kPlRows; ++j) v[j] = p[j * kPlPhases * kPlCols];
+#pragma unroll
+          for (int j = 0; j < kPlRows; ++j) p[j * kPlPhases * kPlCols] = __fadd_rn(v[j], w[j]);
+        }
+        __syncthreads();
+      }
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to the TMA store
+  __syncthreads();
+  if (tid == 0) {
+    for (int b = 0; b < kPlBoxes; ++b)
+      tma_store(&map, slice + b * kPlBoxRows * kPlCols, x0, y0 + b * kPlBoxRows);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -546,13 +618,20 @@ extern "C" int rls_prim_knuth_round(float* out, int n, int reps, float threshold
   return static_cast<int>(cudaGetLastError());
 }
 
-// canvas [canvases, 3080, 512], win [136, 512], offsets [reps] in
-// [0, 3080 - 136].
+// canvas [canvases, 3080, 512] (16-byte aligned), win [136, 512], offsets
+// [reps] in [0, 3080 - 136].
 extern "C" int rls_prim_place_add(float* canvas, const float* win, const int* offsets,
                                   int canvases, int reps, void* stream) {
-  const dim3 grid(kCols / kSlice, canvases), block(kSlice, kPlaceRows);
-  place_add_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(canvas, win, offsets,
-                                                                           reps);
+  static std::atomic<unsigned long long> done{0};
+  const cudaError_t err = opt_in_smem(place_add_kernel, kPlSmem, done);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map;
+  if (!tensor_map(&map, canvas, canvases * kCanvasRows, kCols, kPlBoxRows, kPlCols,
+                  CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(kCols / kPlCols, canvases);
+  place_add_kernel<<<grid, kPlThreads, kPlSmem, static_cast<cudaStream_t>(stream)>>>(
+      map, win, offsets, reps);
   return static_cast<int>(cudaGetLastError());
 }
 

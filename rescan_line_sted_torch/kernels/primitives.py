@@ -64,7 +64,7 @@ GEMM_SHAPE = (4096, 128, 512)   # (M, K, N) of the TPU's mxu body
 TILE = 128                      # the product kernels' C tile: M, N % 128
 TF32_MASK = -8192               # 0xffffe000 as an int32: TF32's 19 bits
 FILL = 132 * 2048               # threads that fill an H100: 132 SMs x 2048
-PLACE_CANVASES = 33             # place_add canvases: 16 x 33 blocks, 4 per SM
+PLACE_CANVASES = 33             # place_add canvases: 64 x 33 CTAs, 2 per SM
 INV_LAM = 0.3                   # the TPU bodies' rate
 EXP_SCALE = 0.5                 # the TPU body's exp chain: x = exp(-x) / 2
 KNUTH_THRESHOLD = float(np.float32(np.exp(-0.3)))
@@ -219,6 +219,34 @@ def knuth_round_reference(n: int, reps: int, key: tuple[int, int],
     return torch.from_numpy(small + prod).to(device)
 
 
+# place_add's edge cases: (name, canvases, offsets): one canvas and 33, the
+# first and last offsets (0 and 2944), repeated offsets and offsets one row
+# apart, and rep counts of 1, 7 and 4099 (two blocks of the kernel's 2048
+# offsets and three more: a multiple of neither the block nor its
+# four-offset reads)
+_LAST = CANVAS_ROWS - WIN_ROWS
+PLACE_CASES = (
+    ("1 canvas, offset 0, 1 rep", 1, (0,)),
+    ("33 canvases, offset 2944, 1 rep", 33, (_LAST,)),
+    ("1 canvas, one offset repeated, 7 reps", 1, (5,) * 7),
+    ("33 canvases, offsets 1 row apart, 7 reps", 33, tuple(range(100, 107))),
+    ("33 canvases, 0 and 2944 repeated, 7 reps", 33,
+     (0, _LAST, 0, _LAST, _LAST, 1, 0)),
+    ("33 canvases, 4099 reps", 33,
+     tuple(np.random.default_rng(5).integers(0, _LAST + 1, 4099).tolist())))
+
+
+def place_add_case(i: int, device=None
+                   ) -> tuple[str, torch.Tensor, torch.Tensor]:
+    """``PLACE_CASES[i]`` as ``(name, canvases, offsets)`` on ``device``:
+    the canvases hold seeded uniforms, so every add rounds."""
+    name, n, offsets = PLACE_CASES[i]
+    canvas = torch.rand((n, CANVAS_ROWS, COLS),
+                        generator=torch.Generator().manual_seed(5 + i))
+    return (name, canvas.to(device),
+            torch.tensor(offsets, dtype=torch.int32, device=device))
+
+
 def place_add_reference(canvas: torch.Tensor, window: torch.Tensor,
                         offsets: torch.Tensor) -> torch.Tensor:
     """Add ``window`` [136, 512] into every canvas of ``canvas`` [G, 3080,
@@ -369,6 +397,9 @@ def place_add(canvas: torch.Tensor, window: torch.Tensor,
         return canvas.copy_(place_add_reference(canvas, window, offsets))
     offs = offsets.to(canvas.device, torch.int32).contiguous()
     _build.require_cuda_f32("primitives_place_add", canvas, window, offs)
+    if canvas.data_ptr() % 16:
+        raise ValueError("place_add: the canvases must start 16-byte aligned "
+                         "(the kernel's TMA copies)")
     code = _build.lib().rls_prim_place_add(
         canvas.data_ptr(), window.data_ptr(), offs.data_ptr(),
         canvas.shape[0], offs.numel(), _build.stream_handle(canvas.device))

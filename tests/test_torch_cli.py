@@ -139,9 +139,28 @@ def test_cli_needs_a_card_unless_told(tmp_path):
         cli_main(["psf-report", "--size", "32"])
 
 
+# a launcher's variables (``parallel.multihost._cluster_env``, ``_backend``,
+# ``LOCAL_RANK``): inherited, ``--multihost`` would wait to join a world
+CLUSTER_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                "MASTER_ADDR", "MASTER_PORT", "SLURM_PROCID", "SLURM_NTASKS")
+
+
 def _blocked(*args, timeout=300):
-    return subprocess.run([sys.executable, "-c", BLOCKED, *args], cwd=ROOT,
-                          capture_output=True, text=True, timeout=timeout)
+    """The port's CLI in a child with JAX blocked. Its environment is this
+    process's less the launcher's variables, with one OpenMP thread, so
+    the child neither joins a world nor oversubscribes a host busy with
+    other test workers; a child that outlives ``timeout`` fails the test
+    with its stderr."""
+    env = {k: v for k, v in os.environ.items() if k not in CLUSTER_VARS}
+    env["OMP_NUM_THREADS"] = "1"
+    try:
+        return subprocess.run([sys.executable, "-c", BLOCKED, *args],
+                              cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=timeout)
+    except subprocess.TimeoutExpired as e:
+        err = e.stderr.decode() if isinstance(e.stderr, bytes) else e.stderr
+        pytest.fail(f"the CLI {list(args)} ran over {timeout} s; its "
+                    f"stderr:\n{(err or '')[-3000:]}")
 
 
 def test_cli_runs_with_jax_blocked(tmp_path):

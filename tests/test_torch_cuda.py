@@ -14,6 +14,7 @@ import torch
 
 import rescan_line_sted_torch as T
 from rescan_line_sted_torch.kernels import _build
+from rescan_line_sted_torch.kernels.primitives import PLACE_CASES
 from rescan_line_sted_torch.kernels.poisson import (
     poisson_flat,
     poisson_reference,
@@ -1047,6 +1048,43 @@ def test_primitive_matches_plain(cuda, name):
     torch.cuda.synchronize()
     assert _build.LAUNCHES[f"primitives_{name}"] == before + 1
     assert got.shape == want.shape and _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("case", range(len(PLACE_CASES)))
+def test_place_add_bit_for_bit(cuda, case):
+    """place_add on ``primitives.PLACE_CASES`` (1 and 33 canvases,
+    offsets 0 and 2944, repeated and one row apart, 1, 7 and 4099 reps)
+    bit for bit against the in-order adds of its plain version, one
+    launch each."""
+    from rescan_line_sted_torch.kernels import primitives as prim
+
+    name, canvas, offsets = prim.place_add_case(case, cuda)
+    window = torch.rand((prim.WIN_ROWS, prim.COLS),
+                        generator=torch.Generator().manual_seed(7)).to(cuda)
+    want = prim.place_add_reference(canvas, window, offsets)
+    before = _build.LAUNCHES["primitives_place_add"]
+    got = prim.place_add(canvas, window, offsets)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["primitives_place_add"] == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+
+
+def test_place_add_refuses_offsets_and_misalignment(cuda):
+    """Offsets outside [0, 2944] raise on the card as on the CPU, before
+    any launch; so do canvases off a 16-byte boundary (the TMA copies)."""
+    from rescan_line_sted_torch.kernels import primitives as prim
+
+    window = torch.ones((prim.WIN_ROWS, prim.COLS), device=cuda)
+    canvas = torch.zeros((1, prim.CANVAS_ROWS, prim.COLS), device=cuda)
+    before = _build.LAUNCHES["primitives_place_add"]
+    for bad in ([0, 2945], [-1]):
+        with pytest.raises(ValueError, match="offsets"):
+            prim.place_add(canvas, window, torch.tensor(bad, device=cuda))
+    flat = torch.zeros(prim.CANVAS_ROWS * prim.COLS + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        prim.place_add(flat[1:].view(1, prim.CANVAS_ROWS, prim.COLS), window,
+                       torch.tensor([0], device=cuda))
+    assert _build.LAUNCHES["primitives_place_add"] == before
 
 
 @pytest.mark.parametrize("reps", [1, 3])
