@@ -10,7 +10,11 @@ The port computes in float32 throughout: TF32 (a 10-bit mantissa) would
 miss the engine's 1e-5 parity bar, so it is switched off here.
 """
 
-import torch
+import time
+
+_T0 = time.perf_counter()   # the package's own import, timed to its end
+
+import torch  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -33,8 +37,11 @@ from rescan_line_sted_torch.imaging import (  # noqa: E402
     rescanned_line_sted_image,
     rescanned_point_sted_image,
 )
+from rescan_line_sted_torch.utils.observability import SETUP  # noqa: E402
 
 __all__ = ["Grid", "LineSTEDGeometry", "LineSTEDParams", "PointSTEDGeometry",
            "PointSTEDParams", "RescanGeometry", "RescanParams",
            "RescanPointGeometry", "line_sted_image", "point_sted_image",
            "rescanned_line_sted_image", "rescanned_point_sted_image"]
+
+SETUP["import_s"] = time.perf_counter() - _T0

@@ -8,6 +8,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from rescan_line_sted_torch.utils.observability import span
+
 
 def rank_card() -> torch.device:
     """This process's CUDA card: ``cuda:{LOCAL_RANK % device_count}`` under
@@ -51,10 +53,20 @@ def as_sample(sample, grid_shape, device=None) -> torch.Tensor:
     return sample
 
 
+@span("rls.host_table")
 def host_table(table: np.ndarray, device=None) -> torch.Tensor:
     """A host-built numpy table on ``device``; a CUDA copy goes from pinned
-    memory without blocking (the array is copied, never aliased)."""
+    memory without blocking (the array is copied, never aliased). Each
+    call is one ``rls.host_table`` span in a profiled run."""
     t = torch.from_numpy(np.array(table))
     if torch.device(device or "cpu").type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+@span("rls.read_back")
+def read_back(t: torch.Tensor) -> list:
+    """``t.tolist()``: a deliberate read of a tensor on the host, which
+    waits for the card where ``t`` lies on one. Each call is one
+    ``rls.read_back`` span in a profiled run."""
+    return t.tolist()

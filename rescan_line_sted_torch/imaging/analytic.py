@@ -28,6 +28,7 @@ from rescan_line_sted_torch.imaging.shifts import flip_centered
 from rescan_line_sted_torch.kernels import fftconv
 from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.physics import psf as psfs
+from rescan_line_sted_torch.utils.observability import span
 
 
 def point_system_kernel(shape, params, device=None) -> torch.Tensor:
@@ -131,11 +132,13 @@ def _canvas_map(params, geom, device):
     b = geom.binning
     h, w = geom.grid.shape
     hc, wc = geom.canvas_shape
-    det_y = psfs.detection_profile(h, params.sigma_det, device)
-    gy_t = _binned_row_matrix(h, b, det_y).T                     # [hc, h]
-    h_hat = rescan_x_kernels_rfft(geom, params, device)[:, None, :]
-    pm = _tables(geom, device)[3]                                # [w/b, K]
+    with span("rls.image.tables"):
+        det_y = psfs.detection_profile(h, params.sigma_det, device)
+        gy_t = _binned_row_matrix(h, b, det_y).T                 # [hc, h]
+        h_hat = rescan_x_kernels_rfft(geom, params, device)[:, None, :]
+        pm = _tables(geom, device)[3]                            # [w/b, K]
 
+    @span("rls.image.products")
     def canvas(sample: torch.Tensor) -> torch.Tensor:
         lead = sample.shape[:-2]
         s_yb = gy_t @ sample                                     # [.., hc, w]

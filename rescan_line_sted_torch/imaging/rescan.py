@@ -108,10 +108,12 @@ from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.physics import psf as psfs
 from rescan_line_sted_torch.physics.dose import line_sted_dose
 from rescan_line_sted_torch.physics.noise import maybe_poisson
+from rescan_line_sted_torch.utils.observability import span
 
 _SIGMA_FROM_FWHM = 2.3548200450309493
 
 
+@span("rls.image")
 def rescanned_line_sted_image(
     sample,
     params: RescanParams,
@@ -172,8 +174,9 @@ def rescanned_line_sted_image(
                       reassignment, use_pallas)
     else:
         raise ValueError(f"unknown method {method!r}")
-    return AcquisitionResult(
-        image=image, dose=line_sted_dose(params, geom, sample.device))
+    with span("rls.image.tables"):
+        dose = line_sted_dose(params, geom, sample.device)
+    return AcquisitionResult(image=image, dose=dose)
 
 
 def _row_sharded_mesh(sample):
@@ -305,6 +308,7 @@ def _rational_step(step: float, chunk: int):
     return None
 
 
+@span("rls.image.finish")
 def _apply_class_residues(folded: torch.Tensor, fracs, wc: int
                           ) -> torch.Tensor:
     """Sum folded class canvases ``[q, wc, H]``, shifting each class by its
@@ -384,6 +388,7 @@ def _nufft_deconv_inv(wc: int, p: int = _NUFFT_P) -> np.ndarray:
     return (1.0 / phi_hat).astype(np.float32)
 
 
+@span("rls.image.finish")
 def _apply_nufft_deconv(folded: torch.Tensor, wc: int,
                         dinv: np.ndarray) -> torch.Tensor:
     """Merge the two parity canvases ``[2, wc, H]`` of the 2x-oversampled
@@ -496,38 +501,41 @@ def _banded_inputs(sample, params, geom, reassignment="auto"):
     dev = sample.device
     step = (float(geom.rescan_factor) - 1.0) / b
 
-    eff = effective_line_profile(w, params, dev)
-    otf_y = fftconv.profile_to_otf1d(
-        psfs.detection_profile(h, params.sigma_det, dev))
-    gx = psfs.detection_profile(w, params.sigma_det, dev)
-    sample_y = fftconv.convolve_otf1d(sample, otf_y, axis=-2, n=h)
+    with span("rls.image.tables"):
+        eff_b = params.brightness * effective_line_profile(w, params, dev)
+        otf_y = fftconv.profile_to_otf1d(
+            psfs.detection_profile(h, params.sigma_det, dev))
+        gx = psfs.detection_profile(w, params.sigma_det, dev)
+    with span("rls.image.yconv"):
+        sample_y = fftconv.convolve_otf1d(sample, otf_y, axis=-2, n=h)
     kwargs = dict(wc=wc, d_in=d_in, d_out=d_out, chunk=chunk, binning=b)
 
-    pos = torch.arange(w, device=dev)
-    if pq is None:
-        offsets2, weights = _nufft_spread_tables(
-            step * np.arange(w, dtype=np.float64), device=dev)
-        offsets = torch.zeros(w, dtype=torch.int32, device=dev)
-        kwargs.update(spread_weights=weights, offsets2=offsets2)
-        dinv = _nufft_deconv_inv(wc)
+    with span("rls.image.tables"):
+        pos = torch.arange(w, device=dev)
+        if pq is None:
+            offsets2, weights = _nufft_spread_tables(
+                step * np.arange(w, dtype=np.float64), device=dev)
+            offsets = torch.zeros(w, dtype=torch.int32, device=dev)
+            kwargs.update(spread_weights=weights, offsets2=offsets2)
+            dinv = _nufft_deconv_inv(wc)
 
-        def finish(folded):
-            return _apply_nufft_deconv(folded, wc, dinv)
-    else:
-        bf_p, bf_q = pq
-        if bf_p is None:
-            offsets = torch.round(
-                (geom.rescan_factor - 1.0) * pos / b).to(torch.int32)
-            fracs = [0.0]
+            def finish(folded):
+                return _apply_nufft_deconv(folded, wc, dinv)
         else:
-            offsets = torch.div(bf_p * pos, bf_q, rounding_mode="floor").to(
-                torch.int32)
-            kwargs.update(classes=(pos % bf_q).to(torch.int32), q=bf_q)
-            fracs = [((bf_p * r) % bf_q) / bf_q for r in range(bf_q)]
+            bf_p, bf_q = pq
+            if bf_p is None:
+                offsets = torch.round(
+                    (geom.rescan_factor - 1.0) * pos / b).to(torch.int32)
+                fracs = [0.0]
+            else:
+                offsets = torch.div(bf_p * pos, bf_q,
+                                    rounding_mode="floor").to(torch.int32)
+                kwargs.update(classes=(pos % bf_q).to(torch.int32), q=bf_q)
+                fracs = [((bf_p * r) % bf_q) / bf_q for r in range(bf_q)]
 
-        def finish(folded):
-            return _apply_class_residues(folded, fracs, wc)
-    args = (sample_y.contiguous(), params.brightness * eff, gx, offsets)
+            def finish(folded):
+                return _apply_class_residues(folded, fracs, wc)
+    args = (sample_y.contiguous(), eff_b, gx, offsets)
     return args, kwargs, finish
 
 

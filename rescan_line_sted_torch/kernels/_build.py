@@ -23,9 +23,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
+
+from rescan_line_sted_torch.utils.observability import SETUP
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -144,15 +147,21 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, which it times into
+    ``observability.SETUP``: ``library_s``, and ``built`` where it ran
+    nvcc)."""
     global _lib
     if _lib is None:
+        t0 = time.perf_counter()
+        built = not library_path().exists()
         handle = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _lib = handle
+        SETUP["library_s"] = time.perf_counter() - t0
+        SETUP["built"] = built
     return _lib
 
 

@@ -37,8 +37,10 @@ import ctypes
 
 import torch
 
+from rescan_line_sted_torch.device import read_back
 from rescan_line_sted_torch.kernels import _build, fftconv
 from rescan_line_sted_torch.kernels.poisson import poisson_reference
+from rescan_line_sted_torch.utils.observability import span
 
 # K1's shared-memory layouts (csrc/rescan_banded_fused.cu: kLanes,
 # kPassRows, make_layout); a card test holds this mirror to the C entry
@@ -174,7 +176,7 @@ def _tables(sample_y, eff_scaled, gx, int_offsets, classes, *, wc, d_in,
                                      and classes.shape != (w,)):
         raise ValueError("int_offsets and classes need one entry per column")
     if classes is not None:
-        lo, hi = torch.stack(torch.aminmax(classes)).tolist()  # one sync
+        lo, hi = read_back(torch.stack(torch.aminmax(classes)))  # one sync
         if lo < 0 or hi >= q:
             raise ValueError(f"classes must lie in [0, {q})")
     b = binning
@@ -310,46 +312,48 @@ def rescan_banded_fused(
             d_out=d_out, chunk=chunk, binning=binning, classes=classes, q=q,
             generator=generator if key is None else _build.key_generator(key),
             spread_weights=spread_weights, offsets2=offsets2)
-    h, w = sample_y.shape
-    n_spread, q = _spread_args(w, classes, q, spread_weights, offsets2)
-    _check(h, w, wc=wc, d_in=d_in, d_out=d_out, chunk=chunk,
-           binning=binning, n_spread=n_spread)
-    b = binning
-    hb, dob = h // b, d_out // b
-    g0w, ill_w, sample_ext, sa_lo, sa_hi, m0, cls = _tables(
-        sample_y, eff_scaled, gx, int_offsets, classes, wc=wc, d_in=d_in,
-        d_out=d_out, chunk=chunk, binning=b, q=q, offsets2=offsets2)
-    # binned detection factor, d-major [D_in, dob]
-    g_t = g0w.reshape(dob, b, d_in).sum(1).T.contiguous()
-    ill_w = ill_w.contiguous()
-    taps = [spread_weights.contiguous()] if n_spread else []
-    _build.require_cuda_f32("rescan_banded_fused", g_t, ill_w, sample_ext,
-                            sa_lo, sa_hi, m0, cls, *taps)
-    out = torch.empty((q, wc, hb), dtype=torch.float32,
-                      device=sample_y.device)
-    s0, s1, keys = _build.key_words(generator, sample_y.device, key)
-    info = (ctypes.c_int * 5)()
-    code = _build.lib().rls_rescan_banded_fused(
-        g_t.data_ptr(), ill_w.data_ptr(), sample_ext.data_ptr(),
-        sa_lo.data_ptr(), sa_hi.data_ptr(), m0.data_ptr(), cls.data_ptr(),
-        taps[0].data_ptr() if taps else None, out.data_ptr(), h, w, chunk,
-        d_in, dob, b, q, wc, n_spread,
-        int(generator is not None or key is not None), s0, s1,
-        None if keys is None else keys.data_ptr(),
-        _build.stream_handle(sample_y.device), info)
-    _build.check(code, "rescan_banded_fused")
-    if info[0] < 0:
-        raise RuntimeError(
-            f"rescan_banded_fused: internal error: the host bound "
-            f"banded_fits and K1's layout disagree (band windows d_in="
-            f"{d_in}, d_out={d_out} at chunk {chunk} fit no layout of "
-            "this card's shared memory); the rescan engine routes such "
-            "windows around K1")
-    name = "rescan_banded_fused" + ("_spread" if n_spread else "") + (
-        "_wide" if info[0] >= 1 else "")
-    _build.LAUNCHES[name] += 1
-    LAUNCH_SHAPE[name] = {"layout": LAYOUTS[info[0]], "smem_bytes": info[1],
-                          "ctas": info[2], "ctas_per_sm": info[3],
-                          "threads": info[4], "d_in": d_in, "dob": dob,
-                          "chunk": chunk, "binning": b}
-    return out
+    with span("rls.k1"):   # the tables, key words and launch
+        h, w = sample_y.shape
+        n_spread, q = _spread_args(w, classes, q, spread_weights, offsets2)
+        _check(h, w, wc=wc, d_in=d_in, d_out=d_out, chunk=chunk,
+               binning=binning, n_spread=n_spread)
+        b = binning
+        hb, dob = h // b, d_out // b
+        g0w, ill_w, sample_ext, sa_lo, sa_hi, m0, cls = _tables(
+            sample_y, eff_scaled, gx, int_offsets, classes, wc=wc,
+            d_in=d_in, d_out=d_out, chunk=chunk, binning=b, q=q,
+            offsets2=offsets2)
+        # binned detection factor, d-major [D_in, dob]
+        g_t = g0w.reshape(dob, b, d_in).sum(1).T.contiguous()
+        ill_w = ill_w.contiguous()
+        taps = [spread_weights.contiguous()] if n_spread else []
+        _build.require_cuda_f32("rescan_banded_fused", g_t, ill_w,
+                                sample_ext, sa_lo, sa_hi, m0, cls, *taps)
+        out = torch.empty((q, wc, hb), dtype=torch.float32,
+                          device=sample_y.device)
+        s0, s1, keys = _build.key_words(generator, sample_y.device, key)
+        info = (ctypes.c_int * 5)()
+        code = _build.lib().rls_rescan_banded_fused(
+            g_t.data_ptr(), ill_w.data_ptr(), sample_ext.data_ptr(),
+            sa_lo.data_ptr(), sa_hi.data_ptr(), m0.data_ptr(),
+            cls.data_ptr(), taps[0].data_ptr() if taps else None,
+            out.data_ptr(), h, w, chunk, d_in, dob, b, q, wc, n_spread,
+            int(generator is not None or key is not None), s0, s1,
+            None if keys is None else keys.data_ptr(),
+            _build.stream_handle(sample_y.device), info)
+        _build.check(code, "rescan_banded_fused")
+        if info[0] < 0:
+            raise RuntimeError(
+                f"rescan_banded_fused: internal error: the host bound "
+                f"banded_fits and K1's layout disagree (band windows d_in="
+                f"{d_in}, d_out={d_out} at chunk {chunk} fit no layout of "
+                "this card's shared memory); the rescan engine routes such "
+                "windows around K1")
+        name = "rescan_banded_fused" + ("_spread" if n_spread else "") + (
+            "_wide" if info[0] >= 1 else "")
+        _build.LAUNCHES[name] += 1
+        LAUNCH_SHAPE[name] = {
+            "layout": LAYOUTS[info[0]], "smem_bytes": info[1],
+            "ctas": info[2], "ctas_per_sm": info[3], "threads": info[4],
+            "d_in": d_in, "dob": dob, "chunk": chunk, "binning": b}
+        return out

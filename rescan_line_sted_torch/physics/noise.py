@@ -10,9 +10,12 @@ from __future__ import annotations
 
 import torch
 
+from rescan_line_sted_torch.device import read_back
 from rescan_line_sted_torch.kernels.poisson import poisson_flat
+from rescan_line_sted_torch.utils.observability import span
 
 
+@span("rls.k2c")
 def poisson_counts(generator: torch.Generator,
                    mean: torch.Tensor) -> torch.Tensor:
     """Sample detected photon counts (float32). A CUDA ``mean`` runs the
@@ -36,9 +39,10 @@ def derived_generators(generator: torch.Generator, shape: tuple):
     generator's table is read back once). Stands for the JAX package's
     ``jax.random.split`` and ``fold_in``: a given generator state gives the
     same generators."""
-    seeds = torch.randint(0, 2**62, tuple(shape), generator=generator,
-                          device=generator.device,
-                          dtype=torch.int64).tolist()
+    seeds = read_back(torch.randint(0, 2**62, tuple(shape),
+                                    generator=generator,
+                                    device=generator.device,
+                                    dtype=torch.int64))
 
     def make(s):
         if isinstance(s, list):

@@ -88,6 +88,7 @@ from rescan_line_sted_torch.physics.noise import (
     derived_generators,
     maybe_poisson,
 )
+from rescan_line_sted_torch.utils.observability import span
 
 ARMS = ("point", "line", "rescan", "ism")
 
@@ -121,6 +122,7 @@ class DoseMatchedComparison(Replaceable):
     ism: ModalitySweep | None = None     # rescanned point-STED
 
 
+@span("rls.sweep.generators")
 def arm_generators(generator: torch.Generator | None, points: int):
     """The sweep's generators ``[arm][point][draw]`` (arms in ``ARMS``
     order, draws 0 and 1) derived from ``generator`` (module doc); None
@@ -166,6 +168,7 @@ def _sweep(rows: list[dict], device, sample_sum, scale) -> ModalitySweep:
     return ModalitySweep(**cols)
 
 
+@span("rls.sweep")
 def dose_matched_sweep(
     sample,
     point_base,
@@ -247,30 +250,30 @@ def dose_matched_sweep(
             return restore(torch.stack([flip_centered(k) for k in kernels]),
                            kernels)
 
-    p_prof = models.profiles(models.point_model(point_base), shape,
-                             point_base, "cpu")
-    l_prof = models.profiles(models.line_model(line_base),
-                             line_geom.grid.width, line_base, "cpu")
+    with span("rls.sweep.ledgers"):
+        p_prof = models.profiles(models.point_model(point_base), shape,
+                                 point_base, "cpu")
+        l_prof = models.profiles(models.line_model(line_base),
+                                 line_geom.grid.width, line_base, "cpu")
 
     def draw(arm, i, k):
         return None if gens is None else gens[ARMS.index(arm)][i][k]
 
     rows = {arm: [] for arm in ARMS}
     for i, s in enumerate(powers.tolist()):
-        pp = point_base.replace(depletion=s)
-        lp = line_base.replace(depletion=s)
-        pdose = point_sted_dose(pp, point_geom, "cpu", p_prof)
-        ldose = line_sted_dose(lp, line_geom, "cpu", l_prof)
-        exp_p = budget / _f32(pdose.total_dose)
-        exp_l = budget / (_f32(ldose.total_dose) * orient)
-        p_bright = _f32(pp.brightness) * exp_p
-        l_bright = _f32(lp.brightness) * exp_l
-        pp_run = pp.replace(brightness=float(p_bright))
-        lp_run = lp.replace(brightness=float(l_bright))
-        p_steps = _f32(pdose.num_steps)
-        l_steps = _f32(ldose.num_steps) * orient
-
-        pkern = analytic.point_system_kernel(shape, pp, dev)
+        with span("rls.sweep.ledgers"):
+            pp = point_base.replace(depletion=s)
+            lp = line_base.replace(depletion=s)
+            pdose = point_sted_dose(pp, point_geom, "cpu", p_prof)
+            ldose = line_sted_dose(lp, line_geom, "cpu", l_prof)
+            exp_p = budget / _f32(pdose.total_dose)
+            exp_l = budget / (_f32(ldose.total_dose) * orient)
+            p_bright = _f32(pp.brightness) * exp_p
+            l_bright = _f32(lp.brightness) * exp_l
+            pp_run = pp.replace(brightness=float(p_bright))
+            lp_run = lp.replace(brightness=float(l_bright))
+            p_steps = _f32(pdose.num_steps)
+            l_steps = _f32(ldose.num_steps) * orient
 
         def point_image(k):
             img = point_sted_image(sample, pp_run, point_geom,
@@ -287,29 +290,33 @@ def dose_matched_sweep(
             return line_sted_image(sample, lp_run, line_geom,
                                    draw("line", i, k), device=dev).image, None
 
-        pimg, (limg, lkernels) = point_image(0), line_image(0)
-        if fuse_orientations:
-            p_resp = fused_response(pkern[None])
-            l_resp = fused_response(lkernels)
-        else:
-            p_resp = pkern
-            l_resp = analytic.line_system_kernel(shape, lp, dev)
-        point = dict(
-            image=pimg, profiles=_centre(p_resp),
-            signal=p_bright * _f32(pdose.emission_per_unit_sample),
-            exposure=exp_p, num_steps=p_steps,
-            frc_resolution=(frc_resolution(pimg, point_image(1)) if frc
-                            else None),
-            frc_resolution_x=None, frc_resolution_y=None)
-        rows["point"].append(point)
-        rows["line"].append(dict(
-            image=limg, profiles=_centre(l_resp),
-            signal=(l_bright * orient
-                    * _f32(ldose.emission_per_unit_sample)),
-            exposure=exp_l, num_steps=l_steps,
-            frc_resolution=(frc_resolution(limg, line_image(1)[0]) if frc
-                            else None),
-            frc_resolution_x=None, frc_resolution_y=None))
+        # each arm's system kernel and engine calls (the arms draw from
+        # generators of their own, so their order changes no draw)
+        with span("rls.sweep.point"):
+            pkern = analytic.point_system_kernel(shape, pp, dev)
+            pimg = point_image(0)
+            p_resp = (fused_response(pkern[None]) if fuse_orientations
+                      else pkern)
+            point = dict(
+                image=pimg, profiles=_centre(p_resp),
+                signal=p_bright * _f32(pdose.emission_per_unit_sample),
+                exposure=exp_p, num_steps=p_steps,
+                frc_resolution=(frc_resolution(pimg, point_image(1)) if frc
+                                else None),
+                frc_resolution_x=None, frc_resolution_y=None)
+            rows["point"].append(point)
+        with span("rls.sweep.line"):
+            limg, lkernels = line_image(0)
+            l_resp = (fused_response(lkernels) if fuse_orientations
+                      else analytic.line_system_kernel(shape, lp, dev))
+            rows["line"].append(dict(
+                image=limg, profiles=_centre(l_resp),
+                signal=(l_bright * orient
+                        * _f32(ldose.emission_per_unit_sample)),
+                exposure=exp_l, num_steps=l_steps,
+                frc_resolution=(frc_resolution(limg, line_image(1)[0])
+                                if frc else None),
+                frc_resolution_x=None, frc_resolution_y=None))
 
         if ism_geom is not None:
             mean = rescan_point_canvas_mean(sample, pp_run, ism_geom)
@@ -387,8 +394,9 @@ def dose_matched_sweep(
         return _sweep(rows[name], dev, sample_sum,
                       scales.get(name, lambda fy, fx: (fy, fx)))
 
-    return DoseMatchedComparison(
-        depletion_powers=host_table(powers.numpy(), dev),
-        dose_budget=host_table(np.asarray(budget), dev),
-        point=arm("point"), line=arm("line"), rescan=arm("rescan"),
-        ism=arm("ism"))
+    with span("rls.sweep.columns"):
+        return DoseMatchedComparison(
+            depletion_powers=host_table(powers.numpy(), dev),
+            dose_budget=host_table(np.asarray(budget), dev),
+            point=arm("point"), line=arm("line"), rescan=arm("rescan"),
+            ism=arm("ism"))

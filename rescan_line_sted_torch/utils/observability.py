@@ -3,6 +3,10 @@ package's ``utils/observability.py``).
 
 * ``trace(...)`` -- a ``torch.profiler`` trace of the host and the card,
   written as a Chrome trace (Perfetto reads it);
+* ``span(name)`` -- a named stretch of the port's host code in that trace
+  (``rls.<layer>.<stage>``), recorded only while the profiler runs;
+* ``SETUP`` -- the seconds of the port's own set-up: its import and the
+  first load of the kernel library;
 * ``Timer`` / ``time_fn`` -- wall-clock timing, ``time_fn``'s fenced
   with ``torch.cuda.synchronize`` and its first call timed apart from the
   steady state;
@@ -18,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import csv
 import dataclasses
+import functools
 import json
 import logging
 import math
@@ -31,6 +36,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 logger = logging.getLogger("rescan_line_sted_torch")
 
 BUILD_DIR_ENV = "RLS_TORCH_BUILD_DIR"
+
+# the port's own set-up, in seconds: ``import_s``, the package's import
+# (``rescan_line_sted_torch/__init__.py``, torch already imported);
+# ``library_s``, the first ``kernels._build.lib()`` call (the sources'
+# hash, nvcc where the library is not built, the load and its signatures)
+# and ``built``, whether that call ran nvcc
+SETUP: dict = {}
 
 
 def enable_compilation_cache(path: str | None = None) -> str:
@@ -69,6 +81,50 @@ def trace(log_dir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class span:
+    """A named span of host code in the profiler's trace, as a context
+    manager (``with span("rls.image.tables"):``) or a decorator.
+
+    While ``torch.profiler`` runs it enters ``record_function(name)``, so
+    the span lands in the profiler's own trace, beside the card's kernels
+    and copies and on their clock, nested in the spans open around it
+    (exported with ``cat: "user_annotation"``, without arguments). With
+    the profiler off it costs one check of the profiler's flag and
+    records nothing. A counter is a span around the work it counts
+    (``device.host_table``, ``device.read_back``): its occurrences are the
+    count."""
+
+    __slots__ = ("name", "_record")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._record = None
+
+    def __enter__(self):
+        if torch.autograd._profiler_enabled():
+            self._record = torch.profiler.record_function(self.name)
+            self._record.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._record is not None:
+            record, self._record = self._record, None
+            record.__exit__(*exc)
+        return False
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            if not torch.autograd._profiler_enabled():
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+
+        return spanned
 
 
 # factories whose output is uninitialized memory, not a result

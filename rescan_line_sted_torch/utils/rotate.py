@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rescan_line_sted_torch.device import host_table
+from rescan_line_sted_torch import device as devices
 
 
 def rotate_image(img: torch.Tensor, theta) -> torch.Tensor:
@@ -64,7 +64,8 @@ def rotation_corners(h: int, w: int, theta, device) -> tuple:
     mask [..., H, W] (leading dimensions: the angles'). Linear operators
     that rotate by fixed angles build it once (``algorithms/fusion``)."""
     theta = torch.as_tensor(theta, dtype=torch.float32, device="cpu").numpy()
-    trig = host_table(np.stack([np.cos(theta), np.sin(theta)]), device)
+    trig = devices.host_table(np.stack([np.cos(theta), np.sin(theta)]),
+                              device)
     cos, sin = trig[0][..., None, None], trig[1][..., None, None]
     cy, cx = h // 2, w // 2
     y = (torch.arange(h, dtype=torch.float32, device=device) - cy)[:, None]

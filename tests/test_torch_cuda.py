@@ -1808,3 +1808,86 @@ def test_line_fit_on_card_matches_cpu_and_never_syncs(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert losses.is_cuda and fitted.sigma_det.is_cuda
     assert bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]
+
+
+def test_port_spans_share_the_cards_clock_and_count_every_read(cuda,
+                                                               tmp_path):
+    """A profiled per-step call at the flagship's shapes (2048^2, R = 1.5,
+    K1 class mode): K1's ``cudaLaunchKernel`` lies inside ``rls.k1`` and
+    its kernel starts after the span opens (one clock for the port's
+    spans and the card), and every device-to-host copy and runtime wait
+    in the calls' stretch outside the harness-style ``bench.sync`` lies
+    inside ``rls.read_back``, one copy to a read, so the counter misses no
+    sync."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    n = 2048
+    params = T.LineSTEDParams.create(sigma_exc=3.0, sigma_det=3.0,
+                                     stripe_period=12.0, depletion=8.0,
+                                     slit_halfwidth=4.0, brightness=1.0)
+    geom = T.RescanGeometry(T.Grid(n, n), rescan_factor=1.5, chunk=32)
+    sample = torch.rand((n, n), device=cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+
+    def call():
+        return T.rescanned_line_sted_image(
+            sample, params, geom, generator=gen, method="scan",
+            noise_mode="per_step", device=cuda).image
+
+    call()
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            with record_function("bench.call"):
+                out = call()
+                with record_function("bench.sync"):
+                    torch.cuda.synchronize()
+            del out
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    xs = [e for e in json.loads(path.read_text())["traceEvents"]
+          if e.get("ph") == "X" and "dur" in e]
+
+    def spans(name):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in xs
+                if e.get("cat") == "user_annotation" and e["name"] == name]
+
+    def inside(ts, ivs):
+        return any(a <= ts <= b for a, b in ivs)
+
+    k1, reads, syncs = spans("rls.k1"), spans("rls.read_back"), \
+        spans("bench.sync")
+    # the stretch of the calls (the profiler's own stop syncs after it)
+    t0, t1 = min(a for a, _ in spans("bench.call")), \
+        max(b for _, b in spans("bench.call"))
+    assert len(k1) == calls and len(reads) == calls
+    runtime = {e["args"]["correlation"]: e for e in xs
+               if e.get("cat") == "cuda_runtime" and "correlation" in
+               e.get("args", {})}
+    kernels = [e for e in xs if e.get("cat") == "kernel"
+               and "rescan_banded_fused" in e["name"]]
+    assert len(kernels) == calls
+    for kern in kernels:
+        launch = runtime[kern["args"]["correlation"]]
+        assert launch["name"] == "cudaLaunchKernel"
+        opened = [a for a, b in k1 if a <= launch["ts"] <= b]
+        assert opened, "K1's launch outside rls.k1"
+        assert kern["ts"] >= opened[0]
+    waits = [e for e in xs if e.get("cat") == "cuda_runtime" and e["name"]
+             in ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+                 "cudaEventSynchronize", "cudaMemcpy")
+             and t0 <= e["ts"] < t1 and not inside(e["ts"], syncs)]
+    # each device-to-host copy by the runtime call that issued it
+    copies = [runtime[e["args"]["correlation"]]["ts"] for e in xs
+              if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]]
+    copies = [ts for ts in copies
+              if t0 <= ts < t1 and not inside(ts, syncs)]
+    stray = [(e["name"], e["ts"]) for e in waits
+             if not inside(e["ts"], reads)]
+    assert waits and not stray, (len(waits), stray, reads)
+    assert len(copies) == len(reads), (copies, reads)
+    assert all(inside(ts, reads) for ts in copies), (copies, reads)

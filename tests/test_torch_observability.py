@@ -146,3 +146,198 @@ def test_enable_compilation_cache_paths(monkeypatch, tmp_path):
     assert _build.BUILD_DIR == tmp_path / "env"
     monkeypatch.setenv(BUILD_DIR_ENV, "")
     assert enable_compilation_cache() == str(_build.DEFAULT_BUILD_DIR)
+
+
+# --- the port's spans and counters (``span``, ``SETUP``) ---------------------
+
+# the innermost port span each span opens in, per path on the CPU (64 x 256:
+# the banded route needs a field wider than K1's 128-column windows); K1's
+# ``rls.k1`` covers its CUDA branch only, so here K1's class check reads
+# back under ``rls.image``
+NESTING = {
+    "per_step": {"rls.image": None, "rls.image.tables": "rls.image",
+                 "rls.image.yconv": "rls.image",
+                 "rls.read_back": "rls.image",
+                 "rls.image.finish": "rls.image",
+                 "rls.host_table": "rls.image.finish"},
+    "nufft": {"rls.image": None, "rls.image.tables": "rls.image",
+              "rls.image.yconv": "rls.image",
+              "rls.image.finish": "rls.image",
+              "rls.host_table": ("rls.image.tables", "rls.image.finish")},
+    "analytic": {"rls.image": None, "rls.image.tables": "rls.image",
+                 "rls.image.products": "rls.image",
+                 "rls.k2c": "rls.image"},
+    "sweep": {"rls.sweep": None, "rls.sweep.generators": "rls.sweep",
+              "rls.read_back": "rls.sweep.generators",
+              "rls.sweep.ledgers": "rls.sweep",
+              "rls.sweep.point": "rls.sweep",
+              "rls.sweep.line": "rls.sweep",
+              "rls.k2c": ("rls.sweep.point", "rls.sweep.line"),
+              "rls.sweep.columns": "rls.sweep",
+              "rls.host_table": "rls.sweep.columns"},
+}
+# (read-backs, host tables) per call, from the code's sites: K1's class
+# check; the class residues' phase ramp; NUFFT's two spreading tables, its
+# merge phases and its deconvolution; the closed form's cached phase
+# tables (none after the first call); the sweep's seed table, and three
+# host columns per arm plus the powers and the budget
+COUNTS = {"per_step": (1, 1), "nufft": (0, 4), "analytic": (0, 0),
+          "sweep": (1, 8)}
+
+
+def _spanned_call(path):
+    """A steady call of ``path`` on the CPU (after one call that fills the
+    caches), as a function of no arguments."""
+    from rescan_line_sted_torch import (
+        Grid,
+        LineSTEDGeometry,
+        LineSTEDParams,
+        PointSTEDGeometry,
+        PointSTEDParams,
+        RescanGeometry,
+        rescanned_line_sted_image,
+    )
+    from rescan_line_sted_torch.sweeps import dose_matched_sweep
+
+    line = LineSTEDParams.create(sigma_exc=3.0, sigma_det=3.0,
+                                 stripe_period=12.0, depletion=8.0,
+                                 slit_halfwidth=4.0, brightness=1.0)
+    gen = torch.Generator().manual_seed(7)
+    if path == "sweep":
+        grid = Grid(64, 64)
+        point = PointSTEDParams.create(sigma_exc=3.0, sigma_det=3.0,
+                                       sigma_dep=3.0, pinhole_radius=4.0,
+                                       brightness=1.0)
+        sample = torch.rand(64, 64, generator=gen)
+
+        def call():
+            return dose_matched_sweep(
+                sample, point, line, PointSTEDGeometry(grid),
+                LineSTEDGeometry(grid), [0.0, 4.0], 100.0, generator=gen,
+                device="cpu")
+    else:
+        rf = 1.0 + np.pi / 16 if path == "nufft" else 1.5
+        geom = RescanGeometry(Grid(64, 256), rescan_factor=rf, chunk=32)
+        method = "analytic" if path == "analytic" else "scan"
+        sample = torch.rand(64, 256, generator=gen)
+
+        def call():
+            return rescanned_line_sted_image(
+                sample, line, geom, generator=gen, method=method,
+                noise_mode="collapsed" if method == "analytic"
+                else "per_step", device="cpu")
+    call()
+    return call
+
+
+def _port_spans(path):
+    """Each port span of one profiled call: ``(name, innermost enclosing
+    port span or None)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call = _spanned_call(path)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+    out = []
+    for e in prof.events():
+        if not e.name.startswith("rls."):
+            continue
+        parent = e.cpu_parent
+        while parent is not None and not parent.name.startswith("rls."):
+            parent = parent.cpu_parent
+        out.append((e.name, None if parent is None else parent.name))
+    return out
+
+
+@pytest.mark.parametrize("form", ["context", "decorator"])
+def test_span_records_nothing_with_the_profiler_off(form, monkeypatch):
+    """With the profiler off a span neither enters ``record_function`` nor
+    changes what its body returns."""
+    from rescan_line_sted_torch.utils.observability import span
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    assert not torch.autograd._profiler_enabled()
+    if form == "context":
+        with span("rls.test") as s:
+            got = 6 * 7
+        assert s._record is None
+    else:
+        got = span("rls.test")(lambda a, b=0: a * b)(6, b=7)
+    assert got == 42
+
+
+@pytest.mark.parametrize("form", ["context", "decorator"])
+def test_span_lands_in_the_profilers_trace(form):
+    from torch.profiler import ProfilerActivity, profile
+
+    from rescan_line_sted_torch.utils.observability import span
+
+    def body():
+        with span("rls.test.inner"):
+            return torch.ones(4).sum()
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        if form == "context":
+            with span("rls.test"):
+                got = body()
+        else:
+            got = span("rls.test")(body)()
+    assert float(got) == 4.0
+    events = {e.name: e for e in prof.events()
+              if e.name.startswith("rls.test")}
+    assert set(events) == {"rls.test", "rls.test.inner"}
+    assert events["rls.test.inner"].cpu_parent.name == "rls.test"
+
+
+@pytest.mark.parametrize("path", sorted(NESTING))
+def test_port_spans_nest_as_listed(path):
+    """A steady CPU call of each rescan mode and a two-power sweep emits
+    the spans of its path, each inside the span its stage belongs to."""
+    found = _port_spans(path)
+    want = NESTING[path]
+    assert {name for name, _ in found} == set(want)
+    for name, parent in found:
+        ok = want[name] if isinstance(want[name], tuple) else (want[name],)
+        assert parent in ok, (name, parent)
+
+
+@pytest.mark.parametrize("path", sorted(COUNTS))
+def test_port_counters_count_the_codes_sites(path):
+    found = [name for name, _ in _port_spans(path)]
+    assert (found.count("rls.read_back"),
+            found.count("rls.host_table")) == COUNTS[path]
+
+
+def test_setup_holds_import_and_library(monkeypatch):
+    """``SETUP`` holds the package's import time, and the first
+    ``_build.lib()`` adds the library's load time and whether it built
+    (here with the build and the load stubbed: no nvcc on the CPU)."""
+    import ctypes
+
+    from rescan_line_sted_torch.utils.observability import SETUP
+
+    assert 0.0 < SETUP["import_s"] < 600.0
+
+    class Handle:
+        def __getattr__(self, name):
+            fn = type("Entry", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "build", lambda: Path("stub.so"))
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: Handle())
+    saved = dict(SETUP)
+    try:
+        SETUP.pop("library_s", None)
+        SETUP.pop("built", None)
+        handle = _build.lib()
+        assert isinstance(handle, Handle) and _build.lib() is handle
+        assert 0.0 <= SETUP["library_s"] < 60.0
+        assert SETUP["built"] == (not _build.library_path().exists())
+    finally:
+        SETUP.clear()
+        SETUP.update(saved)
