@@ -1839,17 +1839,16 @@ def caller_frames(module, run, sampler="poisson_rows_tiered") -> torch.Tensor:
 def k1_frames(args, kw) -> torch.Tensor:
     """Every camera frame K1 samples in one image (K2a's rates), [W / C,
     C * dob, H]: the conv table times each chunk's sample window."""
-    from rescan_line_sted_torch.kernels.rescan_banded_fused import _tables
+    from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+        _sample_ext, banded_plan)
 
     sample_y = args[0]
     h, w = sample_y.shape
     chunk, d_in = kw["chunk"], kw["d_in"]
-    g0w, ill_w, sample_ext, *_ = _tables(
-        *args, kw.get("classes"),
-        **{k: kw[k] for k in ("wc", "d_in", "d_out", "chunk", "binning")},
-        q=kw.get("q", 1))
+    plan = banded_plan(*args[1:], **kw)
+    sample_ext = _sample_ext(sample_y, d_in, chunk)
     check(kw.get("binning", 1) == 1, "K2a's frames: the flagship has b = 1")
-    table = (g0w[None] * ill_w[:, None, :]).reshape(-1, d_in)
+    table = (plan.g0w[None] * plan.ill_w[:, None, :]).reshape(-1, d_in)
     win = sample_ext.unfold(0, d_in, chunk)[: w // chunk]   # [n, H, d_in]
     return table @ win.transpose(1, 2)
 

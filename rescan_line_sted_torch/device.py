@@ -1,13 +1,16 @@
-"""Where the port's entry points run: on the card unless asked otherwise."""
+"""Where the port's entry points run: on the card unless asked otherwise,
+and the tables they keep there per (params, geometry, device)."""
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from rescan_line_sted_torch.config import cache_key_ok
 from rescan_line_sted_torch.utils.observability import span
 
 
@@ -70,3 +73,40 @@ def read_back(t: torch.Tensor) -> list:
     waits for the card where ``t`` lies on one. Each call is one
     ``rls.read_back`` span in a profiled run."""
     return t.tolist()
+
+
+def plan_cache(maxsize: int):
+    """Decorator: keep what ``build(params, geom, *key, device)`` returns,
+    the tables a call needs that depend on nothing but its arguments, for
+    the next call with equal arguments (at most ``maxsize`` plans, least
+    recently used out).
+
+    Each build is one ``rls.plan_build`` span, and runs outside inference
+    mode, so that a plan first built under ``torch.inference_mode`` can
+    serve a later autograd call. The same builder runs without the cache
+    where the arguments cannot key one (``config.cache_key_ok``: a tensor
+    field, such as calibration's, or an unhashable model) and while the
+    current CUDA stream captures a graph. Callers must not mutate a
+    plan's tensors."""
+    def wrap(build):
+        @functools.wraps(build)
+        def built(*args):
+            with span("rls.plan_build"), torch.inference_mode(False):
+                return build(*args)
+
+        cached = functools.lru_cache(maxsize=maxsize)(built)
+
+        @functools.wraps(build)
+        def plan(params, geom, *key):
+            device = torch.device(key[-1])
+            if (cache_key_ok(params) and cache_key_ok(geom)
+                    and not (device.type == "cuda"
+                             and torch.cuda.is_current_stream_capturing())):
+                return cached(params, geom, *key)
+            return built(params, geom, *key)
+
+        plan.cache_info = cached.cache_info
+        plan.cache_clear = cached.cache_clear
+        return plan
+
+    return wrap

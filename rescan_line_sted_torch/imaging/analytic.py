@@ -23,7 +23,7 @@ import functools
 import numpy as np
 import torch
 
-from rescan_line_sted_torch.device import host_table
+from rescan_line_sted_torch.device import host_table, plan_cache
 from rescan_line_sted_torch.imaging.shifts import flip_centered
 from rescan_line_sted_torch.kernels import fftconv
 from rescan_line_sted_torch.physics import models
@@ -72,16 +72,18 @@ def _phase_tables(w: int, wc: int, r: float, b: int, device: torch.device):
     the residue phases ``rho_ph`` [b, K] and the placement ``pm`` [w/b, K]
     of column m at R*m (K = Wc//2+1). Cached per geometry and device, as
     the JAX package builds them once per compile (~67 MB on the card at
-    2048^2, R = 2); do not mutate."""
+    2048^2, R = 2), outside inference mode (they serve autograd calls);
+    do not mutate."""
     kk = np.arange(wc // 2 + 1, dtype=np.float64)
     t_c = np.arange(w, dtype=np.float64) - w // 2
-    return (_np_phases(-kk * (w // (2 * b)) / wc, device),
-            _np_phases(-kk[None, :] * (r - 1.0) * t_c[:, None] / (b * wc),
-                       device),
-            _np_phases(kk[None, :] * (r - 1.0) * np.arange(b)[:, None]
-                       / (b * wc), device),
-            _np_phases(kk[None, :] * r * np.arange(w // b)[:, None] / wc,
-                       device))
+    with torch.inference_mode(False):
+        return (_np_phases(-kk * (w // (2 * b)) / wc, device),
+                _np_phases(-kk[None, :] * (r - 1.0) * t_c[:, None]
+                           / (b * wc), device),
+                _np_phases(kk[None, :] * (r - 1.0) * np.arange(b)[:, None]
+                           / (b * wc), device),
+                _np_phases(kk[None, :] * r * np.arange(w // b)[:, None]
+                           / wc, device))
 
 
 def _tables(geom, device):
@@ -122,21 +124,33 @@ def _binned_row_matrix(h: int, b: int, det_y: torch.Tensor) -> torch.Tensor:
     return my.reshape(h, h // b, b).sum(-1)
 
 
+@plan_cache(maxsize=4)
+def _canvas_constants(params, geom, device):
+    """The closed form's constants on ``device``, built once per (params,
+    geometry, device) where they can key a cache (``device.plan_cache``):
+    the y-convolve + row-bin matrix ``gy_t`` [h/b, h] (a dense circulant,
+    16 MB at 2048^2), the column-phase kernels ``h_hat`` [b, 1, K] and the
+    placement phases ``pm`` [w/b, K]."""
+    b = geom.binning
+    h = geom.grid.height
+    det_y = psfs.detection_profile(h, params.sigma_det, device)
+    gy_t = _binned_row_matrix(h, b, det_y).T                     # [hc, h]
+    h_hat = rescan_x_kernels_rfft(geom, params, device)[:, None, :]
+    pm = _tables(geom, device)[3]                                # [w/b, K]
+    return gy_t, h_hat, pm
+
+
 def _canvas_map(params, geom, device):
     """The rescan closed form as a function ``sample [..., H, W] -> canvas
-    [..., H/b, Wc]`` (leading dimensions batch), its constants built once
-    on ``device``: the y-convolve + row-bin matrix ``gy`` [h, h/b] (a dense
-    circulant, 16 MB at 2048^2), the column-phase kernels ``h_hat`` and the
-    placement phases ``pm``. Linear in ``sample``; ``rescan_canvas_mean``
+    [..., H/b, Wc]`` (leading dimensions batch), on its constants
+    (``_canvas_constants``). Linear in ``sample``; ``rescan_canvas_mean``
     and the fusion operators (``algorithms/fusion.py``) share it."""
     b = geom.binning
     h, w = geom.grid.shape
     hc, wc = geom.canvas_shape
     with span("rls.image.tables"):
-        det_y = psfs.detection_profile(h, params.sigma_det, device)
-        gy_t = _binned_row_matrix(h, b, det_y).T                 # [hc, h]
-        h_hat = rescan_x_kernels_rfft(geom, params, device)[:, None, :]
-        pm = _tables(geom, device)[3]                            # [w/b, K]
+        gy_t, h_hat, pm = _canvas_constants(params, geom,
+                                            torch.device(device or "cpu"))
 
     @span("rls.image.products")
     def canvas(sample: torch.Tensor) -> torch.Tensor:

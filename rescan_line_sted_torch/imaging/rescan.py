@@ -10,7 +10,8 @@ circularly on the ``round(R*W)/b``-wide canvas.
 Methods:
 
 * ``"analytic"``: the closed-form canvas mean
-  (``analytic.rescan_canvas_mean``) and one Poisson draw (K2c on the card).
+  (``analytic.rescan_canvas_mean``'s canvas map) and one Poisson draw (K2c
+  on the card).
 * ``"scan"``: the per-scan-position process. Where band windows exist
   (``_illum_band``) it runs on the banded route: the y-convolution is
   hoisted out of the loop, then ONE call of the banded fused scan (kernel
@@ -60,6 +61,15 @@ per-step subpixel canvases carry small negative excursions (sinc ringing
 of integer counts), and ``noise_mode="collapsed"`` then means "shot noise
 of the ideal canvas".
 
+What a call takes from (params, geometry, placement, device) alone -- the
+profiles, the y-convolution's OTF, offsets and classes or NUFFT tables, K1's
+plan (``banded_plan``: its windows and placement scalars), the finish's
+phase tables and the dose ledger -- is built once into the entry's plan
+(``_image_plan``; the closed form's constants in
+``analytic._canvas_constants``) and reused while the arguments can key a
+cache (``device.plan_cache``), so a call issues only the work that depends
+on its sample.
+
 Boundaries: ``"circular"`` (the grid wraps), ``"padded"`` (acquire on a
 zero-padded grid and crop, ``imaging/boundary.py``) and ``"apodized"``
 (taper the sample's edges to zero).
@@ -83,7 +93,7 @@ import numpy as np
 import torch
 
 from rescan_line_sted_torch.config import RescanGeometry, RescanParams
-from rescan_line_sted_torch.device import as_sample, host_table
+from rescan_line_sted_torch.device import as_sample, host_table, plan_cache
 from rescan_line_sted_torch.imaging import analytic
 from rescan_line_sted_torch.imaging import boundary as boundaries
 from rescan_line_sted_torch.imaging.line_sted import effective_line_profile
@@ -95,7 +105,9 @@ from rescan_line_sted_torch.kernels.rescan_accumulate import (
     rescan_accumulate,
 )
 from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+    BandedPlan,
     banded_fits,
+    banded_plan,
     rescan_banded_fused,
 )
 from rescan_line_sted_torch.kernels.rescan_fused import rescan_fused, runs_fit
@@ -106,7 +118,7 @@ from rescan_line_sted_torch.parallel.mesh import (
 )
 from rescan_line_sted_torch.physics import models
 from rescan_line_sted_torch.physics import psf as psfs
-from rescan_line_sted_torch.physics.dose import line_sted_dose
+from rescan_line_sted_torch.physics.dose import DoseReport, line_sted_dose
 from rescan_line_sted_torch.physics.noise import maybe_poisson
 from rescan_line_sted_torch.utils.observability import span
 
@@ -166,16 +178,21 @@ def rescanned_line_sted_image(
         return dataclasses.replace(
             res, dose=line_sted_dose(params, geom, sample.device))
     models.line_model(params)           # raises on a JAX package model
-    if method == "analytic":
-        image = maybe_poisson(
-            generator, analytic.rescan_canvas_mean(sample, params, geom))
-    elif method == "scan":
-        image = _scan(sample, params, geom, generator, noise_mode,
-                      reassignment, use_pallas)
-    else:
+    if method not in ("analytic", "scan"):
         raise ValueError(f"unknown method {method!r}")
+    if method == "scan" and noise_mode not in ("collapsed", "per_step"):
+        raise ValueError(f"unknown noise_mode {noise_mode!r}")
+    placement = (None if method == "analytic"
+                 else _resolve_reassignment(geom, reassignment))
     with span("rls.image.tables"):
-        dose = line_sted_dose(params, geom, sample.device)
+        plan = _image_plan(params, geom, placement, sample.device)
+    if method == "analytic":
+        image = maybe_poisson(generator, plan.canvas(sample))
+    else:
+        image = _scan(sample, plan, params, geom, generator, noise_mode,
+                      placement, use_pallas)
+    with span("rls.image.tables"):
+        dose = DoseReport(*plan.dose.clone().unbind())
     return AcquisitionResult(image=image, dose=dose)
 
 
@@ -308,21 +325,32 @@ def _rational_step(step: float, chunk: int):
     return None
 
 
-@span("rls.image.finish")
-def _apply_class_residues(folded: torch.Tensor, fracs, wc: int
-                          ) -> torch.Tensor:
-    """Sum folded class canvases ``[q, wc, H]``, shifting each class by its
-    fractional canvas offset as ONE spectral phase ramp (built in f64 on
-    the host). Returns the ``[H, wc]`` canvas."""
+def _residue_finish(fracs, wc: int, device):
+    """``folded [q, wc, H] -> [H, wc]``: the class canvases summed, each
+    shifted by its fractional canvas offset ``fracs[r]`` as ONE spectral
+    phase ramp, built here once in f64 on the host onto ``device``."""
     if len(fracs) == 1:
-        return folded[0].T.contiguous()
+        return span("rls.image.finish")(
+            lambda folded: folded[0].T.contiguous())
     kdim = wc // 2 + 1
     ph = analytic._np_phases(np.arange(kdim)[None, :]
                              * np.asarray(fracs, np.float64)[:, None] / wc,
-                             folded.device)                      # [q, K]
-    spec = torch.fft.rfft(folded, n=wc, dim=1)                   # [q, K, H]
-    return torch.fft.irfft((spec * ph[:, :, None]).sum(0), n=wc,
-                           dim=0).T.contiguous()
+                             device)                             # [q, K]
+
+    @span("rls.image.finish")
+    def finish(folded: torch.Tensor) -> torch.Tensor:
+        spec = torch.fft.rfft(folded, n=wc, dim=1)               # [q, K, H]
+        return torch.fft.irfft((spec * ph[:, :, None]).sum(0), n=wc,
+                               dim=0).T.contiguous()
+
+    return finish
+
+
+def _apply_class_residues(folded: torch.Tensor, fracs, wc: int
+                          ) -> torch.Tensor:
+    """Sum folded class canvases ``[q, wc, H]`` into the ``[H, wc]``
+    canvas (``_residue_finish``, its phase ramp built for this call)."""
+    return _residue_finish(fracs, wc, folded.device)(folded)
 
 
 _NUFFT_P = 8  # spreading-window width (fine-grid taps); see _nufft_beta
@@ -388,20 +416,33 @@ def _nufft_deconv_inv(wc: int, p: int = _NUFFT_P) -> np.ndarray:
     return (1.0 / phi_hat).astype(np.float32)
 
 
-@span("rls.image.finish")
+def _nufft_finish(wc: int, device, dinv: np.ndarray | None = None):
+    """``folded [2, wc, H] -> [H, wc]``: merge the two parity canvases of
+    the 2x-oversampled fine grid (spectrum ``E_hat(k) + exp(-i pi k / wc)
+    O_hat(k)``, phases built in float64 on the host) and divide by the
+    window's ``phi_hat`` (``dinv``, default ``_nufft_deconv_inv(wc)``): the
+    exact subpixel placement. Its two tables are put on ``device`` here,
+    once."""
+    ph = analytic._np_phases(np.arange(wc // 2 + 1) / (2.0 * wc),
+                             device)                              # [K]
+    dinv_t = host_table(_nufft_deconv_inv(wc) if dinv is None else dinv,
+                        device)
+
+    @span("rls.image.finish")
+    def finish(folded: torch.Tensor) -> torch.Tensor:
+        spec = torch.fft.rfft(folded, n=wc, dim=1)                # [2, K, H]
+        fine = spec[0] + ph[:, None] * spec[1]
+        return torch.fft.irfft(fine * dinv_t[:, None], n=wc,
+                               dim=0).T.contiguous()
+
+    return finish
+
+
 def _apply_nufft_deconv(folded: torch.Tensor, wc: int,
                         dinv: np.ndarray) -> torch.Tensor:
-    """Merge the two parity canvases ``[2, wc, H]`` of the 2x-oversampled
-    fine grid (spectrum ``E_hat(k) + exp(-i pi k / wc) O_hat(k)``, phases
-    built in float64 on the host) and divide by the window's ``phi_hat``
-    (``dinv``): the exact subpixel placement. Returns the [H, wc] canvas."""
-    ph = analytic._np_phases(np.arange(wc // 2 + 1) / (2.0 * wc),
-                             folded.device)                       # [K]
-    spec = torch.fft.rfft(folded, n=wc, dim=1)                    # [2, K, H]
-    fine = spec[0] + ph[:, None] * spec[1]
-    dinv_t = host_table(dinv, folded.device)
-    return torch.fft.irfft(fine * dinv_t[:, None], n=wc,
-                           dim=0).T.contiguous()
+    """The NUFFT placement's finish of ``folded [2, wc, H]``
+    (``_nufft_finish``, its tables built for this call)."""
+    return _nufft_finish(wc, folded.device, dinv)(folded)
 
 
 def _illum_band(params, w: int, chunk: int,
@@ -479,80 +520,141 @@ def _k1_windows(params, geom, reassignment="auto"):
     return windowed[0], windowed[1], pq
 
 
-def _banded_inputs(sample, params, geom, reassignment="auto"):
-    """Arguments of the banded fused scan for this acquisition, and the
-    epilogue that turns its folded canvases into the image.
+@dataclasses.dataclass(frozen=True, eq=False)
+class _Banded:
+    """The banded scan's tables for one (params, geometry, placement,
+    device): K1's profiles and the y-convolution's OTF, its integer
+    offsets, its keyword arguments (band windows, classes or NUFFT
+    spreading tables), K1's plan and the finish that turns K1's folded
+    canvases into the image."""
 
-    Returns ``(args, kwargs, finish)``: ``finish(rescan_banded_fused(*args,
-    **kwargs, generator=...))`` is the ``[H/b, wc]`` canvas. Integer and
-    rational steps place through classes (``_apply_class_residues``); any
-    other subpixel step through K1's NUFFT spreading mode
-    (``_apply_nufft_deconv``). Returns None where the scan does not take
-    K1 (``_k1_windows``).
-    """
+    eff_b: torch.Tensor
+    otf_y: torch.Tensor
+    gx: torch.Tensor
+    offsets: torch.Tensor
+    kwargs: dict
+    k1: BandedPlan
+    finish: object
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _Plan:
+    """What an image call takes from (params, geometry, placement, device)
+    alone: the dose ledger's values ``[4]`` in ``DoseReport``'s field
+    order (each result gets its own copy, so that an in-place edit of one
+    result's dose reaches no other), and the closed form's canvas map
+    (``analytic._canvas_map``) or, where the scan takes K1, its tables."""
+
+    dose: torch.Tensor
+    canvas: object
+    banded: _Banded | None
+
+
+@plan_cache(maxsize=8)
+def _image_plan(params, geom, reassignment, device) -> _Plan:
+    """The entry's plan for ``reassignment`` ("rounded" or "subpixel", as
+    ``_resolve_reassignment`` gives it; None for the closed form), built
+    once per key where the arguments can key a cache
+    (``device.plan_cache``): a later call issues only the work that
+    depends on its sample."""
+    report = line_sted_dose(params, geom, device)
+    dose = torch.stack([getattr(report, f.name)
+                        for f in dataclasses.fields(report)])
+    if reassignment is None:
+        return _Plan(dose=dose, banded=None,
+                     canvas=analytic._canvas_map(params, geom, device))
+    return _Plan(dose=dose, canvas=None,
+                 banded=_banded_tables(params, geom, reassignment, device))
+
+
+def _banded_tables(params, geom, reassignment, device) -> _Banded | None:
+    """The banded scan's tables (``_Banded``); None where the scan does not
+    take K1 (``_k1_windows``). Integer and rational steps place through
+    classes (``_residue_finish``); any other subpixel step through K1's
+    NUFFT spreading mode (``_nufft_finish``)."""
     found = _k1_windows(params, geom, reassignment)
     if found is None:
         return None
     d_in, d_out, pq = found
     h, w = geom.grid.shape
     b = geom.binning
-    chunk = geom.chunk
-    hc, wc = geom.canvas_shape
-    dev = sample.device
+    wc = geom.canvas_shape[1]
     step = (float(geom.rescan_factor) - 1.0) / b
 
-    with span("rls.image.tables"):
-        eff_b = params.brightness * effective_line_profile(w, params, dev)
-        otf_y = fftconv.profile_to_otf1d(
-            psfs.detection_profile(h, params.sigma_det, dev))
-        gx = psfs.detection_profile(w, params.sigma_det, dev)
-    with span("rls.image.yconv"):
-        sample_y = fftconv.convolve_otf1d(sample, otf_y, axis=-2, n=h)
-    kwargs = dict(wc=wc, d_in=d_in, d_out=d_out, chunk=chunk, binning=b)
-
-    with span("rls.image.tables"):
-        pos = torch.arange(w, device=dev)
-        if pq is None:
-            offsets2, weights = _nufft_spread_tables(
-                step * np.arange(w, dtype=np.float64), device=dev)
-            offsets = torch.zeros(w, dtype=torch.int32, device=dev)
-            kwargs.update(spread_weights=weights, offsets2=offsets2)
-            dinv = _nufft_deconv_inv(wc)
-
-            def finish(folded):
-                return _apply_nufft_deconv(folded, wc, dinv)
+    eff_b = params.brightness * effective_line_profile(w, params, device)
+    otf_y = fftconv.profile_to_otf1d(
+        psfs.detection_profile(h, params.sigma_det, device))
+    gx = psfs.detection_profile(w, params.sigma_det, device)
+    kwargs = dict(wc=wc, d_in=d_in, d_out=d_out, chunk=geom.chunk,
+                  binning=b)
+    pos = torch.arange(w, device=device)
+    class_bounds = None
+    if pq is None:
+        offsets2, weights = _nufft_spread_tables(
+            step * np.arange(w, dtype=np.float64), device=device)
+        offsets = torch.zeros(w, dtype=torch.int32, device=device)
+        kwargs.update(spread_weights=weights, offsets2=offsets2)
+        finish = _nufft_finish(wc, device)
+    else:
+        bf_p, bf_q = pq
+        if bf_p is None:
+            offsets = torch.round(
+                (geom.rescan_factor - 1.0) * pos / b).to(torch.int32)
+            fracs = [0.0]
         else:
-            bf_p, bf_q = pq
-            if bf_p is None:
-                offsets = torch.round(
-                    (geom.rescan_factor - 1.0) * pos / b).to(torch.int32)
-                fracs = [0.0]
-            else:
-                offsets = torch.div(bf_p * pos, bf_q,
-                                    rounding_mode="floor").to(torch.int32)
-                kwargs.update(classes=(pos % bf_q).to(torch.int32), q=bf_q)
-                fracs = [((bf_p * r) % bf_q) / bf_q for r in range(bf_q)]
-
-            def finish(folded):
-                return _apply_class_residues(folded, fracs, wc)
-    args = (sample_y.contiguous(), eff_b, gx, offsets)
-    return args, kwargs, finish
+            offsets = torch.div(bf_p * pos, bf_q,
+                                rounding_mode="floor").to(torch.int32)
+            kwargs.update(classes=(pos % bf_q).to(torch.int32), q=bf_q)
+            class_bounds = (0, bf_q - 1)      # pos % q over pos >= 0
+            fracs = [((bf_p * r) % bf_q) / bf_q for r in range(bf_q)]
+        finish = _residue_finish(fracs, wc, device)
+    k1 = banded_plan(eff_b, gx, offsets, class_bounds=class_bounds,
+                     **kwargs)
+    return _Banded(eff_b=eff_b, otf_y=otf_y, gx=gx, offsets=offsets,
+                   kwargs=kwargs, k1=k1, finish=finish)
 
 
-def _scan(sample, params, geom, generator, noise_mode="collapsed",
-          reassignment="auto", use_pallas=None):
-    if noise_mode not in ("collapsed", "per_step"):
-        raise ValueError(f"unknown noise_mode {noise_mode!r}")
+def _k1_inputs(banded: _Banded, sample):
+    """``(args, kwargs, finish)`` of K1 for ``sample``: the y-convolution
+    is the one per-sample table."""
+    with span("rls.image.yconv"):
+        sample_y = fftconv.convolve_otf1d(sample, banded.otf_y, axis=-2,
+                                          n=sample.shape[-2])
+    args = (sample_y.contiguous(), banded.eff_b, banded.gx, banded.offsets)
+    return args, dict(banded.kwargs), banded.finish
+
+
+def _banded_inputs(sample, params, geom, reassignment="auto"):
+    """Arguments of the banded fused scan for this acquisition, and the
+    epilogue that turns its folded canvases into the image, from the
+    entry's plan (``_image_plan``).
+
+    Returns ``(args, kwargs, finish)``: ``finish(rescan_banded_fused(*args,
+    **kwargs, generator=...))`` is the ``[H/b, wc]`` canvas. Returns None
+    where the scan does not take K1 (``_k1_windows``).
+    """
+    with span("rls.image.tables"):
+        plan = _image_plan(params, geom,
+                           _resolve_reassignment(geom, reassignment),
+                           sample.device)
+    return None if plan.banded is None else _k1_inputs(plan.banded, sample)
+
+
+def _scan(sample, plan: _Plan, params, geom, generator, noise_mode,
+          reassignment, use_pallas):
+    """The scan method's canvas: K1 with ``plan``'s tables where it has
+    them, else ``_full_frame_scan`` (``reassignment`` resolved, as the
+    plan's key is)."""
     per_step = generator is not None and noise_mode == "per_step"
-    banded = _banded_inputs(sample, params, geom, reassignment)
-    if banded is not None:
-        args, kwargs, finish = banded
+    if plan.banded is not None:
+        args, kwargs, finish = _k1_inputs(plan.banded, sample)
         canvas = finish(rescan_banded_fused(
-            *args, **kwargs, generator=generator if per_step else None))
+            *args, **kwargs, plan=plan.banded.k1,
+            generator=generator if per_step else None))
     else:
         canvas = _full_frame_scan(
             sample, params, geom, generator if per_step else None,
-            _resolve_reassignment(geom, reassignment), use_pallas)
+            reassignment, use_pallas)
     if generator is not None and not per_step:
         canvas = maybe_poisson(generator, canvas)
     return canvas

@@ -20,9 +20,13 @@ placement modes. Per chunk of C scan positions the scan
    periodic boundary splits at row ``m0`` of its chunk into two placements
    ``W/b`` apart (``sa_lo`` / ``sa_hi``), before spreading.
 
-The tables and placement scalars are built here in plain torch (with
-floor division and Python-sign modulo, as the JAX wrapper does), and the
-kernel (``csrc/rescan_banded_fused.cu``) or the plain loop consumes them.
+The tables and placement scalars, which depend on the band windows,
+profiles and placement alone, are built here in plain torch (with floor
+division and Python-sign modulo, as the JAX wrapper does) into a
+``BandedPlan`` (``banded_plan``), which a caller may build once and pass
+to every call (the rescan engine keeps one per geometry); the kernel
+(``csrc/rescan_banded_fused.cu``) or the plain loop consumes them with the
+call's extended sample.
 
 K1's limit is decided on the host, the same on every device:
 ``banded_fits`` holds the shared memory of K1's smaller layout to Hopper's
@@ -34,6 +38,7 @@ package declines its banded kernel above a VMEM bound.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -133,7 +138,7 @@ def three_pass_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ah @ bh + (al @ bh + ah @ bl)
 
 
-def _check(h, w, *, wc, d_in, d_out, chunk, binning, n_spread=0):
+def _check(w, *, wc, d_in, d_out, chunk, binning, n_spread=0):
     """The JAX wrapper's argument guards (minus its TPU sub-row rule)."""
     b = binning
     if d_out is None:
@@ -164,25 +169,65 @@ def _spread_args(w, classes, q, spread_weights, offsets2):
     return n_spread, 2
 
 
-def _tables(sample_y, eff_scaled, gx, int_offsets, classes, *, wc, d_in,
-            d_out, chunk, binning, q, offsets2=None):
-    """Conv table factors, extended sample and placement scalars: the
-    detection window ``g0w [D_out, D_in]`` and illumination window
-    ``ill_w [C, D_in]`` whose product, row-binned, is the conv table
-    (module doc). ``sa_lo`` / ``sa_hi`` are ``[W]`` canvas starts, or
-    ``[2, W]`` per parity when ``offsets2`` is given."""
-    h, w = sample_y.shape
+@dataclasses.dataclass(frozen=True, eq=False)
+class BandedPlan:
+    """K1's tables that depend on the band windows, profiles and placement
+    alone, not on the sample (``banded_plan``): the detection window
+    ``g0w [D_out, D_in]`` (the plain version's) and its row-binned,
+    d-major factor ``g_t [D_in, dob]`` (the kernel's), the illumination
+    window ``ill_w [C, D_in]``, whose product, row-binned, is the conv
+    table (module doc); the placement scalars ``sa_lo`` / ``sa_hi``
+    (``[W]`` canvas starts, or ``[2, W]`` per parity in NUFFT mode), ``m0``
+    (``[W / C]``) and ``cls`` (``[W]``); the spreading taps ``taps`` (NUFFT
+    mode, else None); and the shape they were built for."""
+
+    w: int
+    wc: int
+    d_in: int
+    d_out: int
+    chunk: int
+    binning: int
+    q: int
+    n_spread: int
+    g0w: torch.Tensor
+    g_t: torch.Tensor
+    ill_w: torch.Tensor
+    sa_lo: torch.Tensor
+    sa_hi: torch.Tensor
+    m0: torch.Tensor
+    cls: torch.Tensor
+    taps: torch.Tensor | None
+
+
+def banded_plan(eff_scaled: torch.Tensor, gx: torch.Tensor,
+                int_offsets: torch.Tensor, *, wc: int, d_in: int,
+                d_out: int, chunk: int, binning: int = 1,
+                classes: torch.Tensor | None = None, q: int = 1,
+                spread_weights: torch.Tensor | None = None,
+                offsets2: torch.Tensor | None = None,
+                class_bounds: tuple[int, int] | None = None,
+                device=None) -> BandedPlan:
+    """K1's tables for these arguments of ``rescan_banded_fused``, built
+    on ``device`` (None: ``eff_scaled``'s) with floor division and
+    Python-sign modulo, as the JAX wrapper builds them. Classes outside
+    ``[0, q)`` are refused: ``class_bounds``, where the caller made the
+    classes and knows their least and largest value on the host, else
+    read back from ``classes`` (one sync on a card)."""
+    w = eff_scaled.shape[-1]
+    n_spread, q = _spread_args(w, classes, q, spread_weights, offsets2)
+    _check(w, wc=wc, d_in=d_in, d_out=d_out, chunk=chunk, binning=binning,
+           n_spread=n_spread)
     if int_offsets.shape != (w,) or (classes is not None
                                      and classes.shape != (w,)):
         raise ValueError("int_offsets and classes need one entry per column")
     if classes is not None:
-        lo, hi = read_back(torch.stack(torch.aminmax(classes)))  # one sync
+        lo, hi = (class_bounds if class_bounds is not None
+                  else read_back(torch.stack(torch.aminmax(classes))))
         if lo < 0 or hi >= q:
             raise ValueError(f"classes must lie in [0, {q})")
     b = binning
-    wb = w // b
-    dev = sample_y.device
-    n_chunks = w // chunk
+    wb, dob = w // b, d_out // b
+    dev = eff_scaled.device if device is None else torch.device(device)
     s_in = (d_in - chunk) // 2
     s_out = (d_out - chunk) // 2
 
@@ -191,11 +236,7 @@ def _tables(sample_y, eff_scaled, gx, int_offsets, classes, *, wc, d_in,
     ill_w = eff_scaled[(w // 2 + di - s_in - ci) % w]            # [C, Di]
     g0w = fftconv.circulant_window(gx, d_out, d_in, s_out, s_in)  # [Do, Di]
 
-    sample_t = sample_y.T
-    head = sample_t[w - s_in:] if s_in else sample_t[:0]
-    sample_ext = torch.cat([head, sample_t, sample_t[:d_in - s_in]], dim=0)
-
-    p0s = torch.arange(n_chunks, device=dev) * chunk
+    p0s = torch.arange(w // chunk, device=dev) * chunk
     gstart = torch.div(p0s - s_out, b, rounding_mode="floor")
     k0 = torch.div(gstart, wb, rounding_mode="floor")
     m0 = (wb * (k0 + 1) - gstart).to(torch.int32)
@@ -206,8 +247,41 @@ def _tables(sample_y, eff_scaled, gx, int_offsets, classes, *, wc, d_in,
     sa_hi = torch.remainder(sa_lo - wb, wc)
     cls = (torch.zeros(w, dtype=torch.int32, device=dev) if classes is None
            else classes.to(dev, torch.int32))
-    return (g0w, ill_w, sample_ext.contiguous(), sa_lo.to(torch.int32),
-            sa_hi.to(torch.int32), m0, cls)
+    return BandedPlan(
+        w=w, wc=wc, d_in=d_in, d_out=d_out, chunk=chunk, binning=b, q=q,
+        n_spread=n_spread, g0w=g0w,
+        g_t=g0w.reshape(dob, b, d_in).sum(1).T.contiguous(),
+        ill_w=ill_w.contiguous(), sa_lo=sa_lo.to(torch.int32),
+        sa_hi=sa_hi.to(torch.int32), m0=m0, cls=cls,
+        taps=(None if spread_weights is None
+              else spread_weights.to(dev).contiguous()))
+
+
+def _plan_of(plan, sample_y, eff_scaled, gx, int_offsets, **kw):
+    """``plan`` (None: a plan built now from the call's arguments), held
+    to ``sample_y``'s width and the call's band windows."""
+    if plan is None:
+        plan = banded_plan(eff_scaled, gx, int_offsets,
+                           device=sample_y.device, **kw)
+    got = (plan.w, plan.wc, plan.d_in, plan.d_out, plan.chunk, plan.binning)
+    want = (sample_y.shape[1], kw["wc"], kw["d_in"], kw["d_out"],
+            kw["chunk"], kw["binning"])
+    if got != want:
+        raise ValueError(f"plan built for (W, wc, d_in, d_out, chunk, b) = "
+                         f"{got}, called with {want}")
+    return plan
+
+
+def _sample_ext(sample_y: torch.Tensor, d_in: int, chunk: int
+                ) -> torch.Tensor:
+    """The extended sample ``[W + D_in - C, H]``: ``sample_ext[r] =
+    sample_y^T[(r - s_in) % W]``, so each chunk's window is a slice."""
+    w = sample_y.shape[1]
+    s_in = (d_in - chunk) // 2
+    sample_t = sample_y.T
+    head = sample_t[w - s_in:] if s_in else sample_t[:0]
+    return torch.cat([head, sample_t, sample_t[:d_in - s_in]],
+                     dim=0).contiguous()
 
 
 def rescan_banded_fused_reference(
@@ -217,27 +291,29 @@ def rescan_banded_fused_reference(
     q: int = 1, generator: torch.Generator | None = None,
     spread_weights: torch.Tensor | None = None,
     offsets2: torch.Tensor | None = None,
+    plan: BandedPlan | None = None,
 ) -> torch.Tensor:
     """Plain torch version of K1: one batched matmul per chunk,
     ``torch.poisson`` when ``generator`` is given, ``index_add_``
     placement (after per-parity spreading in NUFFT mode). Same arguments
     and result as ``rescan_banded_fused``."""
     h, w = sample_y.shape
-    n_spread, q = _spread_args(w, classes, q, spread_weights, offsets2)
-    _check(h, w, wc=wc, d_in=d_in, d_out=d_out, chunk=chunk,
-           binning=binning, n_spread=n_spread)
+    plan = _plan_of(plan, sample_y, eff_scaled, gx, int_offsets, wc=wc,
+                    d_in=d_in, d_out=d_out, chunk=chunk, binning=binning,
+                    classes=classes, q=q, spread_weights=spread_weights,
+                    offsets2=offsets2)
+    q, n_spread = plan.q, plan.n_spread
+    sa_lo, sa_hi, m0, cls = plan.sa_lo, plan.sa_hi, plan.m0, plan.cls
     b = binning
     hb, dob = h // b, d_out // b
-    g0w, ill_w, sample_ext, sa_lo, sa_hi, m0, cls = _tables(
-        sample_y, eff_scaled, gx, int_offsets, classes, wc=wc, d_in=d_in,
-        d_out=d_out, chunk=chunk, binning=b, q=q, offsets2=offsets2)
-    table = (g0w[None] * ill_w[:, None, :]).reshape(
+    sample_ext = _sample_ext(sample_y, d_in, chunk)
+    table = (plan.g0w[None] * plan.ill_w[:, None, :]).reshape(
         chunk * dob, b, d_in).sum(1)                             # [C*dob, Di]
     dev = sample_y.device
     r = torch.arange(dob, device=dev)
     out = torch.zeros(q * wc, hb, dtype=torch.float32, device=dev)
     if n_spread:
-        wts = spread_weights.to(dev, torch.float32).reshape(w, 2, n_spread)
+        wts = plan.taps.to(dev, torch.float32).reshape(w, 2, n_spread)
         rs = torch.arange(dob + n_spread - 1, device=dev)
     for ic in range(w // chunk):
         p0 = ic * chunk
@@ -278,6 +354,7 @@ def rescan_banded_fused(
     spread_weights: torch.Tensor | None = None,
     offsets2: torch.Tensor | None = None,
     key=None,
+    plan: BandedPlan | None = None,
 ) -> torch.Tensor:
     """Banded fused rescan scan over all W column positions (module doc).
 
@@ -298,6 +375,11 @@ def rescan_banded_fused(
     per-parity integer offsets. Then ``q`` is 2 (the parity canvases),
     ``classes`` must be None and ``int_offsets`` is ignored.
 
+    ``plan``: K1's tables built from these same arguments
+    (``banded_plan``), which the call then takes as they are, reading only
+    ``sample_y`` of its tensors; None builds them here, and refuses
+    classes outside ``[0, q)`` by reading them back (one sync on a card).
+
     Returns folded class canvases ``[q, wc, H/b]`` (canvas-column-major).
     A CUDA ``sample_y`` launches kernel K1 (``LAUNCHES`` counts each
     placement mode and shared-memory layout apart: ``_spread`` for NUFFT
@@ -311,32 +393,29 @@ def rescan_banded_fused(
             sample_y, eff_scaled, gx, int_offsets, wc=wc, d_in=d_in,
             d_out=d_out, chunk=chunk, binning=binning, classes=classes, q=q,
             generator=generator if key is None else _build.key_generator(key),
-            spread_weights=spread_weights, offsets2=offsets2)
-    with span("rls.k1"):   # the tables, key words and launch
+            spread_weights=spread_weights, offsets2=offsets2, plan=plan)
+    with span("rls.k1"):   # the plan where none is given, key words, launch
         h, w = sample_y.shape
-        n_spread, q = _spread_args(w, classes, q, spread_weights, offsets2)
-        _check(h, w, wc=wc, d_in=d_in, d_out=d_out, chunk=chunk,
-               binning=binning, n_spread=n_spread)
+        plan = _plan_of(plan, sample_y, eff_scaled, gx, int_offsets, wc=wc,
+                        d_in=d_in, d_out=d_out, chunk=chunk,
+                        binning=binning, classes=classes, q=q,
+                        spread_weights=spread_weights, offsets2=offsets2)
+        q, n_spread = plan.q, plan.n_spread
         b = binning
         hb, dob = h // b, d_out // b
-        g0w, ill_w, sample_ext, sa_lo, sa_hi, m0, cls = _tables(
-            sample_y, eff_scaled, gx, int_offsets, classes, wc=wc,
-            d_in=d_in, d_out=d_out, chunk=chunk, binning=b, q=q,
-            offsets2=offsets2)
-        # binned detection factor, d-major [D_in, dob]
-        g_t = g0w.reshape(dob, b, d_in).sum(1).T.contiguous()
-        ill_w = ill_w.contiguous()
-        taps = [spread_weights.contiguous()] if n_spread else []
-        _build.require_cuda_f32("rescan_banded_fused", g_t, ill_w,
-                                sample_ext, sa_lo, sa_hi, m0, cls, *taps)
+        sample_ext = _sample_ext(sample_y, d_in, chunk)
+        taps = [plan.taps] if n_spread else []
+        _build.require_cuda_f32("rescan_banded_fused", plan.g_t, plan.ill_w,
+                                sample_ext, plan.sa_lo, plan.sa_hi, plan.m0,
+                                plan.cls, *taps)
         out = torch.empty((q, wc, hb), dtype=torch.float32,
                           device=sample_y.device)
         s0, s1, keys = _build.key_words(generator, sample_y.device, key)
         info = (ctypes.c_int * 5)()
         code = _build.lib().rls_rescan_banded_fused(
-            g_t.data_ptr(), ill_w.data_ptr(), sample_ext.data_ptr(),
-            sa_lo.data_ptr(), sa_hi.data_ptr(), m0.data_ptr(),
-            cls.data_ptr(), taps[0].data_ptr() if taps else None,
+            plan.g_t.data_ptr(), plan.ill_w.data_ptr(), sample_ext.data_ptr(),
+            plan.sa_lo.data_ptr(), plan.sa_hi.data_ptr(), plan.m0.data_ptr(),
+            plan.cls.data_ptr(), taps[0].data_ptr() if taps else None,
             out.data_ptr(), h, w, chunk, d_in, dob, b, q, wc, n_spread,
             int(generator is not None or key is not None), s0, s1,
             None if keys is None else keys.data_ptr(),

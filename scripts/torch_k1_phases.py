@@ -120,7 +120,7 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from rescan_line_sted_torch.kernels import _build
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
-        _tables)
+        _sample_ext, banded_plan)
 
     print(cs.card(), flush=True)
     dev = torch.device("cuda", 0)
@@ -135,17 +135,12 @@ def main(argv=None) -> int:
     h, w = sample_y.shape
     b, chunk, d_in, d_out, wc = (kw.get("binning", 1), kw["chunk"],
                                  kw["d_in"], kw["d_out"], kw["wc"])
-    spread = kw.get("spread_weights")
-    q = 2 if spread is not None else kw["q"]
-    n_spread = 0 if spread is None else spread.shape[1] // 2
     dob = d_out // b
-    g0w, ill_w, sample_ext, sa_lo, sa_hi, m0, cls = _tables(
-        sample_y, eff, gx, offs, kw.get("classes"), wc=wc, d_in=d_in,
-        d_out=d_out, chunk=chunk, binning=b, q=q,
-        offsets2=kw.get("offsets2"))
-    taps = None if spread is None else spread.contiguous()
-    g_t = g0w.reshape(dob, b, d_in).sum(1).T.contiguous()
-    ill_w = ill_w.contiguous()
+    plan = banded_plan(eff, gx, offs, **kw)
+    q, n_spread, taps = plan.q, plan.n_spread, plan.taps
+    g_t, ill_w, sa_lo, sa_hi, m0, cls = (plan.g_t, plan.ill_w, plan.sa_lo,
+                                         plan.sa_hi, plan.m0, plan.cls)
+    sample_ext = _sample_ext(sample_y, d_in, chunk)
     out = torch.empty((q, wc, h // b), device=dev)
     info = (ctypes.c_int * 5)()
     res = {"label": args.label, "tree": tree, "mode": args.mode,

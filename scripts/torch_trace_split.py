@@ -48,7 +48,7 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 ROOTS = ("rls.image", "rls.sweep")
-COUNTERS = ("rls.host_table", "rls.read_back")
+COUNTERS = ("rls.host_table", "rls.read_back", "rls.plan_build")
 STAGES = ("rls.image.tables", "rls.image.yconv", "rls.k1",
           "rls.image.finish", "rls.image.products", "rls.k2c",
           "rls.sweep.generators", "rls.sweep.ledgers", "rls.sweep.point",

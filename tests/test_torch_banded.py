@@ -191,8 +191,14 @@ def test_over_bound_windows_take_the_full_frame_scan(rf, b, monkeypatch):
     monkeypatch.setattr(trescan, "_full_frame_scan",
                         lambda *a, **k: (calls.append(1), full(*a, **k))[1])
     monkeypatch.setattr(trescan, "rescan_banded_fused", None)  # never called
-    got = T.rescanned_line_sted_image(torch.from_numpy(s), tp, tg,
-                                      method="scan", device="cpu").image
+    # the entry's plan holds its route: no plan made under the real bound
+    # may serve this call, nor this call's plan a later test
+    trescan._image_plan.cache_clear()
+    try:
+        got = T.rescanned_line_sted_image(torch.from_numpy(s), tp, tg,
+                                          method="scan", device="cpu").image
+    finally:
+        trescan._image_plan.cache_clear()
     want = rescanned_line_sted_image(
         jnp.asarray(s), J.RescanParams.create(**kw), jg, method="scan").image
     assert calls == [1]

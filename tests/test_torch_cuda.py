@@ -1813,15 +1813,18 @@ def test_line_fit_on_card_matches_cpu_and_never_syncs(cuda):
 def test_port_spans_share_the_cards_clock_and_count_every_read(cuda,
                                                                tmp_path):
     """A profiled per-step call at the flagship's shapes (2048^2, R = 1.5,
-    K1 class mode): K1's ``cudaLaunchKernel`` lies inside ``rls.k1`` and
-    its kernel starts after the span opens (one clock for the port's
-    spans and the card), and every device-to-host copy and runtime wait
-    in the calls' stretch outside the harness-style ``bench.sync`` lies
-    inside ``rls.read_back``, one copy to a read, so the counter misses no
-    sync."""
+    K1 class mode), then K1 called as an outside caller calls it, without
+    a plan: each K1 ``cudaLaunchKernel`` lies inside ``rls.k1`` and its
+    kernel starts after the span opens (one clock for the port's spans and
+    the card), and every device-to-host copy and runtime wait in the
+    calls' stretch outside the harness-style ``bench.sync`` lies inside
+    ``rls.read_back`` (the outside call's class check; the entry reads
+    nothing back), one copy to a read, so the counter misses no sync."""
     import json
 
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    from rescan_line_sted_torch.imaging.rescan import _banded_inputs
 
     n = 2048
     params = T.LineSTEDParams.create(sigma_exc=3.0, sigma_det=3.0,
@@ -1831,10 +1834,14 @@ def test_port_spans_share_the_cards_clock_and_count_every_read(cuda,
     sample = torch.rand((n, n), device=cuda)
     gen = torch.Generator(cuda).manual_seed(3)
 
+    args, kw, _ = _banded_inputs(sample, params, geom)
+
     def call():
-        return T.rescanned_line_sted_image(
+        image = T.rescanned_line_sted_image(
             sample, params, geom, generator=gen, method="scan",
             noise_mode="per_step", device=cuda).image
+        rescan_banded_fused(*args, **kw)
+        return image
 
     call()
     torch.cuda.synchronize()
@@ -1864,13 +1871,13 @@ def test_port_spans_share_the_cards_clock_and_count_every_read(cuda,
     # the stretch of the calls (the profiler's own stop syncs after it)
     t0, t1 = min(a for a, _ in spans("bench.call")), \
         max(b for _, b in spans("bench.call"))
-    assert len(k1) == calls and len(reads) == calls
+    assert len(k1) == 2 * calls and len(reads) == calls
     runtime = {e["args"]["correlation"]: e for e in xs
                if e.get("cat") == "cuda_runtime" and "correlation" in
                e.get("args", {})}
     kernels = [e for e in xs if e.get("cat") == "kernel"
                and "rescan_banded_fused" in e["name"]]
-    assert len(kernels) == calls
+    assert len(kernels) == 2 * calls
     for kern in kernels:
         launch = runtime[kern["args"]["correlation"]]
         assert launch["name"] == "cudaLaunchKernel"
@@ -1891,3 +1898,60 @@ def test_port_spans_share_the_cards_clock_and_count_every_read(cuda,
     assert waits and not stray, (len(waits), stray, reads)
     assert len(copies) == len(reads), (copies, reads)
     assert all(inside(ts, reads) for ts in copies), (copies, reads)
+
+
+@pytest.mark.parametrize("route", ["per_step", "nufft", "analytic"])
+def test_second_entry_call_reads_nothing_back(cuda, route, monkeypatch):
+    """The rescan entry keeps its tables in a plan per (params, geometry,
+    placement, device): at 256 x 1024 with the flagship's params, the
+    second call of the per-step (K1 class mode, R = 1.5), NUFFT (R = 1 +
+    pi/16) and closed-form entries opens no ``rls.read_back``,
+    ``rls.host_table`` or ``rls.plan_build`` span and makes no host-device
+    sync (sync-debug mode "error"); K1 launches once a K1 call; and the
+    images, noise-free and drawn from a same-seeded CUDA generator, equal
+    an uncached build's bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rescan_line_sted_torch import device as device_mod
+    from rescan_line_sted_torch.imaging import analytic, rescan
+
+    params = T.LineSTEDParams.create(sigma_exc=3.0, sigma_det=3.0,
+                                     stripe_period=12.0, depletion=8.0,
+                                     slit_halfwidth=4.0, brightness=1.0)
+    rf = 1.0 + np.pi / 16 if route == "nufft" else 1.5
+    geom = T.RescanGeometry(T.Grid(256, 1024), rescan_factor=rf, chunk=32)
+    method = "analytic" if route == "analytic" else "scan"
+    sample = torch.rand((256, 1024), generator=torch.Generator().manual_seed(
+        5)).to(cuda)
+    rescan._image_plan.cache_clear()
+    analytic._canvas_constants.cache_clear()
+
+    def call(seed):
+        gen = (None if seed is None
+               else torch.Generator(cuda).manual_seed(seed))
+        return T.rescanned_line_sted_image(
+            sample, params, geom, generator=gen, method=method,
+            noise_mode="per_step" if method == "scan" else "collapsed",
+            device=cuda).image
+
+    call(1)                                        # builds the plans
+    torch.cuda.synchronize()
+    k1 = "rescan_banded_fused" + ("_spread" if route == "nufft" else "")
+    before = _build.LAUNCHES[k1]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            noisy, clean = call(1), call(None)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    opened = {e.name for e in prof.events()}
+    assert "rls.image" in opened
+    assert not opened & {"rls.read_back", "rls.host_table",
+                         "rls.plan_build"}, opened
+    runs_k1 = method == "scan"
+    assert _build.LAUNCHES[k1] == before + 2 * runs_k1
+    monkeypatch.setattr(device_mod, "cache_key_ok", lambda _: False)
+    assert torch.equal(noisy, call(1)) and torch.equal(clean, call(None))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[k1] == before + 4 * runs_k1

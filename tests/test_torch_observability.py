@@ -151,19 +151,16 @@ def test_enable_compilation_cache_paths(monkeypatch, tmp_path):
 # --- the port's spans and counters (``span``, ``SETUP``) ---------------------
 
 # the innermost port span each span opens in, per path on the CPU (64 x 256:
-# the banded route needs a field wider than K1's 128-column windows); K1's
-# ``rls.k1`` covers its CUDA branch only, so here K1's class check reads
-# back under ``rls.image``
+# the banded route needs a field wider than K1's 128-column windows), in a
+# steady call: the entry's plan, built by the first call, leaves no class
+# check, host table or plan build to a later one
 NESTING = {
     "per_step": {"rls.image": None, "rls.image.tables": "rls.image",
                  "rls.image.yconv": "rls.image",
-                 "rls.read_back": "rls.image",
-                 "rls.image.finish": "rls.image",
-                 "rls.host_table": "rls.image.finish"},
+                 "rls.image.finish": "rls.image"},
     "nufft": {"rls.image": None, "rls.image.tables": "rls.image",
               "rls.image.yconv": "rls.image",
-              "rls.image.finish": "rls.image",
-              "rls.host_table": ("rls.image.tables", "rls.image.finish")},
+              "rls.image.finish": "rls.image"},
     "analytic": {"rls.image": None, "rls.image.tables": "rls.image",
                  "rls.image.products": "rls.image",
                  "rls.k2c": "rls.image"},
@@ -176,12 +173,11 @@ NESTING = {
               "rls.sweep.columns": "rls.sweep",
               "rls.host_table": "rls.sweep.columns"},
 }
-# (read-backs, host tables) per call, from the code's sites: K1's class
-# check; the class residues' phase ramp; NUFFT's two spreading tables, its
-# merge phases and its deconvolution; the closed form's cached phase
-# tables (none after the first call); the sweep's seed table, and three
-# host columns per arm plus the powers and the budget
-COUNTS = {"per_step": (1, 1), "nufft": (0, 4), "analytic": (0, 0),
+# (read-backs, host tables) per call, from the code's sites: none in a
+# steady rescan call (K1's classes are checked on the host and every table
+# is in the entry's plan); the sweep's seed table, and three host columns
+# per arm plus the powers and the budget
+COUNTS = {"per_step": (0, 0), "nufft": (0, 0), "analytic": (0, 0),
           "sweep": (1, 8)}
 
 
