@@ -12,7 +12,7 @@ each ring sums its rows the same way. No matmul runs, so TF32 plays no
 part, and no atomics run, so one input gives the same bits on every call
 (``index_add_`` on the card would add in a varying order). Nothing reads
 a value back to the host: the results stay 0-d tensors on the input's
-device.
+device. Each call of a public resolution entry is one span ``rls.frc``.
 
 Conventions, as in the JAX package: the DC ring and rings left empty are
 dropped; a resolution is ``1 / k_c`` at the first ring where the curve
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from rescan_line_sted_torch.device import host_table
+from rescan_line_sted_torch.utils.observability import span
 
 _ROW = 256   # bins summed per row of the first gather
 
@@ -159,6 +160,7 @@ def _resolution_from_curve(freqs: torch.Tensor, frc: torch.Tensor,
     return torch.where(below[0], 2.0, res)
 
 
+@span("rls.frc")
 def frc_resolution(img1: torch.Tensor, img2: torch.Tensor,
                    num_rings: int = 64,
                    threshold: float = 1.0 / 7.0) -> torch.Tensor:
@@ -171,6 +173,7 @@ def frc_resolution(img1: torch.Tensor, img2: torch.Tensor,
     return _resolution_from_curve(freqs, frc, threshold)
 
 
+@span("rls.frc")
 def frc_sectored_resolution(img1: torch.Tensor, img2: torch.Tensor,
                             num_rings: int = 48,
                             half_angle_deg: float = 30.0,

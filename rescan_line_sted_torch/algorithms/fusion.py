@@ -22,7 +22,9 @@ into one operator, so that pass serves every view at once (the eager ops
 per iteration, not their size, set the time at small fields). An
 operator's constants (the rotation's gather indices and weights, the
 canvas's row matrix, column-phase kernels and placement phases) are
-built once, when the operator is.
+built once, when the operator is: the rotation's, inside the span
+``rls.fusion.build``, whose occurrences count the builds. The loop runs
+inside ``rls.fusion.operator``.
 
 Nothing in the loops reads a value back to the host: the scale guard,
 the normaliser and the extrapolation weight stay 0-d tensors. The JAX
@@ -51,6 +53,7 @@ from rescan_line_sted_torch.physics.noise import (
     derived_generators,
     maybe_poisson,
 )
+from rescan_line_sted_torch.utils.observability import span
 from rescan_line_sted_torch.utils.rotate import rotate_image, rotation_corners
 
 
@@ -106,6 +109,7 @@ def richardson_lucy_operator(
                         accelerate)
 
 
+@span("rls.fusion.operator")
 def _operator_rl(data, operators, num_iter, init, tiny, eps, accelerate):
     """``richardson_lucy_operator``'s loop with the guard ``tiny`` given,
     so that one operator may stack several views."""
@@ -157,10 +161,12 @@ def _views_operator(canvas, geom, angles, device) -> LinearOperator:
     h, w = geom.grid.shape
     if angles is None:
         return LinearOperator(lambda est: canvas(est[None]), (h, w))
-    _, corners = rotation_corners(h, w, [-float(a) for a in angles], device)
-    index = torch.stack([c[0] for c in corners], dim=1).reshape(-1)
-    weight = torch.stack([torch.where(c[2], c[1], 0.0) for c in corners],
-                         dim=1)                               # [V, 4, H, W]
+    with span("rls.fusion.build"):
+        _, corners = rotation_corners(h, w, [-float(a) for a in angles],
+                                      device)
+        index = torch.stack([c[0] for c in corners], dim=1).reshape(-1)
+        weight = torch.stack([torch.where(c[2], c[1], 0.0)
+                              for c in corners], dim=1)       # [V, 4, H, W]
 
     def fwd(est):
         t = (weight * est.reshape(-1).gather(0, index).reshape(weight.shape)

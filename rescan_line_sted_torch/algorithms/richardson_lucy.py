@@ -12,7 +12,7 @@ conjugate (``fftconv.correlate_otf``). The JAX package's ``fori_loop`` is
 a Python ``for`` here. Nothing in the loop reads a value back to the
 host: the scale guard and the extrapolation weight stay 0-d tensors, so
 on the card the loop queues its work without a sync. It runs on its
-inputs' device.
+inputs' device, inside the span ``rls.fusion.rl``.
 """
 
 from __future__ import annotations
@@ -21,9 +21,11 @@ import torch
 
 from rescan_line_sted_torch.kernels import fftconv
 from rescan_line_sted_torch.parallel.mesh import gather_dtensors
+from rescan_line_sted_torch.utils.observability import span
 
 
 @gather_dtensors
+@span("rls.fusion.rl")
 def richardson_lucy_views(
     data: torch.Tensor,
     psfs: torch.Tensor,

@@ -21,8 +21,10 @@ Methods:
 
   ``E`` and ``S_R`` are scaled 2D DFTs, separable per axis: two complex64
   matrix products each against phase tables built in float64 on the host
-  (``_phase_tables``, cached per shape, factor and device); ``D_hat`` is
-  one zero-padded rfft2. For b > 1 the map is b-periodically shift-variant
+  (``_phase_tables``, cached per shape, factor and device); where the
+  canvas is exactly R times the field, ``S_R`` is the sample's FFT read
+  periodically (``_placed_spectrum``). ``D_hat`` is one zero-padded
+  rfft2. For b > 1 the map is b-periodically shift-variant
   in both axes, and the canvas is a sum over the b^2 residue classes of the
   emitter position (``_canvas_mean_bn``). Exact for samples that are zero
   within ~PSF support of every edge; pad otherwise.
@@ -216,6 +218,23 @@ def _detection_hat(params, geom, device) -> torch.Tensor:
     return torch.fft.rfft2(d_embed) * dy[:, None] * dx[None, :]
 
 
+def _placed_spectrum(sample, geom, py, px) -> torch.Tensor:
+    """``S_R`` [..., Hc, Kx] (b = 1). Where the canvas is exactly R times
+    the field in both axes, ``R a / Nc = a / N`` and ``S_R`` is the
+    sample's own 2D DFT read periodically: one FFT, exact to float32's
+    rounding. The two products against the phase tables carry ~4e-7 of
+    the spectrum instead (192^2, R = 2), which RL's iterations amplify."""
+    h, w = geom.grid.shape
+    hc, wc = geom.canvas_shape
+    r = float(geom.rescan_factor)
+    if r * h != hc or r * w != wc:
+        return (py.T @ sample.to(torch.complex64)) @ px
+    dev = sample.device
+    f = torch.fft.fft2(sample.to(torch.float32))
+    f = f.index_select(-2, torch.arange(hc, device=dev) % h)
+    return f.index_select(-1, torch.arange(wc // 2 + 1, device=dev) % w)
+
+
 def rescan_point_canvas_mean(sample: torch.Tensor, params,
                              geom) -> torch.Tensor:
     """Noise-free rescanned point-STED canvas: the closed form of the module
@@ -234,7 +253,7 @@ def rescan_point_canvas_mean(sample: torch.Tensor, params,
     py, px, by, bx = _tables(geom, dev)
     e_hat = _illumination_hat(params, (h, w), by, bx, dev)
     if b == 1:
-        s_hat = (py.T @ sample.to(torch.complex64)) @ px
+        s_hat = _placed_spectrum(sample, geom, py, px)
         canvas = torch.fft.irfft2(s_hat * e_hat
                                   * _detection_hat(params, geom, dev),
                                   s=(hc, wc))

@@ -319,8 +319,6 @@ def dose_matched_sweep(
                 frc_resolution_x=None, frc_resolution_y=None))
 
         if ism_geom is not None:
-            mean = rescan_point_canvas_mean(sample, pp_run, ism_geom)
-
             def ism_image(k):
                 img = maybe_poisson(draw("ism", i, k), mean)
                 if fuse_orientations:
@@ -329,17 +327,19 @@ def dose_matched_sweep(
                                          accelerate=fusion_accelerate)
                 return img
 
-            iimg = ism_image(0)
-            if fuse_orientations:
-                i_resp = ism_deconvolve(
-                    rescan_point_canvas_mean(delta, pp, ism_geom), pp,
-                    ism_geom, fusion_iters, accelerate=fusion_accelerate)
-            else:
-                i_resp = rescan_point_system_kernel(ism_geom, pp, dev)
-            rows["ism"].append(dict(
-                point, image=iimg, profiles=_centre(i_resp),
-                frc_resolution=(frc_resolution(iimg, ism_image(1)) / r_ism
-                                if frc else None)))
+            with span("rls.sweep.ism"):
+                mean = rescan_point_canvas_mean(sample, pp_run, ism_geom)
+                iimg = ism_image(0)
+                if fuse_orientations:
+                    i_resp = ism_deconvolve(
+                        rescan_point_canvas_mean(delta, pp, ism_geom), pp,
+                        ism_geom, fusion_iters, accelerate=fusion_accelerate)
+                else:
+                    i_resp = rescan_point_system_kernel(ism_geom, pp, dev)
+                rows["ism"].append(dict(
+                    point, image=iimg, profiles=_centre(i_resp),
+                    frc_resolution=(frc_resolution(iimg, ism_image(1))
+                                    / r_ism if frc else None)))
 
         if rescan_geom is not None and fuse_orientations:
             def rescan_image(k):
@@ -350,36 +350,39 @@ def dose_matched_sweep(
                                      angles_static, fusion_iters,
                                      accelerate=fusion_accelerate)
 
-            rimg = rescan_image(0)
-            # the achieved resolution: a point source's canvases restored
-            # by the same operator RL (on the sample grid already)
-            r_resp = rescan_fusion(
-                multi_orientation_rescan(delta, lp_run, rescan_geom, angles,
-                                         device=dev),
-                lp_run, rescan_geom, angles_static, fusion_iters,
-                accelerate=fusion_accelerate)
-            rows["rescan"].append(dict(
-                rows["line"][-1], image=rimg, profiles=_centre(r_resp),
-                frc_resolution=(frc_resolution(rimg, rescan_image(1))
-                                if frc else None)))
+            with span("rls.sweep.rescan"):
+                rimg = rescan_image(0)
+                # the achieved resolution: a point source's canvases
+                # restored by the same operator RL (on the sample grid
+                # already)
+                r_resp = rescan_fusion(
+                    multi_orientation_rescan(delta, lp_run, rescan_geom,
+                                             angles, device=dev),
+                    lp_run, rescan_geom, angles_static, fusion_iters,
+                    accelerate=fusion_accelerate)
+                rows["rescan"].append(dict(
+                    rows["line"][-1], image=rimg, profiles=_centre(r_resp),
+                    frc_resolution=(frc_resolution(rimg, rescan_image(1))
+                                    if frc else None)))
         elif rescan_geom is not None:
             def rescan_image(k):
                 return rescanned_line_sted_image(
                     sample, lp_run, rescan_geom, draw("rescan", i, k),
                     device=dev).image
 
-            rimg = rescan_image(0)
-            cx = cy = None
-            if frc:
-                # the canvas is anisotropic (x magnified R/b, y shrunk
-                # b): per-axis sectored FRC, each rescaled by its factor
-                cx, cy = frc_sectored_resolution(rimg, rescan_image(1))
-                cx, cy = cx * b / r, cy * b
-            rows["rescan"].append(dict(
-                rows["line"][-1], image=rimg,
-                profiles=_centre(analytic.rescan_system_kernel(
-                    rescan_geom, lp, dev)), frc_resolution=None,
-                frc_resolution_x=cx, frc_resolution_y=cy))
+            with span("rls.sweep.rescan"):
+                rimg = rescan_image(0)
+                cx = cy = None
+                if frc:
+                    # the canvas is anisotropic (x magnified R/b, y shrunk
+                    # b): per-axis sectored FRC, each rescaled by its factor
+                    cx, cy = frc_sectored_resolution(rimg, rescan_image(1))
+                    cx, cy = cx * b / r, cy * b
+                rows["rescan"].append(dict(
+                    rows["line"][-1], image=rimg,
+                    profiles=_centre(analytic.rescan_system_kernel(
+                        rescan_geom, lp, dev)), frc_resolution=None,
+                    frc_resolution_x=cx, frc_resolution_y=cy))
 
     # sample pixels: ISM's canvas is magnified by R; the rescan canvas's x
     # by R/b, its y shrunk by b (the fused rescan image is on the sample

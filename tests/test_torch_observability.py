@@ -172,13 +172,49 @@ NESTING = {
               "rls.k2c": ("rls.sweep.point", "rls.sweep.line"),
               "rls.sweep.columns": "rls.sweep",
               "rls.host_table": "rls.sweep.columns"},
+    # the report's four-arm fused sweep with FRC (two powers: the rescan
+    # arm's two canvas plans stay cached, so a steady call builds none)
+    "fused": {"rls.sweep": None, "rls.sweep.generators": "rls.sweep",
+              "rls.read_back": "rls.sweep.generators",
+              "rls.sweep.ledgers": "rls.sweep",
+              "rls.sweep.point": "rls.sweep",
+              "rls.sweep.line": "rls.sweep",
+              "rls.sweep.ism": "rls.sweep",
+              "rls.sweep.rescan": "rls.sweep",
+              "rls.fusion.rl": ("rls.sweep.point", "rls.sweep.line",
+                                "rls.sweep.ism"),
+              "rls.fusion.operator": "rls.sweep.rescan",
+              "rls.fusion.build": "rls.sweep.rescan",
+              "rls.frc": ("rls.sweep.point", "rls.sweep.line",
+                          "rls.sweep.ism", "rls.sweep.rescan"),
+              "rls.k2c": ("rls.sweep.point", "rls.sweep.line",
+                          "rls.sweep.ism", "rls.sweep.rescan"),
+              "rls.image.tables": "rls.sweep.rescan",
+              "rls.image.products": ("rls.sweep.rescan",
+                                     "rls.fusion.operator"),
+              "rls.sweep.columns": "rls.sweep",
+              "rls.host_table": ("rls.sweep.line", "rls.sweep.ism",
+                                 "rls.sweep.rescan", "rls.fusion.build",
+                                 "rls.sweep.columns")},
 }
 # (read-backs, host tables) per call, from the code's sites: none in a
 # steady rescan call (K1's classes are checked on the host and every table
 # is in the entry's plan); the sweep's seed table, and three host columns
-# per arm plus the powers and the budget
+# per arm plus the powers and the budget. The fused sweep at B = 2 powers:
+# the seed table; 3 host columns for each of its 4 arms plus the powers
+# and the budget (14), and for each power 22 trig and phase tables: the
+# line arm's 6 (two acquisitions, each rotating the sample, its views and
+# its kernels), ISM's 10 (the detection phases of its canvas, of each of
+# its two deconvolutions' kernels, of the point source's canvas and of its
+# deconvolution's kernel, two each), the rescan arm's 3 acquisition
+# rotations and the 3 rotations its operators build: 14 + 22 * 2 = 58
 COUNTS = {"per_step": (0, 0), "nufft": (0, 0), "analytic": (0, 0),
-          "sweep": (1, 8)}
+          "sweep": (1, 8), "fused": (1, 58)}
+# spans per fused sweep at B = 2 powers: for each power the rescan arm
+# fuses three times (its two acquisitions and the point source's
+# canvases), each through an operator that builds its rotation once: 3 *
+# 2 builds; each of the 4 arms takes one FRC per power: 4 * 2
+FUSED = {"rls.fusion.build": 3 * 2, "rls.frc": 4 * 2}
 
 
 def _spanned_call(path):
@@ -193,13 +229,28 @@ def _spanned_call(path):
         RescanGeometry,
         rescanned_line_sted_image,
     )
+    from rescan_line_sted_torch.config import RescanPointGeometry
     from rescan_line_sted_torch.sweeps import dose_matched_sweep
 
     line = LineSTEDParams.create(sigma_exc=3.0, sigma_det=3.0,
                                  stripe_period=12.0, depletion=8.0,
                                  slit_halfwidth=4.0, brightness=1.0)
     gen = torch.Generator().manual_seed(7)
-    if path == "sweep":
+    if path == "fused":
+        grid = Grid(32, 32)
+        sample = torch.rand(32, 32, generator=gen)
+
+        def call():
+            return dose_matched_sweep(
+                sample, PointSTEDParams.create(brightness=1.0),
+                LineSTEDParams.create(brightness=1.0),
+                PointSTEDGeometry(grid), LineSTEDGeometry(grid), [0.0, 4.0],
+                100.0, generator=gen, orientations=2,
+                rescan_geom=RescanGeometry(grid, rescan_factor=2.0),
+                fuse_orientations=True, fusion_iters=2,
+                ism_geom=RescanPointGeometry(grid, rescan_factor=2.0),
+                frc=True, device="cpu")
+    elif path == "sweep":
         grid = Grid(64, 64)
         point = PointSTEDParams.create(sigma_exc=3.0, sigma_det=3.0,
                                        sigma_dep=3.0, pinhole_radius=4.0,
@@ -290,8 +341,9 @@ def test_span_lands_in_the_profilers_trace(form):
 
 @pytest.mark.parametrize("path", sorted(NESTING))
 def test_port_spans_nest_as_listed(path):
-    """A steady CPU call of each rescan mode and a two-power sweep emits
-    the spans of its path, each inside the span its stage belongs to."""
+    """A steady CPU call of each rescan mode, a two-power sweep and a
+    two-power fused four-arm sweep emits the spans of its path, each inside
+    the span its stage belongs to."""
     found = _port_spans(path)
     want = NESTING[path]
     assert {name for name, _ in found} == set(want)
@@ -305,6 +357,11 @@ def test_port_counters_count_the_codes_sites(path):
     found = [name for name, _ in _port_spans(path)]
     assert (found.count("rls.read_back"),
             found.count("rls.host_table")) == COUNTS[path]
+
+
+def test_fused_sweep_counts_operator_builds_and_frcs():
+    found = [name for name, _ in _port_spans("fused")]
+    assert {name: found.count(name) for name in FUSED} == FUSED
 
 
 def test_setup_holds_import_and_library(monkeypatch):
