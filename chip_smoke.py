@@ -1041,14 +1041,20 @@ def k1_inputs(case, dev):
 
 
 def k1_counts(args, kw) -> dict:
-    """K1's work on these inputs: the convolution's fp32 FMAs (on the
-    tensor cores, three TF32 passes each), the spreading taps' FMAs (FFMA)
-    and the frame elements it places."""
+    """K1's work on these inputs: the convolution's fp32 FMAs over each
+    frame's band (on the tensor cores, three TF32 passes each: 32 rows x 8
+    columns x H/b lanes a group-k-step, ``band_k_steps``), the spreading
+    taps' FMAs (FFMA) and the frame elements it places."""
+    from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+        band_k_steps)
+
     sample_y = args[0]
     h, w = sample_y.shape
     b = kw.get("binning", 1)
     dob, hb = kw["d_out"] // b, h // b
-    n = {"tc_fma": w * dob * kw["d_in"] * hb, "conv_fma": 0,
+    steps = band_k_steps(kw["d_in"], dob, kw["chunk"], b,
+                         kw.get("supports"))[0]
+    n = {"tc_fma": w // kw["chunk"] * steps * 32 * 8 * hb, "conv_fma": 0,
          "placed": w * dob * hb}
     if "spread_weights" in kw:
         taps = kw["spread_weights"].shape[1]          # 2 parities x n_spread
@@ -1093,7 +1099,7 @@ def phase_k1(dev) -> dict:
         rescan_banded_fused, rescan_banded_fused_reference)
 
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
-        LAUNCH_SHAPE)
+        LAUNCH_SHAPE, band_k_steps)
 
     worst = {}
     for case in K1_CASES:
@@ -1113,6 +1119,16 @@ def phase_k1(dev) -> dict:
             f"{json.dumps(LAUNCH_SHAPE[mode])}")
         check(got.shape == want.shape and rel <= 1e-5,
               f"K1 {mode} vs plain at {case}: rel err {rel}")
+        steps, whole = band_k_steps(kw["d_in"], kw["d_out"] // case[2],
+                                    kw["chunk"], case[2], kw["supports"])
+        shape = LAUNCH_SHAPE[mode]
+        log(f"K1 {mode} band at {case}: supports {kw['supports']}, "
+            f"{steps} of {whole} group-k-steps a chunk "
+            f"(band_share {shape['band_share']:.4f})")
+        check(shape["band_k_steps"] == steps
+              and shape["band_share"] == steps / whole,
+              f"K1 {mode} at {case}: recorded band {shape} is not the "
+              f"host's {steps} / {whole}")
         w0 = worst.setdefault(mode, {"abs": 0.0, "rel": 0.0})
         worst[mode] = {"abs": max(w0["abs"], err), "rel": max(w0["rel"], rel)}
         # the same key twice: the same canvas bit for bit
@@ -1838,9 +1854,10 @@ def caller_frames(module, run, sampler="poisson_rows_tiered") -> torch.Tensor:
 
 def k1_frames(args, kw) -> torch.Tensor:
     """Every camera frame K1 samples in one image (K2a's rates), [W / C,
-    C * dob, H]: the conv table times each chunk's sample window."""
+    C * dob, H]: the conv table on its band times each chunk's sample
+    window."""
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
-        _sample_ext, banded_plan)
+        _sample_ext, banded_plan, banded_table)
 
     sample_y = args[0]
     h, w = sample_y.shape
@@ -1848,7 +1865,7 @@ def k1_frames(args, kw) -> torch.Tensor:
     plan = banded_plan(*args[1:], **kw)
     sample_ext = _sample_ext(sample_y, d_in, chunk)
     check(kw.get("binning", 1) == 1, "K2a's frames: the flagship has b = 1")
-    table = (plan.g0w[None] * plan.ill_w[:, None, :]).reshape(-1, d_in)
+    table = banded_table(plan)
     win = sample_ext.unfold(0, d_in, chunk)[: w // chunk]   # [n, H, d_in]
     return table @ win.transpose(1, 2)
 

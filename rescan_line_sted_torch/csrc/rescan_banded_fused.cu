@@ -34,6 +34,16 @@
 // accumulate apart from the large ones, so the tensor cores' rounding of
 // the sums costs ~1e-6 at D_in = 256, where one accumulator for all three
 // would cost several times that).
+// The band. Position c lights only the window columns within s_exc of its
+// centre s_in + c, and G[d, u] is nonzero only within s_det of its diagonal
+// (|u - s_out - d + s_in| <= s_det): the supports (K1Args s_exc, s_det, in
+// window columns; -1 for the whole window) that imaging/rescan.py sizes the
+// windows by before rounding them up to 128. So a warp's 32 rows multiply
+// only over the 8-aligned run of columns that both reach (band_run): 560
+// of 2048 group-k-steps a chunk at the flagship (17.5 of 64 a position).
+// What it leaves out is below both profiles' supports: in float64 at most
+// 8.3e-16 of the conv table's peak at the flagship (9.0e-13 at sigma_exc =
+// 8), eight orders under float32's resolution.
 // A warp takes 32 frame rows (four n8 tiles) of one frame: per k-step of 8
 // it forms its A fragment (four window values times two ill values, split)
 // once for the four tiles, and each tile's B fragment (two G values,
@@ -73,11 +83,12 @@
 // synchronously, placement scalars read from device memory. The host bound
 // (kernels/rescan_banded_fused.py banded_fits) is that layout's bytes.
 //
-// Bound on the card: the three TF32 passes on the tensor cores (3 x 68.7 G
-// FMA per 2048^2 image at D_in = dob = 128: 0.83 ms at 495 TFLOP/s,
-// against 2.05 ms for the same product in fp32 FFMA), the spreading taps
-// in FFMA (4.3 G), the Philox draws of the sampler and the canvas
-// read-modify-write (L2-resident).
+// Bound on the card: the three TF32 passes on the tensor cores over the
+// band (27% of the whole windows' 68.7 G FMA per 2048^2 image at D_in =
+// dob = 128: 3 x 18.8 G, 0.23 ms at 495 TFLOP/s, against 0.56 ms for the
+// same product in fp32 FFMA), the spreading taps in FFMA (4.3 G), the
+// Philox draws of the sampler and the canvas read-modify-write
+// (L2-resident).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -104,6 +115,7 @@ struct K1Args {
   const float* wt;          // [W, 2 * n_spread] window taps (spreading)
   float* out;               // [q, wc, H/b]
   int h, w, chunk, d_in, dob, b, q, wc, n_spread, noisy;
+  int s_exc, s_det;          // the band's half-widths (band_run), -1: whole window
   uint2 key;                 // the key words, unless key_dev holds them
   const long long* key_dev;  // null, or the two key words drawn on the card
 };
@@ -264,13 +276,38 @@ __device__ __forceinline__ void k_mma(float (&acc)[2][kTiles][4], const KOperand
   }
 }
 
+// The band of frame c's binned rows r0 .. r1: the 8-aligned run [k_lo,
+// k_hi) of window columns d that c lights (|d - s_in - c| <= s_exc) and
+// that one of those rows detects (unbinned rows u = b r0 .. b r1 + b - 1,
+// |u - s_out - d + s_in| <= s_det); a half-width of -1 takes the whole
+// window. An empty band gives k_lo = k_hi = 0. The host's band_runs
+// (kernels/rescan_banded_fused.py) is this formula.
+__device__ __forceinline__ void band_run(const K1Args& p, int c, int r0, int r1, int& k_lo,
+                                         int& k_hi) {
+  const int s_in = (p.d_in - p.chunk) / 2;
+  const int diag = s_in - (p.dob * p.b - p.chunk) / 2;  // s_in - s_out
+  int lo = 0, hi = p.d_in - 1;
+  if (p.s_exc >= 0) {
+    lo = max(lo, s_in + c - p.s_exc);
+    hi = min(hi, s_in + c + p.s_exc);
+  }
+  if (p.s_det >= 0) {
+    lo = max(lo, p.b * r0 + diag - p.s_det);
+    hi = min(hi, p.b * r1 + p.b - 1 + diag + p.s_det);
+  }
+  k_lo = lo > hi ? 0 : lo & ~7;
+  k_hi = lo > hi ? 0 : min((hi | 7) + 1, p.d_in);
+}
+
 // The warp's 32 frame rows r0 .. r0 + 31 of one frame (illumination il)
 // into the ring rows f (16 lanes each, fs floats apart), in three TF32
-// passes.
+// passes over the band's k-steps [k_lo, k_hi) (k_lo a multiple of 8);
+// the products outside it are left out.
 template <bool kGen>
 __device__ __forceinline__ void group_mma(float* f, int fs, const float* win, int ws,
                                           const float* il, const float* g_s, int gs, int d_in,
-                                          int dob, int b, int r0, int grp, int tig) {
+                                          int dob, int b, int r0, int k_lo, int k_hi, int grp,
+                                          int tig) {
   float acc[2][kTiles][4];
   const float* gcol[kTiles];
 #pragma unroll
@@ -281,13 +318,14 @@ __device__ __forceinline__ void group_mma(float* f, int fs, const float* win, in
     for (int j = 0; j < 4; ++j) acc[0][t][j] = acc[1][t][j] = 0.0f;
   }
   const int d_full = d_in & ~7;
+  const int k_full = min(k_hi, d_full);
   KOperands cur;
 #pragma unroll 2
-  for (int k0 = 0; k0 < d_full; k0 += 8) {
+  for (int k0 = k_lo; k0 < k_full; k0 += 8) {
     k_load<kGen, false>(cur, win, ws, il, gcol, gs, k0, d_in, grp, tig);
     k_mma(acc, cur);
   }
-  if (d_full < d_in) {
+  if (d_full < k_hi) {
     k_load<kGen, true>(cur, win, ws, il, gcol, gs, d_full, d_in, grp, tig);
     k_mma(acc, cur);
   }
@@ -300,6 +338,21 @@ __device__ __forceinline__ void group_mma(float* f, int fs, const float* win, in
     row[grp + 8] = acc[0][t][2] + acc[1][t][2];
     row[fs + grp + 8] = acc[0][t][3] + acc[1][t][3];
   }
+}
+
+// The 32-row group of the pass that warp task `task` takes. The band's
+// length follows a group's depth in its frame (at the flagship 2.5, 6.5,
+// 6 and 2.5 k-steps on average), and a pass's warps w share scheduler
+// w % 4; with frames of four groups (dobp = 128) task order would give
+// each scheduler one depth, so there each block of four is rotated by its
+// index and each scheduler takes all four (a last partial block as is).
+// Frames of other depths already mix depths on each scheduler. Class
+// placement only: in the spreading mode the rotation measured slower
+// (4.76 against 4.47 ms at the irrational flagship, noisy).
+template <bool kSpread>
+__device__ __forceinline__ int pass_group(int task, int n_groups, int dobp) {
+  const bool rotate = !kSpread && dobp == 4 * kGroupRows && (task | 3) < n_groups;
+  return rotate ? (task & ~3) | ((task + (task >> 2)) & 3) : task;
 }
 
 // K2a's draws on one frame row of the ring (16 lanes, in place): element
@@ -625,13 +678,18 @@ rescan_banded_fused_kernel(const K1Args p, const Layout L) {
       const int end = min(first + kPassRows, rows_used);
       // Each warp convolves whole 32-row groups and, in a noisy run, draws
       // their rows itself (one row a lane), so no barrier parts the two.
-      for (int g = warp; g < (end - first) / kGroupRows; g += kWarps) {
+      const int n_groups = (end - first) / kGroupRows;
+      for (int task = warp; task < n_groups; task += kWarps) {
+        const int g = pass_group<kSpread>(task, n_groups, dobp);
         const int row = first + g * kGroupRows;
         const int c = row / dobp;
+        const int r0 = row - c * dobp;
         float* f = f_s + g * kGroupRows * fs;
         // [phase convolution]
-        group_mma<kGen>(f, fs, win, L.ws, i_s + c * d_in, g_s, L.gs, d_in, dob, b,
-                        row - c * dobp, grp, tig);
+        int k_lo, k_hi;
+        band_run(p, c, r0, min(r0 + kGroupRows, dob) - 1, k_lo, k_hi);
+        group_mma<kGen>(f, fs, win, L.ws, i_s + c * d_in, g_s, L.gs, d_in, dob, b, r0, k_lo,
+                        k_hi, grp, tig);
         // [end convolution]
         // [phase draws]
         if (p.noisy) {
@@ -685,14 +743,15 @@ extern "C" int rls_rescan_banded_fused_smem(int d_in, int dob, int chunk, int b,
 // bound banded_fits keeps such windows away); info[1] its bytes of shared
 // memory per CTA, info[2] the CTAs, info[3] the CTAs an SM runs at once,
 // info[4] the threads per CTA. n_spread > 0 selects NUFFT spreading
-// placement (q must be 2).
+// placement (q must be 2). s_exc / s_det: the band's half-widths in window
+// columns (band_run), -1 for the whole window.
 extern "C" int rls_rescan_banded_fused(const float* g_t, const float* ill,
                                        const float* sample_ext, const int* sa_lo,
                                        const int* sa_hi, const int* m0,
                                        const int* cls, const float* wt, float* out,
                                        int h, int w, int chunk, int d_in, int dob,
                                        int b, int q, int wc, int n_spread, int noisy,
-                                       unsigned seed0, unsigned seed1,
+                                       int s_exc, int s_det, unsigned seed0, unsigned seed1,
                                        const long long* key_dev, void* stream, int* info) {
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -714,7 +773,7 @@ extern "C" int rls_rescan_banded_fused(const float* g_t, const float* ill,
   if (info[0] < 0) return 0;
   info[1] = static_cast<int>(layout_bytes(L));
   const K1Args a{g_t, ill, sample_ext, sa_lo, sa_hi, m0, cls, wt, out,
-                 h, w, chunk, d_in, dob, b, q, wc, n_spread, noisy,
+                 h, w, chunk, d_in, dob, b, q, wc, n_spread, noisy, s_exc, s_det,
                  make_uint2(seed0, seed1), key_dev};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_spread) {

@@ -15,9 +15,11 @@ Methods:
 * ``"scan"``: the per-scan-position process. Where band windows exist
   (``_illum_band``) it runs on the banded route: the y-convolution is
   hoisted out of the loop, then ONE call of the banded fused scan (kernel
-  K1 on the card) convolves, samples (``noise_mode="per_step"``) and
-  places every frame. ``reassignment="rounded"`` snaps each offset to the
-  nearest binned canvas pixel; ``"subpixel"`` places a rational step
+  K1 on the card) convolves (each frame over its band: the window columns
+  within both profiles' supports, ``_band_supports``), samples
+  (``noise_mode="per_step"``) and places every frame.
+  ``reassignment="rounded"`` snaps each offset to the nearest binned
+  canvas pixel; ``"subpixel"`` places a rational step
   ``(R-1)/b = p/q`` (q <= 8, q | chunk) exactly through q class canvases
   whose fractional residues are applied once per image as spectral shifts,
   and any other step (irrational, or q > 8) through K1's NUFFT spreading
@@ -480,6 +482,18 @@ def _illum_band(params, w: int, chunk: int,
     return (d_in, d_out)
 
 
+def _band_supports(params) -> tuple[int, int]:
+    """``(s_exc, s_det)``: the support half-widths (px) that ``_illum_band``
+    sizes the windows by, the params' own where set; K1 convolves each
+    frame only where both reach (``rescan_banded_fused(supports=)``)."""
+    from rescan_line_sted_torch.config import _support
+
+    s_exc = getattr(params, "exc_support", None)
+    s_det = getattr(params, "det_support", None)
+    return (_support(params.sigma_exc) if s_exc is None else int(s_exc),
+            _support(params.sigma_det) if s_det is None else int(s_det))
+
+
 def _resolve_reassignment(geom, reassignment: str) -> str:
     """``reassignment`` with "auto" resolved: rounded exactly when every
     offset ``(R-1) x0 / b`` is integral."""
@@ -586,7 +600,7 @@ def _banded_tables(params, geom, reassignment, device) -> _Banded | None:
         psfs.detection_profile(h, params.sigma_det, device))
     gx = psfs.detection_profile(w, params.sigma_det, device)
     kwargs = dict(wc=wc, d_in=d_in, d_out=d_out, chunk=geom.chunk,
-                  binning=b)
+                  binning=b, supports=_band_supports(params))
     pos = torch.arange(w, device=device)
     class_bounds = None
     if pq is None:

@@ -57,7 +57,7 @@ _SIGNATURES = {
     "rls_poisson_rows_tiered": [_P, _P, _I, _I, _U, _U, _P, _P],
     "rls_poisson_flat": [_P, _P, _LL, _U, _U, _P, _I, _I, _P],
     "rls_sm_count": [_I, ctypes.POINTER(_I)],
-    "rls_rescan_banded_fused": [_P] * 9 + [_I] * 10 + [_U, _U, _P, _P,
+    "rls_rescan_banded_fused": [_P] * 9 + [_I] * 12 + [_U, _U, _P, _P,
                                                     ctypes.POINTER(_I)],
     "rls_rescan_banded_fused_smem": [_I] * 5 + [ctypes.POINTER(_LL)],
     "rls_line_sted_fused": [_P] * 6 + [_I] * 7 + [_U, _U, _P, _P,

@@ -8,7 +8,9 @@ placement modes. Per chunk of C scan positions the scan
 2. multiplies it by the chunk-invariant binned conv table
    ``[C, D_out/b, D_in]`` (illumination-scaled detection circulant window
    with the row binning folded in; the kernel keeps its two factors) and
-   bins ``b`` adjacent lanes,
+   bins ``b`` adjacent lanes; given the profiles' ``supports``, each
+   32-row group of a frame only over its band (``band_runs``), the window
+   columns both the illumination and the detection reach,
 3. optionally draws per-frame shot noise (K2a inside the kernel,
    ``torch.poisson`` in the plain version), and
 4. places every frame window. Integer and class placement adds it into
@@ -109,7 +111,9 @@ def kernel_smem_bytes(d_in: int, dob: int, chunk: int, binning: int = 1,
 
 # The launch shape of K1's last launch in each mode (LAUNCHES' names): the
 # layout (0 G resident, 1 generator, 2 generator with synchronous staging),
-# its bytes of shared memory per CTA, CTAs, CTAs per SM, threads per CTA
+# its bytes of shared memory per CTA, CTAs, CTAs per SM, threads per CTA,
+# the windows, and the band's group-k-steps a chunk and their share of the
+# whole windows' (``band_runs``)
 LAUNCH_SHAPE: dict[str, dict] = {}
 LAYOUTS = ("resident", "generator", "generator, synchronous staging")
 
@@ -138,8 +142,54 @@ def three_pass_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ah @ bh + (al @ bh + ah @ bl)
 
 
-def _check(w, *, wc, d_in, d_out, chunk, binning, n_spread=0):
-    """The JAX wrapper's argument guards (minus its TPU sub-row rule)."""
+_GROUP_ROWS = 32        # frame rows a warp's product takes (kGroupRows)
+
+
+def band_runs(d_in: int, dob: int, chunk: int, binning: int = 1,
+              supports: tuple[int, int] | None = None) -> torch.Tensor:
+    """The band K1 convolves (``band_run`` in ``csrc/rescan_banded_fused.cu``):
+    ``[C, ceil(dob / 32), 2]`` int64, for each position c of a chunk and
+    each 32-row group of its binned frame, the 8-aligned run ``[k_lo,
+    k_hi)`` of window columns that c lights (within ``s_exc`` of its
+    centre ``s_in + c``) and that a row of the group detects (unbinned
+    rows within ``s_det`` of the diagonal ``d = u + s_in - s_out``);
+    ``[0, 0)`` where the two miss each other. ``supports = (s_exc,
+    s_det)`` in window columns (px); None takes the whole window, as a
+    half-width of -1 does on its side in the kernel."""
+    s_exc, s_det = (-1, -1) if supports is None else supports
+    b = binning
+    s_in = (d_in - chunk) // 2
+    diag = s_in - (dob * b - chunk) // 2
+    c = torch.arange(chunk)[:, None]
+    r0 = torch.arange(0, dob, _GROUP_ROWS)[None, :]
+    r1 = (r0 + _GROUP_ROWS).clamp(max=dob) - 1
+    lo = torch.zeros(chunk, r0.shape[1], dtype=torch.int64)
+    hi = torch.full_like(lo, d_in - 1)
+    if s_exc >= 0:
+        lo, hi = lo.maximum(s_in + c - s_exc), hi.minimum(s_in + c + s_exc)
+    if s_det >= 0:
+        lo = lo.maximum(b * r0 + diag - s_det)
+        hi = hi.minimum(b * r1 + b - 1 + diag + s_det)
+    empty = lo > hi
+    k_lo = torch.where(empty, 0, lo // 8 * 8)
+    k_hi = torch.where(empty, 0, (hi // 8 * 8 + 8).clamp(max=d_in))
+    return torch.stack([k_lo, k_hi], -1)
+
+
+def band_k_steps(d_in: int, dob: int, chunk: int, binning: int = 1,
+                 supports: tuple[int, int] | None = None) -> tuple[int, int]:
+    """``(band, whole)``: the group-k-steps of 8 K1 issues a chunk on the
+    band (``band_runs``) and on the whole windows, ``C * ceil(dob / 32) *
+    ceil(d_in / 8)``."""
+    runs = band_runs(d_in, dob, chunk, binning, supports)
+    band = int(((runs[..., 1] - runs[..., 0] + 7) // 8).sum())
+    return band, chunk * -(-dob // _GROUP_ROWS) * -(-d_in // 8)
+
+
+def _check(w, *, wc, d_in, d_out, chunk, binning, n_spread=0,
+           supports=None):
+    """The JAX wrapper's argument guards (minus its TPU sub-row rule), and
+    the band's."""
     b = binning
     if d_out is None:
         raise ValueError("banded fused scan needs a frame window (d_out)")
@@ -152,6 +202,8 @@ def _check(w, *, wc, d_in, d_out, chunk, binning, n_spread=0):
         raise ValueError("binning must align the frame window")
     if ((d_out // b) + max(n_spread - 1, 0) + 7) // 8 * 8 + 8 > wc:
         raise ValueError("frame window wider than canvas")
+    if supports is not None and (len(supports) != 2 or min(supports) < 0):
+        raise ValueError("supports must be two half-widths >= 0, or None")
 
 
 def _spread_args(w, classes, q, spread_weights, offsets2):
@@ -179,7 +231,9 @@ class BandedPlan:
     table (module doc); the placement scalars ``sa_lo`` / ``sa_hi``
     (``[W]`` canvas starts, or ``[2, W]`` per parity in NUFFT mode), ``m0``
     (``[W / C]``) and ``cls`` (``[W]``); the spreading taps ``taps`` (NUFFT
-    mode, else None); and the shape they were built for."""
+    mode, else None); the shape they were built for; and the band
+    ``supports`` (None: the whole windows) with its group-k-steps a chunk
+    and their share of the whole windows' (``band_k_steps``)."""
 
     w: int
     wc: int
@@ -197,6 +251,9 @@ class BandedPlan:
     m0: torch.Tensor
     cls: torch.Tensor
     taps: torch.Tensor | None
+    supports: tuple[int, int] | None
+    band_k_steps: int
+    band_share: float
 
 
 def banded_plan(eff_scaled: torch.Tensor, gx: torch.Tensor,
@@ -206,6 +263,7 @@ def banded_plan(eff_scaled: torch.Tensor, gx: torch.Tensor,
                 spread_weights: torch.Tensor | None = None,
                 offsets2: torch.Tensor | None = None,
                 class_bounds: tuple[int, int] | None = None,
+                supports: tuple[int, int] | None = None,
                 device=None) -> BandedPlan:
     """K1's tables for these arguments of ``rescan_banded_fused``, built
     on ``device`` (None: ``eff_scaled``'s) with floor division and
@@ -216,7 +274,7 @@ def banded_plan(eff_scaled: torch.Tensor, gx: torch.Tensor,
     w = eff_scaled.shape[-1]
     n_spread, q = _spread_args(w, classes, q, spread_weights, offsets2)
     _check(w, wc=wc, d_in=d_in, d_out=d_out, chunk=chunk, binning=binning,
-           n_spread=n_spread)
+           n_spread=n_spread, supports=supports)
     if int_offsets.shape != (w,) or (classes is not None
                                      and classes.shape != (w,)):
         raise ValueError("int_offsets and classes need one entry per column")
@@ -247,6 +305,9 @@ def banded_plan(eff_scaled: torch.Tensor, gx: torch.Tensor,
     sa_hi = torch.remainder(sa_lo - wb, wc)
     cls = (torch.zeros(w, dtype=torch.int32, device=dev) if classes is None
            else classes.to(dev, torch.int32))
+    if supports is not None:
+        supports = (int(supports[0]), int(supports[1]))
+    steps, whole = band_k_steps(d_in, dob, chunk, b, supports)
     return BandedPlan(
         w=w, wc=wc, d_in=d_in, d_out=d_out, chunk=chunk, binning=b, q=q,
         n_spread=n_spread, g0w=g0w,
@@ -254,7 +315,8 @@ def banded_plan(eff_scaled: torch.Tensor, gx: torch.Tensor,
         ill_w=ill_w.contiguous(), sa_lo=sa_lo.to(torch.int32),
         sa_hi=sa_hi.to(torch.int32), m0=m0, cls=cls,
         taps=(None if spread_weights is None
-              else spread_weights.to(dev).contiguous()))
+              else spread_weights.to(dev).contiguous()),
+        supports=supports, band_k_steps=steps, band_share=steps / whole)
 
 
 def _plan_of(plan, sample_y, eff_scaled, gx, int_offsets, **kw):
@@ -263,13 +325,33 @@ def _plan_of(plan, sample_y, eff_scaled, gx, int_offsets, **kw):
     if plan is None:
         plan = banded_plan(eff_scaled, gx, int_offsets,
                            device=sample_y.device, **kw)
-    got = (plan.w, plan.wc, plan.d_in, plan.d_out, plan.chunk, plan.binning)
+    supports = kw["supports"]
+    got = (plan.w, plan.wc, plan.d_in, plan.d_out, plan.chunk, plan.binning,
+           plan.supports)
     want = (sample_y.shape[1], kw["wc"], kw["d_in"], kw["d_out"],
-            kw["chunk"], kw["binning"])
+            kw["chunk"], kw["binning"],
+            None if supports is None else tuple(map(int, supports)))
     if got != want:
-        raise ValueError(f"plan built for (W, wc, d_in, d_out, chunk, b) = "
-                         f"{got}, called with {want}")
+        raise ValueError(f"plan built for (W, wc, d_in, d_out, chunk, b, "
+                         f"supports) = {got}, called with {want}")
     return plan
+
+
+def banded_table(plan: BandedPlan) -> torch.Tensor:
+    """The plain version's binned conv table ``[C * dob, D_in]``: ``g0w``
+    times ``ill_w``, row-binned, zero outside the plan's band
+    (``band_runs``), in the plan's dtype."""
+    c, b, d_in = plan.chunk, plan.binning, plan.d_in
+    dob = plan.d_out // b
+    table = (plan.g0w[None] * plan.ill_w[:, None, :]).reshape(
+        c * dob, b, d_in).sum(1)
+    if plan.supports is None:
+        return table
+    runs = band_runs(d_in, dob, c, b, plan.supports).to(table.device)
+    runs = runs[:, torch.arange(dob, device=table.device) // _GROUP_ROWS]
+    d = torch.arange(d_in, device=table.device)
+    keep = (d >= runs[..., :1]) & (d < runs[..., 1:])            # [C, dob, Di]
+    return torch.where(keep.reshape(c * dob, d_in), table, 0.0)
 
 
 def _sample_ext(sample_y: torch.Tensor, d_in: int, chunk: int
@@ -291,24 +373,25 @@ def rescan_banded_fused_reference(
     q: int = 1, generator: torch.Generator | None = None,
     spread_weights: torch.Tensor | None = None,
     offsets2: torch.Tensor | None = None,
+    supports: tuple[int, int] | None = None,
     plan: BandedPlan | None = None,
 ) -> torch.Tensor:
-    """Plain torch version of K1: one batched matmul per chunk,
-    ``torch.poisson`` when ``generator`` is given, ``index_add_``
-    placement (after per-parity spreading in NUFFT mode). Same arguments
-    and result as ``rescan_banded_fused``."""
+    """Plain torch version of K1: one batched matmul per chunk (its conv
+    table zero outside the band, ``banded_table``), ``torch.poisson`` when
+    ``generator`` is given, ``index_add_`` placement (after per-parity
+    spreading in NUFFT mode). Same arguments and result as
+    ``rescan_banded_fused``."""
     h, w = sample_y.shape
     plan = _plan_of(plan, sample_y, eff_scaled, gx, int_offsets, wc=wc,
                     d_in=d_in, d_out=d_out, chunk=chunk, binning=binning,
                     classes=classes, q=q, spread_weights=spread_weights,
-                    offsets2=offsets2)
+                    offsets2=offsets2, supports=supports)
     q, n_spread = plan.q, plan.n_spread
     sa_lo, sa_hi, m0, cls = plan.sa_lo, plan.sa_hi, plan.m0, plan.cls
     b = binning
     hb, dob = h // b, d_out // b
     sample_ext = _sample_ext(sample_y, d_in, chunk)
-    table = (plan.g0w[None] * plan.ill_w[:, None, :]).reshape(
-        chunk * dob, b, d_in).sum(1)                             # [C*dob, Di]
+    table = banded_table(plan)                                   # [C*dob, Di]
     dev = sample_y.device
     r = torch.arange(dob, device=dev)
     out = torch.zeros(q * wc, hb, dtype=torch.float32, device=dev)
@@ -354,6 +437,7 @@ def rescan_banded_fused(
     spread_weights: torch.Tensor | None = None,
     offsets2: torch.Tensor | None = None,
     key=None,
+    supports: tuple[int, int] | None = None,
     plan: BandedPlan | None = None,
 ) -> torch.Tensor:
     """Banded fused rescan scan over all W column positions (module doc).
@@ -375,6 +459,12 @@ def rescan_banded_fused(
     per-parity integer offsets. Then ``q`` is 2 (the parity canvases),
     ``classes`` must be None and ``int_offsets`` is ignored.
 
+    ``supports = (s_exc, s_det)``: the half-widths (px) beyond which the
+    illumination and the detection profile are taken as zero
+    (``imaging.rescan._band_supports``); each frame is then convolved only
+    over its band (``band_runs``: per 32-row group, the 8-aligned run of
+    window columns where both reach). None convolves the whole windows.
+
     ``plan``: K1's tables built from these same arguments
     (``banded_plan``), which the call then takes as they are, reading only
     ``sample_y`` of its tensors; None builds them here, and refuses
@@ -393,13 +483,15 @@ def rescan_banded_fused(
             sample_y, eff_scaled, gx, int_offsets, wc=wc, d_in=d_in,
             d_out=d_out, chunk=chunk, binning=binning, classes=classes, q=q,
             generator=generator if key is None else _build.key_generator(key),
-            spread_weights=spread_weights, offsets2=offsets2, plan=plan)
+            spread_weights=spread_weights, offsets2=offsets2,
+            supports=supports, plan=plan)
     with span("rls.k1"):   # the plan where none is given, key words, launch
         h, w = sample_y.shape
         plan = _plan_of(plan, sample_y, eff_scaled, gx, int_offsets, wc=wc,
                         d_in=d_in, d_out=d_out, chunk=chunk,
                         binning=binning, classes=classes, q=q,
-                        spread_weights=spread_weights, offsets2=offsets2)
+                        spread_weights=spread_weights, offsets2=offsets2,
+                        supports=supports)
         q, n_spread = plan.q, plan.n_spread
         b = binning
         hb, dob = h // b, d_out // b
@@ -417,7 +509,8 @@ def rescan_banded_fused(
             plan.sa_lo.data_ptr(), plan.sa_hi.data_ptr(), plan.m0.data_ptr(),
             plan.cls.data_ptr(), taps[0].data_ptr() if taps else None,
             out.data_ptr(), h, w, chunk, d_in, dob, b, q, wc, n_spread,
-            int(generator is not None or key is not None), s0, s1,
+            int(generator is not None or key is not None),
+            *(plan.supports or (-1, -1)), s0, s1,
             None if keys is None else keys.data_ptr(),
             _build.stream_handle(sample_y.device), info)
         _build.check(code, "rescan_banded_fused")
@@ -434,5 +527,7 @@ def rescan_banded_fused(
         LAUNCH_SHAPE[name] = {
             "layout": LAYOUTS[info[0]], "smem_bytes": info[1],
             "ctas": info[2], "ctas_per_sm": info[3], "threads": info[4],
-            "d_in": d_in, "dob": dob, "chunk": chunk, "binning": b}
+            "d_in": d_in, "dob": dob, "chunk": chunk, "binning": b,
+            "band_k_steps": plan.band_k_steps,
+            "band_share": plan.band_share}
         return out

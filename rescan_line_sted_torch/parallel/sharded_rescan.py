@@ -307,6 +307,7 @@ def rescanned_line_sted_sharded(
     sample_y = y_convolve_block(ext, ker, h_loc).contiguous()
 
     kw = dict(wc=wc, d_in=d_in, d_out=d_out, chunk=chunk, binning=b,
+              supports=engine._band_supports(params),
               key=key if per_step else None)
     pos = torch.arange(w, device=dev)
     if nufft:

@@ -141,6 +141,8 @@ def main(argv=None) -> int:
     g_t, ill_w, sa_lo, sa_hi, m0, cls = (plan.g_t, plan.ill_w, plan.sa_lo,
                                          plan.sa_hi, plan.m0, plan.cls)
     sample_ext = _sample_ext(sample_y, d_in, chunk)
+    # the scan's band as K1 takes it (a tree whose K1 has no band: none)
+    band = (plan.supports or (-1, -1)) if hasattr(plan, "supports") else ()
     out = torch.empty((q, wc, h // b), device=dev)
     info = (ctypes.c_int * 5)()
     res = {"label": args.label, "tree": tree, "mode": args.mode,
@@ -153,7 +155,7 @@ def main(argv=None) -> int:
                           sa_hi.data_ptr(), m0.data_ptr(), cls.data_ptr(),
                           None if taps is None else taps.data_ptr(),
                           out.data_ptr(), h, w, chunk, d_in, dob, b, q, wc,
-                          n_spread, noisy, 1, 2, None,
+                          n_spread, noisy, *band, 1, 2, None,
                           _build.stream_handle(dev), info)
                 _build.check(code, name)
             key = f"{'noisy' if noisy else 'noise_free'} {name}"

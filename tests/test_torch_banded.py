@@ -267,3 +267,141 @@ def test_three_pass_split_holds_the_parity_bar(d_in, dob):
     bits = torch.cat([hi, lo]).view(torch.int32) & 0x1FFF
     assert not bits.any()
     assert _rel(hi.double() + lo.double(), a.double()) <= 2.0 ** -20
+
+
+# ---- K1's band: each frame only where illumination and detection reach ------
+
+# (size, R, b, sigma_exc) of the scan's cells: the flagship, the irrational
+# R (NUFFT spreading), binning 2 and the wide window (D_in = D_out = 256)
+BAND_CELLS = {"flagship": (2048, 1.5, 1, 3.0),
+              "irrational": (2048, 1.0 + np.pi / 16, 1, 3.0),
+              "binning2": (512, 3.0, 2, 3.0),
+              "wide": (2048, 1.5, 1, 8.0)}
+
+
+def _band_cell(name, **changes):
+    """The params and geometry of one band cell, and the entry's K1 tables
+    for them."""
+    import rescan_line_sted_torch as T
+    from rescan_line_sted_torch.imaging import rescan as trescan
+
+    size, rf, b, sigma_exc = BAND_CELLS[name]
+    params = T.LineSTEDParams.create(
+        sigma_exc=sigma_exc, sigma_det=3.0, stripe_period=12.0,
+        depletion=8.0, slit_halfwidth=4.0, brightness=1.0).replace(**changes)
+    geom = T.RescanGeometry(T.Grid(size, size), rescan_factor=rf, binning=b,
+                            chunk=32)
+    banded = trescan._banded_tables(
+        params, geom, trescan._resolve_reassignment(geom, "auto"), "cpu")
+    return params, geom, banded
+
+
+def _float64(plan, **changes):
+    import dataclasses
+
+    return dataclasses.replace(plan, g0w=plan.g0w.double(),
+                               ill_w=plan.ill_w.double(), **changes)
+
+
+@pytest.mark.parametrize("name", sorted(BAND_CELLS))
+def test_band_leaves_out_nothing_the_result_can_see(name):
+    """The banded conv table (zero outside each frame's band) stays within
+    1e-12 of the whole windows' table, in float64, relative to its peak;
+    the band keeps work only where the table has some (no 8-column block
+    of it is zero), so its count ``band_k_steps`` is the masked table's
+    nonzero blocks."""
+    from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+        banded_table)
+
+    plan = _float64(_band_cell(name)[2].k1)
+    band = banded_table(plan)
+    whole = banded_table(_float64(plan, supports=None))
+    assert float((band - whole).abs().max() / whole.abs().max()) <= 1e-12
+    c, dob = plan.chunk, plan.d_out // plan.binning
+    blocks = band.reshape(c, dob, -1, 8).ne(0).any(-1)         # [C, dob, Di/8]
+    groups = torch.nn.functional.pad(
+        blocks, (0, 0, 0, -dob % 32)).reshape(c, -1, 32, blocks.shape[-1])
+    assert int(groups.any(2).sum()) == plan.band_k_steps
+    whole_steps = c * -(-dob // 32) * -(-plan.d_in // 8)
+    assert plan.band_share == plan.band_k_steps / whole_steps
+    if name in ("flagship", "irrational"):      # 17.5 of 64 a position
+        assert plan.band_k_steps == 560 and whole_steps == 2048
+
+
+@pytest.mark.parametrize("exc,det", [(None, None), (20, 30)])
+def test_banded_tables_pass_the_params_supports(exc, det):
+    """The entry's K1 tables carry the supports ``_illum_band`` sizes the
+    windows by: the params' own where set, else ``config._support`` of
+    their widths; its plan's band is that one."""
+    from rescan_line_sted_torch.config import _support
+
+    params, _, banded = _band_cell("flagship", exc_support=exc,
+                                   det_support=det)
+    want = (_support(params.sigma_exc) if exc is None else exc,
+            _support(params.sigma_det) if det is None else det)
+    assert banded.kwargs["supports"] == banded.k1.supports == want
+
+
+def _indicator(w, half):
+    x = np.abs(np.arange(w) - w // 2)
+    return torch.from_numpy((x <= half).astype(np.float32))
+
+
+@pytest.mark.parametrize("d_in,d_out,chunk,b,s_exc,s_det", [
+    (128, 128, 32, 1, 24, 24), (128, 128, 32, 2, 24, 24),
+    (60, 76, 8, 2, 5, 3), (44, 100, 16, 1, 0, 9), (320, 320, 32, 1, 83, 83),
+    (36, 52, 8, 1, 30, 1), (128, 256, 32, 4, 2, 2)])
+def test_band_runs_cover_every_product_of_the_supports(d_in, d_out, chunk, b,
+                                                       s_exc, s_det):
+    """With profiles that are 1 within their supports and 0 beyond, the
+    plan's own tables say where a frame has products: each (position,
+    32-row group)'s run of ``band_runs`` is the 8-aligned hull of the
+    columns where its table is nonzero (``[0, 0)`` where it has none), so
+    the band's table equals the whole windows' exactly."""
+    from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+        band_runs, banded_plan, banded_table)
+
+    w = 512
+    plan = banded_plan(_indicator(w, s_exc), _indicator(w, s_det),
+                       torch.zeros(w, dtype=torch.int32), wc=w + 64,
+                       d_in=d_in, d_out=d_out, chunk=chunk, binning=b,
+                       supports=(s_exc, s_det))
+    whole = banded_table(_float64(plan, supports=None))
+    assert torch.equal(banded_table(_float64(plan)), whole)
+    dob = d_out // b
+    runs = band_runs(d_in, dob, chunk, b, (s_exc, s_det))
+    lit = whole.reshape(chunk, dob, d_in).ne(0)
+    for c in range(chunk):
+        for g in range(runs.shape[1]):
+            cols = torch.nonzero(lit[c, 32 * g:32 * g + 32].any(0)).flatten()
+            want = ((0, 0) if cols.numel() == 0 else
+                    (int(cols[0]) // 8 * 8,
+                     min(int(cols[-1]) // 8 * 8 + 8, d_in)))
+            assert tuple(runs[c, g].tolist()) == want, (c, g)
+
+
+def test_no_supports_convolve_the_whole_windows():
+    """``supports=None`` keeps today's plain K1: its table is the windows'
+    whole product, and its canvas equals, bit for bit, the one of a band
+    that covers every window column; the band's own canvas stays within
+    1e-5 of the JAX kernel, which has no band."""
+    from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+        banded_plan, banded_table)
+
+    a, kw = _case(2, 1, 1.5)
+    s, e, g, o, c = _torch_args(a)
+    plan = banded_plan(e, g, o, classes=c, **kw)
+    b, dob = kw["binning"], kw["d_out"] // kw["binning"]
+    assert plan.supports is None and plan.band_share == 1.0
+    assert torch.equal(banded_table(plan), (plan.g0w[None] * plan.ill_w[
+        :, None, :]).reshape(kw["chunk"] * dob, b, kw["d_in"]).sum(1))
+    none = rescan_banded_fused_reference(s, e, g, o, classes=c, **kw)
+    cover = rescan_banded_fused_reference(s, e, g, o, classes=c, **kw,
+                                          supports=(64, 64))
+    assert torch.equal(none, cover)
+    tight = rescan_banded_fused_reference(s, e, g, o, classes=c, **kw,
+                                          supports=(8, 8))
+    want = j_banded(jnp.asarray(a["sample"]), jnp.asarray(a["eff"]),
+                    jnp.asarray(a["gx"]), jnp.asarray(a["offsets"]),
+                    classes=jnp.asarray(a["classes"]), interpret=True, **kw)
+    assert not torch.equal(tight, none) and _rel(tight, want) <= 1e-5

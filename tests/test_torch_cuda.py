@@ -454,6 +454,108 @@ def test_banded_kernel_noise(cuda):
     assert abs(tot - ref) <= 5 * np.sqrt(ref)
 
 
+# K1 on its band (``supports``) against the banded plain version: case ->
+# (binning, placement, window d, supports). d = 128 takes the resident
+# layout, 320 a generator one (supports 83 = config._support(12)); the
+# tight supports cut products the canvas shows, so K1's runs must be the
+# host's ``band_runs`` to match
+BAND_CASES = {
+    "q1": (1, "q1", 128, (24, 24)), "q2": (1, "q2", 128, (24, 24)),
+    "q2_b2": (2, "q2", 128, (24, 24)), "spread": (1, "spread", 128, (24, 24)),
+    "spread_b2": (2, "spread", 128, (24, 24)),
+    "wide_q2": (1, "q2", 320, (83, 83)),
+    "wide_q1_b2": (2, "q1", 320, (83, 83)),
+    "wide_spread": (1, "spread", 320, (83, 83)),
+    "tight_q2": (1, "q2", 128, (6, 4)),
+    "tight_spread_b2": (2, "spread", 128, (5, 9)),
+    "tight_wide": (1, "q1", 320, (20, 11))}
+
+
+def _band_case(case, device):
+    b, placement, d, supports = BAND_CASES[case]
+    w = 512
+    sigma = 3.0 if d == 128 else 12.0
+    g = torch.Generator().manual_seed(d + b)
+    pos = torch.arange(w, device=device)
+    args = (torch.rand((64, w), generator=g).to(device),
+            _profile(w, sigma, device), _profile(w, sigma, device),
+            (pos // 2).int())
+    kw = dict(wc=w // b + 96, d_in=d, d_out=d, chunk=32, binning=b,
+              supports=supports)
+    if placement == "q2":
+        kw.update(classes=(pos % 2).int(), q=2)
+    if placement == "spread":
+        kw.update(_spread(w, 0.29, b, device))
+    return args, kw
+
+
+@pytest.mark.parametrize("case", sorted(BAND_CASES))
+def test_banded_kernel_band_matches_plain(cuda, case):
+    """K1 on its band, in class, integer and spreading placement, at
+    binning 1 and 2, resident and generator layouts, against the plain
+    version on the same band (max relative): 1e-6 at D_in = 128; 2e-6 at
+    320, where K1's three TF32 passes read 1.1-1.5e-6 with the whole
+    windows as with the band (the float32 plain version itself 5.7-8.9e-7
+    from float64). Its launch records the band's group-k-steps a chunk and
+    their share, as the host counts them."""
+    from rescan_line_sted_torch.kernels import rescan_banded_fused as k1
+
+    args, kw = _band_case(case, cuda)
+    want = rescan_banded_fused_reference(*args, **kw)
+    got = rescan_banded_fused(*args, **kw)
+    torch.cuda.synchronize()
+    b, d = kw["binning"], kw["d_in"]
+    assert got.shape == want.shape
+    assert _rel(got, want) <= (1e-6 if d == 128 else 2e-6)
+    name = "rescan_banded_fused" + ("_spread" if "offsets2" in kw else "") + (
+        "_wide" if d > 128 else "")
+    shape = k1.LAUNCH_SHAPE[name]
+    assert (shape["layout"] == "resident") == (d == 128)
+    steps, whole = k1.band_k_steps(d, d // b, 32, b, kw["supports"])
+    assert shape["band_k_steps"] == steps < whole
+    assert shape["band_share"] == steps / whole
+
+
+@pytest.mark.parametrize("case", ["q2", "spread_b2", "wide_spread"])
+def test_banded_kernel_band_repeatable(cuda, case):
+    """A noisy call on the band gives the same canvas twice with one key,
+    and another with another key."""
+    args, kw = _band_case(case, cuda)
+    s, e, gx, offs = args
+    runs = [rescan_banded_fused(40.0 * s, 30.0 * e, gx, offs, **kw,
+                                generator=torch.Generator().manual_seed(k))
+            for k in (5, 5, 6)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
+    assert torch.isfinite(runs[0]).all()
+
+
+@pytest.mark.parametrize("rf", [1.5, 1.0 + np.pi / 16])
+def test_flagship_band_share(cuda, rf):
+    """The flagship's K1 call, as the entry makes it (2048^2, chunk 32,
+    supports 24 / 24, class placement at R = 1.5, NUFFT spreading at the
+    irrational R), records the host's band: 560 of 2048 group-k-steps a
+    chunk (17.5 of 64 a position)."""
+    from rescan_line_sted_torch.imaging.rescan import _banded_inputs
+    from rescan_line_sted_torch.kernels import rescan_banded_fused as k1
+
+    params = T.LineSTEDParams.create(sigma_exc=3.0, sigma_det=3.0,
+                                     stripe_period=12.0, depletion=8.0,
+                                     slit_halfwidth=4.0, brightness=1.0)
+    geom = T.RescanGeometry(T.Grid(2048, 2048), rescan_factor=rf, chunk=32)
+    args, kw, _ = _banded_inputs(torch.rand((2048, 2048), device=cuda),
+                                 params, geom)
+    rescan_banded_fused(*args, **kw)
+    torch.cuda.synchronize()
+    shape = k1.LAUNCH_SHAPE["rescan_banded_fused" + (
+        "" if rf == 1.5 else "_spread")]
+    steps, whole = k1.band_k_steps(kw["d_in"], kw["d_out"], 32, 1,
+                                   kw["supports"])
+    assert kw["supports"] == (24, 24) and (steps, whole) == (560, 2048)
+    assert shape["band_k_steps"] == steps
+    assert shape["band_share"] == steps / whole
+
+
 @pytest.mark.parametrize("step,b,chunk,wc", [
     (np.pi / 16, 1, 8, None), (0.6180339887, 1, 16, None),
     (np.pi / 16, 2, 8, None), (3 / 16, 1, 32, None),

@@ -103,8 +103,10 @@ def _kernel_inputs(rf, b, seed=0):
 def test_plain_kernel_matches_jax_interpret(rf, b):
     args, kw = _kernel_inputs(rf, b)
     assert "spread_weights" in kw and "classes" not in kw
+    # the JAX kernel convolves the whole windows; the port's band
+    # (supports) leaves out only products below 1e-12 of the peak
     jkw = {k: (jnp.asarray(v.numpy()) if isinstance(v, torch.Tensor) else v)
-           for k, v in kw.items()}
+           for k, v in kw.items() if k != "supports"}
     want = j_banded(*map(jnp.asarray, args), interpret=True, **jkw)
     got = rescan_banded_fused_reference(*map(torch.from_numpy, args), **kw)
     assert got.shape == want.shape == (2, kw["wc"], W // b)
