@@ -1029,18 +1029,19 @@ def flagship(size=None, rescan_factor=1.5, binning=1, sigma_exc=3.0):
 
 
 def k1_inputs(case, dev):
-    """The scan's own K1 arguments for a (size, R, b, sigma_exc) case."""
+    """The scan's own K1 inputs for a (size, R, b, sigma_exc) case: the
+    y-convolved sample and the entry's K1 plan."""
     from rescan_line_sted_torch.data import siemens_star
     from rescan_line_sted_torch.imaging.rescan import _banded_inputs
 
     size, rf, b, sig = case
     params, geom = flagship(size, rf, b, sig)
-    args, kw, _ = _banded_inputs(siemens_star((size, size), device=dev),
-                                 params, geom)
-    return args, kw
+    sample_y, plan, _ = _banded_inputs(
+        siemens_star((size, size), device=dev), params, geom)
+    return sample_y, plan
 
 
-def k1_counts(args, kw) -> dict:
+def k1_counts(sample_y, plan) -> dict:
     """K1's work on these inputs: the convolution's fp32 FMAs over each
     frame's band (on the tensor cores, three TF32 passes each: 32 rows x 8
     columns x H/b lanes a group-k-step, ``band_k_steps``), the spreading
@@ -1048,33 +1049,29 @@ def k1_counts(args, kw) -> dict:
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
         band_k_steps)
 
-    sample_y = args[0]
     h, w = sample_y.shape
-    b = kw.get("binning", 1)
-    dob, hb = kw["d_out"] // b, h // b
-    steps = band_k_steps(kw["d_in"], dob, kw["chunk"], b,
-                         kw.get("supports"))[0]
-    n = {"tc_fma": w // kw["chunk"] * steps * 32 * 8 * hb, "conv_fma": 0,
+    b = plan.binning
+    dob, hb = plan.d_out // b, h // b
+    steps = band_k_steps(plan.d_in, dob, plan.chunk, b, plan.supports)[0]
+    n = {"tc_fma": w // plan.chunk * steps * 32 * 8 * hb, "conv_fma": 0,
          "placed": w * dob * hb}
-    if "spread_weights" in kw:
-        taps = kw["spread_weights"].shape[1]          # 2 parities x n_spread
+    if plan.n_spread:
+        taps = 2 * plan.n_spread                      # 2 parities x n_spread
         n["conv_fma"] = w * dob * hb * taps
         n["placed"] = w * (2 * dob + taps - 2) * hb
     return n
 
 
-def k1_bound(args, kw) -> tuple[float, str, float]:
+def k1_bound(sample_y, plan) -> tuple[float, str, float]:
     """Least time (ms) of one K1 call on this card, and what bounds it:
     the convolution's three TF32 passes at the tensor cores' TF32 peak
     plus the spreading taps at the fp32 peak, against the sample read once
     and the canvas written once; and the same bound with the convolution
     in fp32 FFMA (what bounded K1 before its tensor-core engine)."""
-    sample_y = args[0]
     h, w = sample_y.shape
-    b = kw.get("binning", 1)
-    n = k1_counts(args, kw)
-    q = 2 if "spread_weights" in kw else kw.get("q", 1)
-    nbytes = 4 * ((w + kw["d_in"]) * h + q * kw["wc"] * (h // b))
+    n = k1_counts(sample_y, plan)
+    nbytes = 4 * ((w + plan.d_in) * h
+                  + plan.q * plan.wc * (h // plan.binning))
     tc = roofline(2.0 * n["conv_fma"], nbytes, tc_flops=6.0 * n["tc_fma"])
     fp32 = roofline(2.0 * (n["conv_fma"] + n["tc_fma"]), nbytes)
     return tc[0], tc[1], fp32[0]
@@ -1103,26 +1100,26 @@ def phase_k1(dev) -> dict:
 
     worst = {}
     for case in K1_CASES:
-        args, kw = k1_inputs(case, dev)
+        sample_y, plan = k1_inputs(case, dev)
         before = dict(_build.LAUNCHES)
-        got = rescan_banded_fused(*args, **kw)
+        got = rescan_banded_fused(sample_y, plan)
         mode = next(k for k, v in _build.LAUNCHES.items() if v != before[k])
-        want = rescan_banded_fused_reference(*args, **kw)
+        want = rescan_banded_fused_reference(sample_y, plan)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
         log(f"K1 {mode} vs plain {case[0]}^2 R={case[1]:.6f} b={case[2]} "
-            f"sigma_exc={case[3]} q={got.shape[0]} d_in={kw['d_in']} "
-            f"d_out={kw['d_out']}: max abs err {err:.3e}, "
+            f"sigma_exc={case[3]} q={got.shape[0]} d_in={plan.d_in} "
+            f"d_out={plan.d_out}: max abs err {err:.3e}, "
             f"max rel err {rel:.3e} (three TF32 passes; the fp32 FFMA "
             f"engine before them: <= {K1_FFMA_REL:.1e}); launch "
             f"{json.dumps(LAUNCH_SHAPE[mode])}")
         check(got.shape == want.shape and rel <= 1e-5,
               f"K1 {mode} vs plain at {case}: rel err {rel}")
-        steps, whole = band_k_steps(kw["d_in"], kw["d_out"] // case[2],
-                                    kw["chunk"], case[2], kw["supports"])
+        steps, whole = band_k_steps(plan.d_in, plan.d_out // case[2],
+                                    plan.chunk, case[2], plan.supports)
         shape = LAUNCH_SHAPE[mode]
-        log(f"K1 {mode} band at {case}: supports {kw['supports']}, "
+        log(f"K1 {mode} band at {case}: supports {plan.supports}, "
             f"{steps} of {whole} group-k-steps a chunk "
             f"(band_share {shape['band_share']:.4f})")
         check(shape["band_k_steps"] == steps
@@ -1133,13 +1130,13 @@ def phase_k1(dev) -> dict:
         worst[mode] = {"abs": max(w0["abs"], err), "rel": max(w0["rel"], rel)}
         # the same key twice: the same canvas bit for bit
         twice = [rescan_banded_fused(
-            *args, **kw, generator=torch.Generator().manual_seed(21))
+            sample_y, plan, generator=torch.Generator().manual_seed(21))
             for _ in range(2)]
         check(torch.equal(twice[0], twice[1]),
               f"K1 {mode} at {case}: two launches with one key differ")
         del twice
         if case in (K1_CASES[0], K1_CASES[3]):
-            k1_noisy_total(args, kw, want, mode)
+            k1_noisy_total(sample_y, plan, want, mode)
     missing = set(K1_MODES) - set(worst)
     check(not missing, f"K1 modes never taken: {missing}")
     log("K1: every case's noisy canvas the same bit for bit over two "
@@ -1147,7 +1144,7 @@ def phase_k1(dev) -> dict:
     return worst
 
 
-def k1_noisy_total(args, kw, clean, mode) -> None:
+def k1_noisy_total(sample_y, plan, clean, mode) -> None:
     """A noisy K1 canvas: finite, non-negative (integer counts where each
     lands whole), its total within 5 sigma of the noise-free total. With
     spreading a count n of position c adds n * S_c (S_c: the sum of c's
@@ -1155,13 +1152,13 @@ def k1_noisy_total(args, kw, clean, mode) -> None:
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
         rescan_banded_fused)
 
-    noisy = rescan_banded_fused(*args, **kw,
+    noisy = rescan_banded_fused(sample_y, plan,
                                 generator=torch.Generator().manual_seed(3))
     total = float(noisy.double().sum())
     mu = float(clean.double().sum())
     scale = 1.0
-    if "spread_weights" in kw:
-        scale = float(kw["spread_weights"].double().sum(1).max())
+    if plan.n_spread:
+        scale = float(plan.taps.double().sum(1).max())
     else:
         check(torch.equal(noisy, noisy.round()),
               f"K1 {mode} noisy canvas must hold integer counts")
@@ -1398,16 +1395,17 @@ def phase_times(dev) -> dict:
     # the flagship image first, before the heavier configurations
     t = {"e2e": {"flagship": per_step(*flagship())}}
     for mode, (_, case) in K1_MODES.items():
-        args, kw = k1_inputs(case, dev)
-        bound, by, fp32_bound = k1_bound(args, kw)
+        sample_y, plan = k1_inputs(case, dev)
+        bound, by, fp32_bound = k1_bound(sample_y, plan)
         t[mode] = {
             "ms": cuda_ms(lambda: rescan_banded_fused(
-                *args, **kw, generator=cpu_gen)),
+                sample_y, plan, generator=cpu_gen)),
             "plain_ms": cuda_ms(lambda: rescan_banded_fused_reference(
-                *args, **kw, generator=dev_gen)),
-            "noise_free_ms": cuda_ms(lambda: rescan_banded_fused(*args, **kw)),
+                sample_y, plan, generator=dev_gen)),
+            "noise_free_ms": cuda_ms(
+                lambda: rescan_banded_fused(sample_y, plan)),
             "noise_free_plain_ms": cuda_ms(
-                lambda: rescan_banded_fused_reference(*args, **kw)),
+                lambda: rescan_banded_fused_reference(sample_y, plan)),
             "bound_ms": bound, "bound_by": by,
             "bound_kind": "three TF32 passes at 495 TFLOP/s",
             "bound_fp32_ms": fp32_bound, "launch": dict(LAUNCH_SHAPE[mode])}
@@ -1852,19 +1850,17 @@ def caller_frames(module, run, sampler="poisson_rows_tiered") -> torch.Tensor:
     return seen[0]
 
 
-def k1_frames(args, kw) -> torch.Tensor:
+def k1_frames(sample_y, plan) -> torch.Tensor:
     """Every camera frame K1 samples in one image (K2a's rates), [W / C,
     C * dob, H]: the conv table on its band times each chunk's sample
     window."""
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
-        _sample_ext, banded_plan, banded_table)
+        _sample_ext, banded_table)
 
-    sample_y = args[0]
     h, w = sample_y.shape
-    chunk, d_in = kw["chunk"], kw["d_in"]
-    plan = banded_plan(*args[1:], **kw)
+    chunk, d_in = plan.chunk, plan.d_in
     sample_ext = _sample_ext(sample_y, d_in, chunk)
-    check(kw.get("binning", 1) == 1, "K2a's frames: the flagship has b = 1")
+    check(plan.binning == 1, "K2a's frames: the flagship has b = 1")
     table = banded_table(plan)
     win = sample_ext.unfold(0, d_in, chunk)[: w // chunk]   # [n, H, d_in]
     return table @ win.transpose(1, 2)
@@ -2963,9 +2959,9 @@ def phase_primitives(dev, k1, k3, k4, k2c, k2b) -> dict:
     # the tensor cores (tc_fma), its spreading taps in FFMA (conv_fma).
     counts, measured = {}, {}
     for mode, (_, case) in K1_MODES.items():
-        args, kw = k1_inputs(case, dev)
-        work = k1_counts(args, kw)
-        frames = k1_frames(args, kw)
+        sample_y, plan = k1_inputs(case, dev)
+        work = k1_counts(sample_y, plan)
+        frames = k1_frames(sample_y, plan)
         sampler = prim.tiered_counts(frames)
         del frames
         counts[mode] = {

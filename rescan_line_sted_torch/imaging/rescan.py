@@ -220,12 +220,12 @@ def _route_row_sharded(sample, params, geom, generator, noise_mode,
     """The row-sharded scan (``parallel.rescanned_line_sted_sharded``)
     where the unsharded call would take K1 (band windows present;
     ``use_pallas`` does not choose there); None when the sample is not
-    row-sharded, the scan takes no K1, or the sharded engine's
-    preconditions fail (``ShardedPreconditionError``, caught alone: any
-    other error, a plain ``ValueError`` of argument validation included,
-    propagates as it would unsharded)."""
+    row-sharded or the sharded engine's preconditions fail, a scan that
+    takes no K1 among them (``ShardedPreconditionError``, caught alone:
+    any other error, a plain ``ValueError`` of argument validation
+    included, propagates as it would unsharded)."""
     hit = _row_sharded_mesh(sample)
-    if hit is None or _k1_windows(params, geom, reassignment) is None:
+    if hit is None:
         return None
     from rescan_line_sted_torch.parallel import sharded_rescan
 
@@ -348,13 +348,6 @@ def _residue_finish(fracs, wc: int, device):
     return finish
 
 
-def _apply_class_residues(folded: torch.Tensor, fracs, wc: int
-                          ) -> torch.Tensor:
-    """Sum folded class canvases ``[q, wc, H]`` into the ``[H, wc]``
-    canvas (``_residue_finish``, its phase ramp built for this call)."""
-    return _residue_finish(fracs, wc, folded.device)(folded)
-
-
 _NUFFT_P = 8  # spreading-window width (fine-grid taps); see _nufft_beta
 
 
@@ -377,7 +370,7 @@ def _nufft_spread_tables(offs, p: int = _NUFFT_P, device=None):
     (floor and Python-sign modulo on int64), weights cast to f32 last.
 
     Returns ``(offsets2 [2, W] int32, weights [W, 2 * P/2] f32)`` on
-    ``device`` for ``rescan_banded_fused(spread_weights=, offsets2=)``.
+    ``device`` for ``banded_plan(spread_weights=, offsets2=)``.
     """
     offs = np.asarray(offs, np.float64)
     p2 = p // 2
@@ -440,13 +433,6 @@ def _nufft_finish(wc: int, device, dinv: np.ndarray | None = None):
     return finish
 
 
-def _apply_nufft_deconv(folded: torch.Tensor, wc: int,
-                        dinv: np.ndarray) -> torch.Tensor:
-    """The NUFFT placement's finish of ``folded [2, wc, H]``
-    (``_nufft_finish``, its tables built for this call)."""
-    return _nufft_finish(wc, folded.device, dinv)(folded)
-
-
 def _illum_band(params, w: int, chunk: int,
                 b: int = 1) -> tuple[int, int | None] | None:
     """Static band windows ``(d_in, d_out)`` of the banded scan.
@@ -463,14 +449,7 @@ def _illum_band(params, w: int, chunk: int,
     m = getattr(params, "model", None)
     if m is not None and not getattr(m, "gaussian_excitation", False):
         return None
-    from rescan_line_sted_torch.config import _support
-
-    s_exc = getattr(params, "exc_support", None)
-    if s_exc is None:
-        s_exc = _support(params.sigma_exc)
-    s_det = getattr(params, "det_support", None)
-    if s_det is None:
-        s_det = _support(params.sigma_det)
+    s_exc, s_det = _band_supports(params)
     d_in = -(-(chunk + 2 * s_exc) // 128) * 128
     if d_in >= w:
         return None
@@ -485,7 +464,7 @@ def _illum_band(params, w: int, chunk: int,
 def _band_supports(params) -> tuple[int, int]:
     """``(s_exc, s_det)``: the support half-widths (px) that ``_illum_band``
     sizes the windows by, the params' own where set; K1 convolves each
-    frame only where both reach (``rescan_banded_fused(supports=)``)."""
+    frame only where both reach (``banded_plan(supports=)``)."""
     from rescan_line_sted_torch.config import _support
 
     s_exc = getattr(params, "exc_support", None)
@@ -537,18 +516,19 @@ def _k1_windows(params, geom, reassignment="auto"):
 @dataclasses.dataclass(frozen=True, eq=False)
 class _Banded:
     """The banded scan's tables for one (params, geometry, placement,
-    device): K1's profiles and the y-convolution's OTF, its integer
-    offsets, its keyword arguments (band windows, classes or NUFFT
-    spreading tables), K1's plan and the finish that turns K1's folded
-    canvases into the image."""
+    device): the y-convolution's OTF, K1's plan (``banded_plan``: its
+    windows, profiles, placement and band) and the finish that turns K1's
+    folded canvases into the image."""
 
-    eff_b: torch.Tensor
     otf_y: torch.Tensor
-    gx: torch.Tensor
-    offsets: torch.Tensor
-    kwargs: dict
     k1: BandedPlan
     finish: object
+
+    def y_convolved(self, sample: torch.Tensor) -> torch.Tensor:
+        """K1's one per-sample input: ``sample`` convolved along y."""
+        with span("rls.image.yconv"):
+            return fftconv.convolve_otf1d(sample, self.otf_y, axis=-2,
+                                          n=sample.shape[-2])
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -599,15 +579,14 @@ def _banded_tables(params, geom, reassignment, device) -> _Banded | None:
     otf_y = fftconv.profile_to_otf1d(
         psfs.detection_profile(h, params.sigma_det, device))
     gx = psfs.detection_profile(w, params.sigma_det, device)
-    kwargs = dict(wc=wc, d_in=d_in, d_out=d_out, chunk=geom.chunk,
-                  binning=b, supports=_band_supports(params))
     pos = torch.arange(w, device=device)
-    class_bounds = None
+    k1 = dict(wc=wc, d_in=d_in, d_out=d_out, chunk=geom.chunk, binning=b,
+              supports=_band_supports(params))
     if pq is None:
         offsets2, weights = _nufft_spread_tables(
             step * np.arange(w, dtype=np.float64), device=device)
         offsets = torch.zeros(w, dtype=torch.int32, device=device)
-        kwargs.update(spread_weights=weights, offsets2=offsets2)
+        k1.update(spread_weights=weights, offsets2=offsets2)
         finish = _nufft_finish(wc, device)
     else:
         bf_p, bf_q = pq
@@ -618,40 +597,28 @@ def _banded_tables(params, geom, reassignment, device) -> _Banded | None:
         else:
             offsets = torch.div(bf_p * pos, bf_q,
                                 rounding_mode="floor").to(torch.int32)
-            kwargs.update(classes=(pos % bf_q).to(torch.int32), q=bf_q)
-            class_bounds = (0, bf_q - 1)      # pos % q over pos >= 0
+            k1.update(classes=(pos % bf_q).to(torch.int32), q=bf_q,
+                      class_bounds=(0, bf_q - 1))  # pos % q over pos >= 0
             fracs = [((bf_p * r) % bf_q) / bf_q for r in range(bf_q)]
         finish = _residue_finish(fracs, wc, device)
-    k1 = banded_plan(eff_b, gx, offsets, class_bounds=class_bounds,
-                     **kwargs)
-    return _Banded(eff_b=eff_b, otf_y=otf_y, gx=gx, offsets=offsets,
-                   kwargs=kwargs, k1=k1, finish=finish)
-
-
-def _k1_inputs(banded: _Banded, sample):
-    """``(args, kwargs, finish)`` of K1 for ``sample``: the y-convolution
-    is the one per-sample table."""
-    with span("rls.image.yconv"):
-        sample_y = fftconv.convolve_otf1d(sample, banded.otf_y, axis=-2,
-                                          n=sample.shape[-2])
-    args = (sample_y.contiguous(), banded.eff_b, banded.gx, banded.offsets)
-    return args, dict(banded.kwargs), banded.finish
+    return _Banded(otf_y=otf_y, k1=banded_plan(eff_b, gx, offsets, **k1),
+                   finish=finish)
 
 
 def _banded_inputs(sample, params, geom, reassignment="auto"):
-    """Arguments of the banded fused scan for this acquisition, and the
-    epilogue that turns its folded canvases into the image, from the
-    entry's plan (``_image_plan``).
-
-    Returns ``(args, kwargs, finish)``: ``finish(rescan_banded_fused(*args,
-    **kwargs, generator=...))`` is the ``[H/b, wc]`` canvas. Returns None
-    where the scan does not take K1 (``_k1_windows``).
-    """
+    """K1's inputs for this acquisition from the entry's plan
+    (``_image_plan``): ``(sample_y, k1_plan, finish)``, where
+    ``finish(rescan_banded_fused(sample_y, k1_plan, generator=...))`` is
+    the ``[H/b, wc]`` canvas. None where the scan does not take K1
+    (``_k1_windows``)."""
     with span("rls.image.tables"):
         plan = _image_plan(params, geom,
                            _resolve_reassignment(geom, reassignment),
                            sample.device)
-    return None if plan.banded is None else _k1_inputs(plan.banded, sample)
+    banded = plan.banded
+    if banded is None:
+        return None
+    return banded.y_convolved(sample).contiguous(), banded.k1, banded.finish
 
 
 def _scan(sample, plan: _Plan, params, geom, generator, noise_mode,
@@ -660,10 +627,10 @@ def _scan(sample, plan: _Plan, params, geom, generator, noise_mode,
     them, else ``_full_frame_scan`` (``reassignment`` resolved, as the
     plan's key is)."""
     per_step = generator is not None and noise_mode == "per_step"
-    if plan.banded is not None:
-        args, kwargs, finish = _k1_inputs(plan.banded, sample)
-        canvas = finish(rescan_banded_fused(
-            *args, **kwargs, plan=plan.banded.k1,
+    banded = plan.banded
+    if banded is not None:
+        canvas = banded.finish(rescan_banded_fused(
+            banded.y_convolved(sample).contiguous(), banded.k1,
             generator=generator if per_step else None))
     else:
         canvas = _full_frame_scan(

@@ -25,8 +25,8 @@ placement modes. Per chunk of C scan positions the scan
 The tables and placement scalars, which depend on the band windows,
 profiles and placement alone, are built here in plain torch (with floor
 division and Python-sign modulo, as the JAX wrapper does) into a
-``BandedPlan`` (``banded_plan``), which a caller may build once and pass
-to every call (the rescan engine keeps one per geometry); the kernel
+``BandedPlan`` (``banded_plan``), which a caller builds once and passes
+with each sample (the rescan engine keeps one per geometry); the kernel
 (``csrc/rescan_banded_fused.cu``) or the plain loop consumes them with the
 call's extended sample.
 
@@ -265,12 +265,32 @@ def banded_plan(eff_scaled: torch.Tensor, gx: torch.Tensor,
                 class_bounds: tuple[int, int] | None = None,
                 supports: tuple[int, int] | None = None,
                 device=None) -> BandedPlan:
-    """K1's tables for these arguments of ``rescan_banded_fused``, built
-    on ``device`` (None: ``eff_scaled``'s) with floor division and
-    Python-sign modulo, as the JAX wrapper builds them. Classes outside
-    ``[0, q)`` are refused: ``class_bounds``, where the caller made the
-    classes and knows their least and largest value on the host, else
-    read back from ``classes`` (one sync on a card)."""
+    """K1's tables (``BandedPlan``), the one input of
+    ``rescan_banded_fused`` besides the sample, validated and built on
+    ``device`` (None: ``eff_scaled``'s) with floor division and
+    Python-sign modulo, as the JAX wrapper builds them.
+
+    eff_scaled: [W] centered brightness-scaled effective excitation
+    profile; gx: [W] centered detection x-profile; int_offsets: [W]
+    integer canvas column offsets (binned pixels) per scan position;
+    classes: [W] class index in [0, q) (None = all zero); d_in/d_out: the
+    band windows of ``imaging.rescan._illum_band``.
+
+    NUFFT spreading placement (``imaging.rescan._nufft_spread_tables``):
+    ``spread_weights`` [W, 2 * P/2] per-position window taps split by
+    parity of the 2x-oversampled fine grid, and ``offsets2`` [2, W] int32
+    per-parity integer offsets. Then ``q`` is 2 (the parity canvases),
+    ``classes`` must be None and ``int_offsets`` is ignored.
+
+    ``supports = (s_exc, s_det)``: the half-widths (px) beyond which the
+    illumination and the detection profile are taken as zero
+    (``imaging.rescan._band_supports``); each frame is then convolved only
+    over its band (``band_runs``: per 32-row group, the 8-aligned run of
+    window columns where both reach). None convolves the whole windows.
+
+    Classes outside ``[0, q)`` are refused: ``class_bounds``, where the
+    caller made the classes and knows their least and largest value on
+    the host, else read back from ``classes`` (one sync on a card)."""
     w = eff_scaled.shape[-1]
     n_spread, q = _spread_args(w, classes, q, spread_weights, offsets2)
     _check(w, wc=wc, d_in=d_in, d_out=d_out, chunk=chunk, binning=binning,
@@ -319,24 +339,6 @@ def banded_plan(eff_scaled: torch.Tensor, gx: torch.Tensor,
         supports=supports, band_k_steps=steps, band_share=steps / whole)
 
 
-def _plan_of(plan, sample_y, eff_scaled, gx, int_offsets, **kw):
-    """``plan`` (None: a plan built now from the call's arguments), held
-    to ``sample_y``'s width and the call's band windows."""
-    if plan is None:
-        plan = banded_plan(eff_scaled, gx, int_offsets,
-                           device=sample_y.device, **kw)
-    supports = kw["supports"]
-    got = (plan.w, plan.wc, plan.d_in, plan.d_out, plan.chunk, plan.binning,
-           plan.supports)
-    want = (sample_y.shape[1], kw["wc"], kw["d_in"], kw["d_out"],
-            kw["chunk"], kw["binning"],
-            None if supports is None else tuple(map(int, supports)))
-    if got != want:
-        raise ValueError(f"plan built for (W, wc, d_in, d_out, chunk, b, "
-                         f"supports) = {got}, called with {want}")
-    return plan
-
-
 def banded_table(plan: BandedPlan) -> torch.Tensor:
     """The plain version's binned conv table ``[C * dob, D_in]``: ``g0w``
     times ``ill_w``, row-binned, zero outside the plan's band
@@ -354,6 +356,17 @@ def banded_table(plan: BandedPlan) -> torch.Tensor:
     return torch.where(keep.reshape(c * dob, d_in), table, 0.0)
 
 
+def _sample_shape(sample_y: torch.Tensor, plan: BandedPlan
+                  ) -> tuple[int, int]:
+    """``sample_y``'s ``(H, W)``, held to the width ``plan`` was built
+    for."""
+    h, w = sample_y.shape
+    if w != plan.w:
+        raise ValueError(f"plan built for W = {plan.w}, called with a "
+                         f"sample of width {w}")
+    return h, w
+
+
 def _sample_ext(sample_y: torch.Tensor, d_in: int, chunk: int
                 ) -> torch.Tensor:
     """The extended sample ``[W + D_in - C, H]``: ``sample_ext[r] =
@@ -367,29 +380,19 @@ def _sample_ext(sample_y: torch.Tensor, d_in: int, chunk: int
 
 
 def rescan_banded_fused_reference(
-    sample_y: torch.Tensor, eff_scaled: torch.Tensor, gx: torch.Tensor,
-    int_offsets: torch.Tensor, *, wc: int, d_in: int, d_out: int,
-    chunk: int, binning: int = 1, classes: torch.Tensor | None = None,
-    q: int = 1, generator: torch.Generator | None = None,
-    spread_weights: torch.Tensor | None = None,
-    offsets2: torch.Tensor | None = None,
-    supports: tuple[int, int] | None = None,
-    plan: BandedPlan | None = None,
+    sample_y: torch.Tensor, plan: BandedPlan,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
     """Plain torch version of K1: one batched matmul per chunk (its conv
     table zero outside the band, ``banded_table``), ``torch.poisson`` when
     ``generator`` is given, ``index_add_`` placement (after per-parity
-    spreading in NUFFT mode). Same arguments and result as
+    spreading in NUFFT mode). Same arguments (but key words) and result as
     ``rescan_banded_fused``."""
-    h, w = sample_y.shape
-    plan = _plan_of(plan, sample_y, eff_scaled, gx, int_offsets, wc=wc,
-                    d_in=d_in, d_out=d_out, chunk=chunk, binning=binning,
-                    classes=classes, q=q, spread_weights=spread_weights,
-                    offsets2=offsets2, supports=supports)
-    q, n_spread = plan.q, plan.n_spread
+    h, w = _sample_shape(sample_y, plan)
+    q, n_spread, wc, chunk = plan.q, plan.n_spread, plan.wc, plan.chunk
     sa_lo, sa_hi, m0, cls = plan.sa_lo, plan.sa_hi, plan.m0, plan.cls
-    b = binning
-    hb, dob = h // b, d_out // b
+    b, d_in = plan.binning, plan.d_in
+    hb, dob = h // b, plan.d_out // b
     sample_ext = _sample_ext(sample_y, d_in, chunk)
     table = banded_table(plan)                                   # [C*dob, Di]
     dev = sample_y.device
@@ -430,45 +433,18 @@ def rescan_banded_fused_reference(
 
 
 def rescan_banded_fused(
-    sample_y: torch.Tensor, eff_scaled: torch.Tensor, gx: torch.Tensor,
-    int_offsets: torch.Tensor, *, wc: int, d_in: int, d_out: int,
-    chunk: int, binning: int = 1, classes: torch.Tensor | None = None,
-    q: int = 1, generator: torch.Generator | None = None,
-    spread_weights: torch.Tensor | None = None,
-    offsets2: torch.Tensor | None = None,
-    key=None,
-    supports: tuple[int, int] | None = None,
-    plan: BandedPlan | None = None,
+    sample_y: torch.Tensor, plan: BandedPlan, *,
+    generator: torch.Generator | None = None, key=None,
 ) -> torch.Tensor:
     """Banded fused rescan scan over all W column positions (module doc).
 
-    sample_y: [H, W] y-convolved sample; eff_scaled: [W] centered
-    brightness-scaled effective excitation profile; gx: [W] centered
-    detection x-profile; int_offsets: [W] integer canvas column offsets
-    (binned pixels) per scan position; classes: [W] class index in [0, q)
-    (None = all zero); d_in/d_out: the band windows of
-    ``imaging.rescan._illum_band``. ``generator`` draws per-camera-frame
-    shot noise; None = noise-free. ``key`` gives the draws' two Philox key
+    sample_y: [H, W] y-convolved sample; plan: K1's tables for its band
+    windows, profiles and placement (``banded_plan``, which validates
+    them), taken as they are. ``generator`` draws per-camera-frame shot
+    noise; None = noise-free. ``key`` gives the draws' two Philox key
     words instead (``_build.draw_key`` / ``offset_key``: a rank's stream;
     a CPU ``sample_y`` draws from ``_build.key_generator(key)``); pass
     one of the two.
-
-    NUFFT spreading placement (``imaging.rescan._nufft_spread_tables``):
-    ``spread_weights`` [W, 2 * P/2] per-position window taps split by
-    parity of the 2x-oversampled fine grid, and ``offsets2`` [2, W] int32
-    per-parity integer offsets. Then ``q`` is 2 (the parity canvases),
-    ``classes`` must be None and ``int_offsets`` is ignored.
-
-    ``supports = (s_exc, s_det)``: the half-widths (px) beyond which the
-    illumination and the detection profile are taken as zero
-    (``imaging.rescan._band_supports``); each frame is then convolved only
-    over its band (``band_runs``: per 32-row group, the 8-aligned run of
-    window columns where both reach). None convolves the whole windows.
-
-    ``plan``: K1's tables built from these same arguments
-    (``banded_plan``), which the call then takes as they are, reading only
-    ``sample_y`` of its tensors; None builds them here, and refuses
-    classes outside ``[0, q)`` by reading them back (one sync on a card).
 
     Returns folded class canvases ``[q, wc, H/b]`` (canvas-column-major).
     A CUDA ``sample_y`` launches kernel K1 (``LAUNCHES`` counts each
@@ -480,20 +456,13 @@ def rescan_banded_fused(
         raise ValueError("pass a generator or key words, not both")
     if not sample_y.is_cuda:
         return rescan_banded_fused_reference(
-            sample_y, eff_scaled, gx, int_offsets, wc=wc, d_in=d_in,
-            d_out=d_out, chunk=chunk, binning=binning, classes=classes, q=q,
-            generator=generator if key is None else _build.key_generator(key),
-            spread_weights=spread_weights, offsets2=offsets2,
-            supports=supports, plan=plan)
-    with span("rls.k1"):   # the plan where none is given, key words, launch
-        h, w = sample_y.shape
-        plan = _plan_of(plan, sample_y, eff_scaled, gx, int_offsets, wc=wc,
-                        d_in=d_in, d_out=d_out, chunk=chunk,
-                        binning=binning, classes=classes, q=q,
-                        spread_weights=spread_weights, offsets2=offsets2,
-                        supports=supports)
-        q, n_spread = plan.q, plan.n_spread
-        b = binning
+            sample_y, plan,
+            generator if key is None else _build.key_generator(key))
+    with span("rls.k1"):   # key words and launch
+        h, w = _sample_shape(sample_y, plan)
+        q, n_spread, wc = plan.q, plan.n_spread, plan.wc
+        b, chunk, d_in, d_out = (plan.binning, plan.chunk, plan.d_in,
+                                 plan.d_out)
         hb, dob = h // b, d_out // b
         sample_ext = _sample_ext(sample_y, d_in, chunk)
         taps = [plan.taps] if n_spread else []

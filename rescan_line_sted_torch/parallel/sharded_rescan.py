@@ -15,10 +15,12 @@ therefore needs no collective in the scan itself::
       |   ~4e-10 of peak
       |-- local y-convolution on the halo-extended block (one rfft pair;
       |   rows [0, H_loc) of the extended correlation are wrap-free)
-      |-- K1 (``kernels.rescan_banded_fused``) on the rank's block ->
+      |-- K1 (``kernels.rescan_banded_fused``) on the rank's block, with
+      |   the unsharded entry's plan (``imaging.rescan._image_plan``) ->
       |   folded class canvases [q, wc, H_loc/b], drawing from the rank's
       |   own key words (``rank_key``)
-      `-- per-class residue spectral shifts + class sum (local along wc)
+      `-- the plan's finish: per-class residue spectral shifts + class sum,
+          or the NUFFT merge and deconvolution (local along wc)
           -> canvas rows [H_loc/b, wc]
 
     result: a DTensor, Shard(0) over ``axis``: canvas rows are owned by
@@ -41,9 +43,7 @@ rank 0's words are the unsharded call's.
 from __future__ import annotations
 
 import importlib
-import os
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -58,7 +58,7 @@ from rescan_line_sted_torch.parallel.mesh import (
     whole,
 )
 from rescan_line_sted_torch.physics import psf as psfs
-from rescan_line_sted_torch.physics.dose import line_sted_dose
+from rescan_line_sted_torch.physics.dose import DoseReport
 
 
 class ShardedPreconditionError(ValueError):
@@ -74,17 +74,17 @@ class ShardedPreconditionError(ValueError):
 
 
 def _det_support(params) -> int | None:
-    """Static detection-profile support half-width (px); None for a fitted
-    width (a tensor that requires grad has no static halo)."""
-    s = getattr(params, "det_support", None)
-    if s is not None:
-        return int(s)
-    sd = params.sigma_det
-    if isinstance(sd, torch.Tensor) and sd.requires_grad:
-        return None
-    from rescan_line_sted_torch.config import _support
+    """Static detection-profile support half-width (px), the one the band
+    windows are sized by (``imaging.rescan._band_supports``); None for a
+    fitted width without a set ``det_support`` (a tensor that requires
+    grad has no static halo)."""
+    from rescan_line_sted_torch.imaging.rescan import _band_supports
 
-    return _support(sd)
+    sd = params.sigma_det
+    if (getattr(params, "det_support", None) is None
+            and isinstance(sd, torch.Tensor) and sd.requires_grad):
+        return None
+    return _band_supports(params)[1]
 
 
 def _axis_index(mesh, axis) -> int:
@@ -180,12 +180,12 @@ def rescanned_line_sted_sharded(
     ``ValueError``, exactly as the unsharded engine does):
 
     * static band windows (the Gaussian-excitation model, a frame wider
-      than the windows), within K1's shared memory (``banded_fits``);
+      than the windows), within K1's shared memory (``banded_fits``):
+      where the unsharded scan takes K1, with the same plan (the entry's
+      ``imaging.rescan._image_plan``: route, windows, tables, finish);
     * ANY placement step: rational ``(R-1)/b = p/q`` with ``q <= 8``,
       ``q | chunk`` runs class placement (rounded reassignment is the q=1
-      case); irrational / larger-q steps run K1's NUFFT spreading mode
-      (``ShardedPreconditionError`` only when ``RLS_BANDED_NUFFT=0``
-      disables it);
+      case); irrational / larger-q steps run K1's NUFFT spreading mode;
     * ``H`` divisible by the mesh axis size; the per-rank row block at
       least the detection support (the halo crosses ONE neighbour) and
       divisible by the binning.
@@ -196,9 +196,6 @@ def rescanned_line_sted_sharded(
     same as, not draw for draw, the unsharded call.
     """
     from rescan_line_sted_torch.imaging import rescan as engine
-    from rescan_line_sted_torch.imaging.line_sted import (
-        effective_line_profile,
-    )
     from rescan_line_sted_torch.imaging.point_sted import AcquisitionResult
 
     params = whole(params)
@@ -211,10 +208,8 @@ def rescanned_line_sted_sharded(
     if tuple(sample.shape) != tuple(geom.grid.shape):
         raise ValueError(f"sample shape {tuple(sample.shape)} does not match "
                          f"the grid {tuple(geom.grid.shape)}")
-    h, w = geom.grid.shape
+    h = geom.grid.shape[0]
     b = geom.binning
-    chunk = geom.chunk
-    hc, wc = geom.canvas_shape
     mesh_dim = _axis_index(mesh, axis)
     n_dev = mesh.size(mesh_dim)
     if h % n_dev:
@@ -235,69 +230,36 @@ def rescanned_line_sted_sharded(
             f"halo {s_det} px exceeds the per-device row block {h_loc}; "
             f"use fewer devices on axis {axis!r}")
 
-    # placement classes: integer offsets within q fractional-residue
-    # classes (K1's contract; see imaging/rescan._banded_inputs).
-    # Irrational (or q > 8 rational) steps run K1's NUFFT spreading mode
-    # instead: two parity canvases of a 2x-oversampled fine grid + one
-    # window deconvolution per rank block -- all stages stay independent
-    # per camera row, so the halo ring and the result are unchanged.
-    reassignment = engine._resolve_reassignment(geom, reassignment)
-    step = (float(geom.rescan_factor) - 1.0) / b
-    nufft = False
-    if reassignment == "rounded":
-        bf_p, bf_q = None, 1
-    else:
-        pq = engine._rational_step(step, chunk)
-        if pq is None:
-            if os.environ.get("RLS_BANDED_NUFFT", "1") == "0":
-                raise ShardedPreconditionError(
-                    "irrational placement step with NUFFT spreading "
-                    "disabled (RLS_BANDED_NUFFT=0); use the gathered route")
-            nufft = True
-            bf_p, bf_q = None, 2  # parity canvases of the fine grid
-        else:
-            bf_p, bf_q = pq
-    windowed = engine._illum_band(params, w, chunk, b)
-    if windowed is None or windowed[1] is None:
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    placements = [Shard(0) if i == mesh_dim else Replicate()
+                  for i in range(mesh.ndim)]
+    by_rows = is_dtensor(sample) and list(sample.placements) == placements
+    dev = (sample.to_local().device if by_rows
+           else _mesh_device(mesh.device_type))
+    # K1's route, windows, tables and finish: the entry's plan, built once
+    # per (params, geometry, placement, device)
+    plan = engine._image_plan(
+        params, geom, engine._resolve_reassignment(geom, reassignment), dev)
+    if plan.banded is None:
         raise ShardedPreconditionError(
             "no static band windows (custom excitation / window not "
-            "narrower than the frame / binning misaligns them)")
-    d_in, d_out = windowed
-    dob = d_out // b
-    n_spread = engine._NUFFT_P // 2 if nufft else 0
-    d_place = dob + max(n_spread - 1, 0)
-    if chunk % 8 or (chunk * dob) % 32 or (d_place + 7) // 8 * 8 + 8 > wc:
-        raise ShardedPreconditionError(
-            "banded kernel alignment preconditions failed "
-            f"(chunk={chunk}, d_out/b={dob}, wc={wc})")
-    rbf = importlib.import_module(
-        "rescan_line_sted_torch.kernels.rescan_banded_fused")
-    if not rbf.banded_fits(d_in, dob, chunk, b, n_spread):
-        raise ShardedPreconditionError(
-            "band windows beyond K1's shared memory (banded_fits) at "
-            "this per-device block")
+            "narrower than the frame / binning misaligns them / windows "
+            "beyond the canvas or K1's shared memory, banded_fits)")
     # END of the precondition block: everything below is the engine body;
     # an exception past this point is a bug and must surface (see
     # ShardedPreconditionError)
 
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
     idx = mesh.get_local_rank(mesh_dim)
-    placements = [Shard(0) if i == mesh_dim else Replicate()
-                  for i in range(mesh.ndim)]
-    if is_dtensor(sample) and list(sample.placements) == placements:
+    if by_rows:
         block = sample.to_local()
     else:                    # the whole sample on every rank: take its rows
         block = torch.as_tensor(full_tensor(sample), dtype=torch.float32,
-                                device=_mesh_device(mesh.device_type))
-        block = block[idx * h_loc:(idx + 1) * h_loc]
+                                device=dev)[idx * h_loc:(idx + 1) * h_loc]
     block = block.to(torch.float32).contiguous()
-    dev = block.device
     per_step = generator is not None and noise_mode == "per_step"
     key = rank_key(generator, dev, idx)
 
-    eff_s = params.brightness * effective_line_profile(w, params, dev)
-    gx = psfs.detection_profile(w, params.sigma_det, dev)
     gy = psfs.detection_profile(h, params.sigma_det, dev)
     # reversed centered detection window: the local y-conv runs as a
     # cross-correlation corr[i] = sum_u ker[u] ext[i+u] (module doc)
@@ -306,34 +268,14 @@ def rescanned_line_sted_sharded(
     ext = torch.cat([top, block, bottom], dim=0)
     sample_y = y_convolve_block(ext, ker, h_loc).contiguous()
 
-    kw = dict(wc=wc, d_in=d_in, d_out=d_out, chunk=chunk, binning=b,
-              supports=engine._band_supports(params),
-              key=key if per_step else None)
-    pos = torch.arange(w, device=dev)
-    if nufft:
-        offsets2, weights = engine._nufft_spread_tables(
-            step * np.arange(w, dtype=np.float64), device=dev)
-        folded = rbf.rescan_banded_fused(
-            sample_y, eff_s, gx, torch.zeros(w, dtype=torch.int32,
-                                             device=dev),
-            spread_weights=weights, offsets2=offsets2, **kw)
-        canvas = engine._apply_nufft_deconv(folded, wc,
-                                            engine._nufft_deconv_inv(wc))
-    else:
-        if bf_p is None:
-            offsets = torch.round(
-                (geom.rescan_factor - 1.0) * pos / b).to(torch.int32)
-            classes, fracs = None, [0.0]
-        else:
-            offsets = torch.div(bf_p * pos, bf_q,
-                                rounding_mode="floor").to(torch.int32)
-            classes = (pos % bf_q).to(torch.int32)
-            fracs = [((bf_p * r) % bf_q) / bf_q for r in range(bf_q)]
-        folded = rbf.rescan_banded_fused(
-            sample_y, eff_s, gx, offsets, classes=classes, q=bf_q, **kw)
-        canvas = engine._apply_class_residues(folded, fracs, wc)
+    # the module's attribute, looked up per call (a test replaces it)
+    rbf = importlib.import_module(
+        "rescan_line_sted_torch.kernels.rescan_banded_fused")
+    banded = plan.banded
+    canvas = banded.finish(rbf.rescan_banded_fused(
+        sample_y, banded.k1, key=key if per_step else None))
     if key is not None and not per_step:
         canvas = poisson_flat(canvas.contiguous(), key=key)
     image = DTensor.from_local(canvas, mesh, placements, run_check=False)
     return AcquisitionResult(image=image,
-                             dose=line_sted_dose(params, geom, dev))
+                             dose=DoseReport(*plan.dose.clone().unbind()))

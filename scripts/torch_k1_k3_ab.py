@@ -69,6 +69,8 @@ def main(argv=None) -> int:
                text=True).stdout.strip(), "k1": {}}
     for mode, (_, case) in cs.K1_MODES.items():
         a, kw = cs.k1_inputs(case, dev)
+        if not isinstance(kw, dict):   # (sample_y, plan): K1's two inputs
+            a, kw = (a, kw), {}
         out["k1"][mode] = {
             "noisy": timed(cs, lambda: k1.rescan_banded_fused(
                 *a, **kw, generator=gen)),

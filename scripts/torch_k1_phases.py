@@ -130,13 +130,13 @@ def main(argv=None) -> int:
                 _build.BUILD_DIR / "k1_phases", _build._nvcc(),
                 _build.NVCC_FLAGS,
                 _build._SIGNATURES["rls_rescan_banded_fused"])
-    (sample_y, eff, gx, offs), kw = cs.k1_inputs(cs.K1_MODES[args.mode][1],
-                                                 dev)
+    sample_y, plan = cs.k1_inputs(cs.K1_MODES[args.mode][1], dev)
+    if isinstance(plan, dict):   # a tree whose K1 takes its raw arguments
+        sample_y, plan = sample_y[0], banded_plan(*sample_y[1:], **plan)
     h, w = sample_y.shape
-    b, chunk, d_in, d_out, wc = (kw.get("binning", 1), kw["chunk"],
-                                 kw["d_in"], kw["d_out"], kw["wc"])
+    b, chunk, d_in, d_out, wc = (plan.binning, plan.chunk, plan.d_in,
+                                 plan.d_out, plan.wc)
     dob = d_out // b
-    plan = banded_plan(eff, gx, offs, **kw)
     q, n_spread, taps = plan.q, plan.n_spread, plan.taps
     g_t, ill_w, sa_lo, sa_hi, m0, cls = (plan.g_t, plan.ill_w, plan.sa_lo,
                                          plan.sa_hi, plan.m0, plan.cls)

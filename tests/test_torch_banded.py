@@ -15,6 +15,7 @@ import torch
 
 from rescan_line_sted_torch.kernels import _build
 from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+    banded_plan,
     rescan_banded_fused,
     rescan_banded_fused_reference,
 )
@@ -52,6 +53,13 @@ def _torch_args(a, device="cpu"):
             for k in ("sample", "eff", "gx", "offsets", "classes")]
 
 
+def _k1(fn, sample, eff, gx, offsets, generator=None, **kw):
+    """``fn`` (K1's wrapper or its plain version) on ``sample`` with the
+    plan of these raw arguments (``banded_plan``)."""
+    return fn(sample, banded_plan(eff, gx, offsets, **kw),
+              generator=generator)
+
+
 def _rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / np.abs(want).max())
@@ -64,18 +72,16 @@ def test_plain_matches_jax_interpret(q, binning, rf):
                     jnp.asarray(a["gx"]), jnp.asarray(a["offsets"]),
                     classes=jnp.asarray(a["classes"]), interpret=True, **kw)
     s, e, g, o, c = _torch_args(a)
-    got = rescan_banded_fused_reference(s, e, g, o, classes=c, **kw)
+    got = _k1(rescan_banded_fused_reference, s, e, g, o, classes=c, **kw)
     assert got.shape == want.shape == (q, kw["wc"], 64 // binning)
     assert _rel(got, want) <= 1e-5
     # the wrapper takes the plain version for CPU tensors, launching nothing
     _build.reset_launches()
-    assert torch.equal(rescan_banded_fused(s, e, g, o, classes=c, **kw), got)
+    assert torch.equal(_k1(rescan_banded_fused, s, e, g, o, classes=c, **kw),
+                       got)
     assert _build.LAUNCHES["rescan_banded_fused"] == 0
 
 
-@pytest.mark.parametrize("fn", [rescan_banded_fused,
-                                rescan_banded_fused_reference],
-                         ids=["wrapper", "reference"])
 @pytest.mark.parametrize("kw,match", [
     (dict(wc=128, d_in=32, d_out=None, chunk=8), "frame window"),
     (dict(wc=128, d_in=32, d_out=48, chunk=4), "multiple of 8"),
@@ -83,19 +89,38 @@ def test_plain_matches_jax_interpret(q, binning, rf):
     (dict(wc=128, d_in=32, d_out=50, chunk=8, binning=2), "binning"),
     (dict(wc=128, d_in=64, d_out=48, chunk=8), "d_in < W"),
 ])
-def test_guards(fn, kw, match):
+def test_guards(kw, match):
+    """``banded_plan``, K1's one constructor, validates its arguments."""
     w = 64
     prof = torch.from_numpy(_profile(w, 1.5))
-    args = (torch.zeros(64, w), prof, prof, torch.zeros(w, dtype=torch.int32))
     with pytest.raises(ValueError, match=match):
-        fn(*args, **kw)
+        banded_plan(prof, prof, torch.zeros(w, dtype=torch.int32), **kw)
+
+
+@pytest.mark.parametrize("fn,wrong,match", [
+    (rescan_banded_fused, "width", "plan built for W = 64"),
+    (rescan_banded_fused_reference, "width", "plan built for W = 64"),
+    (rescan_banded_fused, "key", "generator or key words, not both")],
+    ids=["wrapper-width", "reference-width", "wrapper-key"])
+def test_k1_guards_what_it_receives(fn, wrong, match):
+    """K1 checks what it takes beside its plan: a sample as wide as the
+    plan's, and a generator or key words, not both."""
+    a, kw = _case(2, 1, 1.5)
+    s, e, g, o, c = _torch_args(a)
+    plan = banded_plan(e, g, o, classes=c, **kw)
+    with pytest.raises(ValueError, match=match):
+        if wrong == "width":
+            fn(s[:, :56], plan)
+        else:
+            fn(s, plan, generator=torch.Generator().manual_seed(0),
+               key=(1, 2))
 
 
 def test_class_range_guard():
     a, kw = _case(2, 1, 1.5)
     s, e, g, o, c = _torch_args(a)
     with pytest.raises(ValueError, match="classes"):
-        rescan_banded_fused_reference(s, e, g, o, classes=c + 1, **kw)
+        banded_plan(e, g, o, classes=c + 1, **kw)
 
 
 def test_plain_noise_statistics():
@@ -105,10 +130,10 @@ def test_plain_noise_statistics():
     a, kw = _case(2, 1, 1.5)
     s, e, g, o, c = _torch_args(a)
     s, e = 50.0 * s, 40.0 * e
-    clean = rescan_banded_fused_reference(s, e, g, o, classes=c, **kw)
-    noisy = [rescan_banded_fused_reference(
-        s, e, g, o, classes=c, generator=torch.Generator().manual_seed(k),
-        **kw) for k in (7, 7, 8)]
+    clean = _k1(rescan_banded_fused_reference, s, e, g, o, classes=c, **kw)
+    noisy = [_k1(rescan_banded_fused_reference, s, e, g, o, classes=c,
+                 generator=torch.Generator().manual_seed(k), **kw)
+             for k in (7, 7, 8)]
     assert torch.equal(noisy[0], noisy[1])
     assert not torch.equal(noisy[0], noisy[2])
     assert (noisy[0] >= 0).all() and torch.equal(noisy[0], noisy[0].round())
@@ -339,7 +364,29 @@ def test_banded_tables_pass_the_params_supports(exc, det):
                                    det_support=det)
     want = (_support(params.sigma_exc) if exc is None else exc,
             _support(params.sigma_det) if det is None else det)
-    assert banded.kwargs["supports"] == banded.k1.supports == want
+    assert banded.k1.supports == want
+
+
+@pytest.mark.parametrize("exc,det", [(None, None), (20, 30), (40, None)])
+def test_one_support_rule(exc, det):
+    """``_illum_band`` sizes the windows by ``_band_supports``, and the
+    sharded engine's halo is the same detection support; only a fitted
+    ``sigma_det`` without a set ``det_support`` has none."""
+    import rescan_line_sted_torch as T
+    from rescan_line_sted_torch.imaging import rescan as trescan
+    from rescan_line_sted_torch.parallel.sharded_rescan import _det_support
+
+    params = T.LineSTEDParams.create(sigma_exc=3.0, sigma_det=3.0).replace(
+        exc_support=exc, det_support=det)
+    s_exc, s_det = trescan._band_supports(params)
+    assert (s_exc, s_det) == (24 if exc is None else exc,
+                              24 if det is None else det)
+    assert trescan._illum_band(params, 2048, 32) == (
+        -(-(32 + 2 * s_exc) // 128) * 128,
+        -(-(32 + 2 * (s_exc + s_det)) // 128) * 128)
+    assert _det_support(params) == s_det
+    fitted = params.replace(sigma_det=torch.tensor(3.0, requires_grad=True))
+    assert _det_support(fitted) == det
 
 
 def _indicator(w, half):
@@ -359,7 +406,7 @@ def test_band_runs_cover_every_product_of_the_supports(d_in, d_out, chunk, b,
     columns where its table is nonzero (``[0, 0)`` where it has none), so
     the band's table equals the whole windows' exactly."""
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
-        band_runs, banded_plan, banded_table)
+        band_runs, banded_table)
 
     w = 512
     plan = banded_plan(_indicator(w, s_exc), _indicator(w, s_det),
@@ -386,7 +433,7 @@ def test_no_supports_convolve_the_whole_windows():
     that covers every window column; the band's own canvas stays within
     1e-5 of the JAX kernel, which has no band."""
     from rescan_line_sted_torch.kernels.rescan_banded_fused import (
-        banded_plan, banded_table)
+        banded_table)
 
     a, kw = _case(2, 1, 1.5)
     s, e, g, o, c = _torch_args(a)
@@ -395,12 +442,12 @@ def test_no_supports_convolve_the_whole_windows():
     assert plan.supports is None and plan.band_share == 1.0
     assert torch.equal(banded_table(plan), (plan.g0w[None] * plan.ill_w[
         :, None, :]).reshape(kw["chunk"] * dob, b, kw["d_in"]).sum(1))
-    none = rescan_banded_fused_reference(s, e, g, o, classes=c, **kw)
-    cover = rescan_banded_fused_reference(s, e, g, o, classes=c, **kw,
-                                          supports=(64, 64))
+    none = _k1(rescan_banded_fused_reference, s, e, g, o, classes=c, **kw)
+    cover = _k1(rescan_banded_fused_reference, s, e, g, o, classes=c, **kw,
+                supports=(64, 64))
     assert torch.equal(none, cover)
-    tight = rescan_banded_fused_reference(s, e, g, o, classes=c, **kw,
-                                          supports=(8, 8))
+    tight = _k1(rescan_banded_fused_reference, s, e, g, o, classes=c, **kw,
+                supports=(8, 8))
     want = j_banded(jnp.asarray(a["sample"]), jnp.asarray(a["eff"]),
                     jnp.asarray(a["gx"]), jnp.asarray(a["offsets"]),
                     classes=jnp.asarray(a["classes"]), interpret=True, **kw)

@@ -22,6 +22,7 @@ from rescan_line_sted_torch.kernels.poisson import (
     poisson_rows_tiered_reference,
 )
 from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+    banded_plan,
     rescan_banded_fused,
     rescan_banded_fused_reference,
 )
@@ -174,8 +175,8 @@ def test_key_words_on_card_match_by_value(cuda, kernel, monkeypatch):
         s, e, gx, offs = args
 
         def run(g):
-            return rescan_banded_fused(50.0 * s, 40.0 * e, gx, offs, **kw,
-                                       generator=g)
+            return _k1(rescan_banded_fused, 50.0 * s, 40.0 * e, gx, offs,
+                       **kw, generator=g)
     elif kernel == "k3":
         s, eff, gx, slit = _line_inputs(64, 256, 4.0, cuda)
 
@@ -208,16 +209,16 @@ def test_banded_kernel_wide_windows_match_plain(cuda):
             torch.arange(w, device=cuda).int() // 2)
     for b in (1, 2):
         kw = dict(wc=w // b + 64, d_in=d, d_out=d, chunk=32, binning=b)
-        want = rescan_banded_fused_reference(*args, **kw)
+        want = _k1(rescan_banded_fused_reference, *args, **kw)
         before = _build.LAUNCHES["rescan_banded_fused_wide"]
-        got = rescan_banded_fused(*args, **kw)
+        got = _k1(rescan_banded_fused, *args, **kw)
         torch.cuda.synchronize()
         assert _build.LAUNCHES["rescan_banded_fused_wide"] == before + 1
         assert got.shape == want.shape and _rel(got, want) <= 1e-5
     kw = dict(wc=w + 96, d_in=d, d_out=d, chunk=32,
               **_spread(w, 0.29, 1, cuda))
-    want = rescan_banded_fused_reference(*args, **kw)
-    got = rescan_banded_fused(*args, **kw)
+    want = _k1(rescan_banded_fused_reference, *args, **kw)
+    got = _k1(rescan_banded_fused, *args, **kw)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["rescan_banded_fused_spread_wide"] >= 1
     assert got.shape == want.shape == (2, w + 96, 64)
@@ -239,6 +240,16 @@ def _profile(w, sigma, device):
     return torch.exp(-0.5 * (x / sigma) ** 2).float()
 
 
+def _k1(fn, sample, eff, gx, offsets, *, generator=None, key=None, **kw):
+    """``fn`` (K1's wrapper or its plain version) on ``sample`` with the
+    plan of these raw arguments (``banded_plan``, on the sample's
+    device); ``key`` goes to the wrapper."""
+    plan = banded_plan(eff, gx, offsets, device=sample.device, **kw)
+    if key is None:
+        return fn(sample, plan, generator=generator)
+    return fn(sample, plan, generator=generator, key=key)
+
+
 def _case(q, binning, rf, chunk, device, h=64):
     w = 64
     g = torch.Generator().manual_seed(5 + q + binning)
@@ -256,9 +267,9 @@ def _case(q, binning, rf, chunk, device, h=64):
 @pytest.mark.parametrize("q,binning,rf,chunk", CASES)
 def test_banded_kernel_matches_plain(cuda, q, binning, rf, chunk):
     args, kw = _case(q, binning, rf, chunk, cuda)
-    want = rescan_banded_fused_reference(*args, **kw)
+    want = _k1(rescan_banded_fused_reference, *args, **kw)
     before = _build.LAUNCHES["rescan_banded_fused"]
-    got = rescan_banded_fused(*args, **kw)
+    got = _k1(rescan_banded_fused, *args, **kw)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["rescan_banded_fused"] == before + 1
     assert got.shape == want.shape and _rel(got, want) <= 1e-5
@@ -269,16 +280,16 @@ def test_banded_kernel_partial_lane_tile(cuda, h):
     """H/b not a multiple of the 16-lane CTA tile (and, at 70, not of the
     4-element Philox block): masked lanes, scalar canvas access."""
     args, kw = _case(2, 1, 1.5, 8, cuda, h=h)
-    want = rescan_banded_fused_reference(*args, **kw)
-    got = rescan_banded_fused(*args, **kw)
+    want = _k1(rescan_banded_fused_reference, *args, **kw)
+    got = _k1(rescan_banded_fused, *args, **kw)
     assert got.shape == (2, kw["wc"], h) and _rel(got, want) <= 1e-5
     s, e, gx, offs = args
-    noisy = [rescan_banded_fused(50.0 * s, 40.0 * e, gx, offs, **kw,
-                                 generator=torch.Generator().manual_seed(4))
+    noisy = [_k1(rescan_banded_fused, 50.0 * s, 40.0 * e, gx, offs, **kw,
+                 generator=torch.Generator().manual_seed(4))
              for _ in range(2)]
     assert torch.equal(noisy[0], noisy[1]) and (noisy[0] >= 0).all()
-    ref = float(rescan_banded_fused_reference(50.0 * s, 40.0 * e, gx, offs,
-                                              **kw).double().sum())
+    ref = float(_k1(rescan_banded_fused_reference, 50.0 * s, 40.0 * e, gx,
+                    offs, **kw).double().sum())
     assert abs(float(noisy[0].double().sum()) - ref) <= 5 * np.sqrt(ref)
 
 
@@ -303,8 +314,8 @@ def test_banded_kernel_ragged_tiles_every_layout(cuda, h, b, wide, spread):
               chunk=16, binning=b)
     if spread:
         kw.update(_spread(w, 0.29, b, cuda))
-    want = rescan_banded_fused_reference(*args, **kw)
-    got = rescan_banded_fused(*args, **kw)
+    want = _k1(rescan_banded_fused_reference, *args, **kw)
+    got = _k1(rescan_banded_fused, *args, **kw)
     torch.cuda.synchronize()
     name = "rescan_banded_fused" + ("_spread" if spread else "") + (
         "_wide" if wide else "")
@@ -331,8 +342,8 @@ def test_banded_kernel_lean_layout_matches_plain(cuda):
         kw = dict(wc=w + 160, d_in=d, d_out=d, chunk=32)
         if spread:
             kw.update(_spread(w, 0.29, 1, cuda))
-        want = rescan_banded_fused_reference(*args, **kw)
-        got = rescan_banded_fused(*args, **kw)
+        want = _k1(rescan_banded_fused_reference, *args, **kw)
+        got = _k1(rescan_banded_fused, *args, **kw)
         torch.cuda.synchronize()
         name = "rescan_banded_fused" + ("_spread" if spread else "") + "_wide"
         shape = k1.LAUNCH_SHAPE[name]
@@ -362,8 +373,8 @@ def test_banded_kernel_repeatable_in_every_mode(cuda, mode):
         if "spread" in mode:
             kw.update(_spread(w, 0.29, 1, cuda))
     s, e, gx, offs = args
-    runs = [rescan_banded_fused(40.0 * s, 30.0 * e, gx, offs, **kw,
-                                generator=torch.Generator().manual_seed(k))
+    runs = [_k1(rescan_banded_fused, 40.0 * s, 30.0 * e, gx, offs, **kw,
+                generator=torch.Generator().manual_seed(k))
             for k in (5, 5, 6)]
     torch.cuda.synchronize()
     assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
@@ -384,8 +395,8 @@ def test_key_argument_seeds_the_draws(cuda, kernel, form):
         name = "rescan_banded_fused"
 
         def run(**k):
-            return rescan_banded_fused(50.0 * s, 40.0 * e, gx, offs, **kw,
-                                       **k)
+            return _k1(rescan_banded_fused, 50.0 * s, 40.0 * e, gx, offs,
+                       **kw, **k)
     else:
         lam = torch.full((256, 256), 2.0, device=cuda)
         name = "poisson_flat"
@@ -444,9 +455,9 @@ def test_banded_kernel_noise(cuda):
     args, kw = _case(2, 1, 1.5, 8, cuda)
     s, e, gx, offs = args
     s, e = 50.0 * s, 40.0 * e
-    clean = rescan_banded_fused(s, e, gx, offs, **kw)
-    runs = [rescan_banded_fused(s, e, gx, offs, **kw,
-                                generator=torch.Generator().manual_seed(k))
+    clean = _k1(rescan_banded_fused, s, e, gx, offs, **kw)
+    runs = [_k1(rescan_banded_fused, s, e, gx, offs, **kw,
+                generator=torch.Generator().manual_seed(k))
             for k in (7, 7, 8)]
     assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
     assert (runs[0] >= 0).all() and torch.equal(runs[0], runs[0].round())
@@ -501,8 +512,8 @@ def test_banded_kernel_band_matches_plain(cuda, case):
     from rescan_line_sted_torch.kernels import rescan_banded_fused as k1
 
     args, kw = _band_case(case, cuda)
-    want = rescan_banded_fused_reference(*args, **kw)
-    got = rescan_banded_fused(*args, **kw)
+    want = _k1(rescan_banded_fused_reference, *args, **kw)
+    got = _k1(rescan_banded_fused, *args, **kw)
     torch.cuda.synchronize()
     b, d = kw["binning"], kw["d_in"]
     assert got.shape == want.shape
@@ -522,8 +533,8 @@ def test_banded_kernel_band_repeatable(cuda, case):
     and another with another key."""
     args, kw = _band_case(case, cuda)
     s, e, gx, offs = args
-    runs = [rescan_banded_fused(40.0 * s, 30.0 * e, gx, offs, **kw,
-                                generator=torch.Generator().manual_seed(k))
+    runs = [_k1(rescan_banded_fused, 40.0 * s, 30.0 * e, gx, offs, **kw,
+                generator=torch.Generator().manual_seed(k))
             for k in (5, 5, 6)]
     torch.cuda.synchronize()
     assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
@@ -543,15 +554,15 @@ def test_flagship_band_share(cuda, rf):
                                      stripe_period=12.0, depletion=8.0,
                                      slit_halfwidth=4.0, brightness=1.0)
     geom = T.RescanGeometry(T.Grid(2048, 2048), rescan_factor=rf, chunk=32)
-    args, kw, _ = _banded_inputs(torch.rand((2048, 2048), device=cuda),
-                                 params, geom)
-    rescan_banded_fused(*args, **kw)
+    sample_y, plan, _ = _banded_inputs(
+        torch.rand((2048, 2048), device=cuda), params, geom)
+    rescan_banded_fused(sample_y, plan)
     torch.cuda.synchronize()
     shape = k1.LAUNCH_SHAPE["rescan_banded_fused" + (
         "" if rf == 1.5 else "_spread")]
-    steps, whole = k1.band_k_steps(kw["d_in"], kw["d_out"], 32, 1,
-                                   kw["supports"])
-    assert kw["supports"] == (24, 24) and (steps, whole) == (560, 2048)
+    steps, whole = k1.band_k_steps(plan.d_in, plan.d_out, 32, 1,
+                                   plan.supports)
+    assert plan.supports == (24, 24) and (steps, whole) == (560, 2048)
     assert shape["band_k_steps"] == steps
     assert shape["band_share"] == steps / whole
 
@@ -568,21 +579,21 @@ def test_banded_kernel_spread_matches_plain(cuda, step, b, chunk, wc):
     kw.pop("q")
     kw.update(_spread(64, step, b, cuda))
     kw["wc"] = wc or max(kw["wc"], kw["d_out"] // b + 24)
-    want = rescan_banded_fused_reference(*args, **kw)
+    want = _k1(rescan_banded_fused_reference, *args, **kw)
     before = _build.LAUNCHES["rescan_banded_fused_spread"]
-    got = rescan_banded_fused(*args, **kw)
+    got = _k1(rescan_banded_fused, *args, **kw)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["rescan_banded_fused_spread"] == before + 1
     assert got.shape == want.shape == (2, kw["wc"], 64 // b)
     assert _rel(got, want) <= 1e-5
     s, e, gx, offs = args
-    noisy = [rescan_banded_fused(50.0 * s, 40.0 * e, gx, offs, **kw,
-                                 generator=torch.Generator().manual_seed(k))
+    noisy = [_k1(rescan_banded_fused, 50.0 * s, 40.0 * e, gx, offs, **kw,
+                 generator=torch.Generator().manual_seed(k))
              for k in (4, 4, 5)]
     assert torch.equal(noisy[0], noisy[1])
     assert not torch.equal(noisy[0], noisy[2])
-    ref = float(rescan_banded_fused_reference(50.0 * s, 40.0 * e, gx, offs,
-                                              **kw).double().sum())
+    ref = float(_k1(rescan_banded_fused_reference, 50.0 * s, 40.0 * e, gx,
+                    offs, **kw).double().sum())
     assert abs(float(noisy[0].double().sum()) - ref) <= 5 * np.sqrt(ref)
 
 
@@ -1915,18 +1926,17 @@ def test_line_fit_on_card_matches_cpu_and_never_syncs(cuda):
 def test_port_spans_share_the_cards_clock_and_count_every_read(cuda,
                                                                tmp_path):
     """A profiled per-step call at the flagship's shapes (2048^2, R = 1.5,
-    K1 class mode), then K1 called as an outside caller calls it, without
-    a plan: each K1 ``cudaLaunchKernel`` lies inside ``rls.k1`` and its
-    kernel starts after the span opens (one clock for the port's spans and
-    the card), and every device-to-host copy and runtime wait in the
-    calls' stretch outside the harness-style ``bench.sync`` lies inside
-    ``rls.read_back`` (the outside call's class check; the entry reads
-    nothing back), one copy to a read, so the counter misses no sync."""
+    K1 class mode), then K1 called as an outside caller calls it, its plan
+    built with classes and no ``class_bounds``: each K1
+    ``cudaLaunchKernel`` lies inside ``rls.k1`` and its kernel starts
+    after the span opens (one clock for the port's spans and the card),
+    and every device-to-host copy and runtime wait in the calls' stretch
+    outside the harness-style ``bench.sync`` lies inside ``rls.read_back``
+    (the outside plan's class check; the entry reads nothing back), one
+    copy to a read, so the counter misses no sync."""
     import json
 
     from torch.profiler import ProfilerActivity, profile, record_function
-
-    from rescan_line_sted_torch.imaging.rescan import _banded_inputs
 
     n = 2048
     params = T.LineSTEDParams.create(sigma_exc=3.0, sigma_det=3.0,
@@ -1936,13 +1946,13 @@ def test_port_spans_share_the_cards_clock_and_count_every_read(cuda,
     sample = torch.rand((n, n), device=cuda)
     gen = torch.Generator(cuda).manual_seed(3)
 
-    args, kw, _ = _banded_inputs(sample, params, geom)
+    args, kw = _case(2, 1, 1.5, 8, cuda)
 
     def call():
         image = T.rescanned_line_sted_image(
             sample, params, geom, generator=gen, method="scan",
             noise_mode="per_step", device=cuda).image
-        rescan_banded_fused(*args, **kw)
+        _k1(rescan_banded_fused, *args, **kw)
         return image
 
     call()

@@ -20,10 +20,13 @@ import rescan_line_sted_torch as T
 import rescan_line_sted_tpu as J
 from rescan_line_sted_torch.convert import geometry_from_jax
 from rescan_line_sted_torch.imaging import rescan as trescan
+from rescan_line_sted_torch.imaging.line_sted import effective_line_profile
 from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+    banded_plan,
     rescan_banded_fused,
     rescan_banded_fused_reference,
 )
+from rescan_line_sted_torch.physics import psf as tpsf
 from rescan_line_sted_tpu.data import samples
 from rescan_line_sted_tpu.imaging import rescan as jrescan
 from rescan_line_sted_tpu.kernels.rescan_banded_fused import (
@@ -85,35 +88,56 @@ def test_deconv_inv_matches_jax(wc):
 def test_apply_nufft_deconv_matches_jax(wc):
     folded = np.random.default_rng(wc).random((2, wc, 24), np.float32)
     dinv = trescan._nufft_deconv_inv(wc)
-    got = trescan._apply_nufft_deconv(torch.from_numpy(folded), wc, dinv)
+    got = trescan._nufft_finish(wc, "cpu", dinv)(torch.from_numpy(folded))
     want = jrescan._apply_nufft_deconv(jnp.asarray(folded), wc,
                                        jnp.asarray(dinv))
     assert got.shape == (24, wc) and _rel(got, want) <= 1e-5
 
 
 def _kernel_inputs(rf, b, seed=0):
-    """The scan's own kernel inputs for one cell (numpy), and its kwargs."""
+    """The scan's own K1 inputs for one cell: the y-convolved sample and
+    the raw arguments (numpy) the entry builds its plan from, their
+    keywords, and that plan (``_banded_inputs``), which ``banded_plan``
+    rebuilds from them."""
     _, (tp, tg) = _both(rf, b)
     s = np.random.default_rng(seed).random((W, W), np.float32)
-    args, kw, _ = trescan._banded_inputs(torch.from_numpy(s), tp, tg)
-    return [a.numpy() for a in args], kw
+    sample_y, plan, _ = trescan._banded_inputs(torch.from_numpy(s), tp, tg)
+    d_in, d_out, pq = trescan._k1_windows(tp, tg)
+    offsets2, weights = trescan._nufft_spread_tables(_offs(rf, b))
+    kw = dict(wc=tg.canvas_shape[1], d_in=d_in, d_out=d_out, chunk=16,
+              binning=b, spread_weights=weights, offsets2=offsets2)
+    args = [sample_y,
+            tp.brightness * effective_line_profile(W, tp, "cpu"),
+            tpsf.detection_profile(W, tp.sigma_det, "cpu"),
+            torch.zeros(W, dtype=torch.int32)]
+    again = banded_plan(*args[1:], supports=plan.supports, **kw)
+    for name in ("g_t", "ill_w", "sa_lo", "sa_hi", "m0", "cls", "taps"):
+        assert torch.equal(getattr(again, name), getattr(plan, name)), name
+    return [a.numpy() for a in args], kw, plan
+
+
+def _k1(fn, args, kw):
+    """``fn`` (K1's wrapper or its plain version) on the raw arguments
+    ``args`` (numpy), through their plan (``banded_plan``)."""
+    sample_y, *rest = map(torch.from_numpy, args)
+    return fn(sample_y, banded_plan(*rest, **kw))
 
 
 @pytest.mark.parametrize("rf,b", IRRATIONAL_CELLS, ids=CELL_IDS)
 def test_plain_kernel_matches_jax_interpret(rf, b):
-    args, kw = _kernel_inputs(rf, b)
-    assert "spread_weights" in kw and "classes" not in kw
+    args, kw, plan = _kernel_inputs(rf, b)
+    assert plan.n_spread == 4 and plan.q == 2 and not plan.cls.any()
     # the JAX kernel convolves the whole windows; the port's band
     # (supports) leaves out only products below 1e-12 of the peak
     jkw = {k: (jnp.asarray(v.numpy()) if isinstance(v, torch.Tensor) else v)
-           for k, v in kw.items() if k != "supports"}
+           for k, v in kw.items()}
     want = j_banded(*map(jnp.asarray, args), interpret=True, **jkw)
-    got = rescan_banded_fused_reference(*map(torch.from_numpy, args), **kw)
+    sample_y = torch.from_numpy(args[0])
+    got = rescan_banded_fused_reference(sample_y, plan)
     assert got.shape == want.shape == (2, kw["wc"], W // b)
     assert _rel(got, want) <= 1e-5
     # a CPU tensor takes the plain version through the wrapper
-    assert torch.equal(rescan_banded_fused(*map(torch.from_numpy, args),
-                                           **kw), got)
+    assert torch.equal(rescan_banded_fused(sample_y, plan), got)
 
 
 @pytest.mark.parametrize("rf,b", IRRATIONAL_CELLS, ids=CELL_IDS)
@@ -194,27 +218,27 @@ def test_routing_helpers_match_jax(w, sigma_exc, sigma_det, rf, b):
 def test_routing_picks_spreading_at_any_step():
     """Steps without a q <= 8 class structure take the NUFFT mode (two
     parity canvases, no classes); rational ones keep class placement."""
-    for rf, spread in ((1.0 + np.pi / 16, True), (1.0 + 3 / 16, True),
-                       (1.7, True), (1.5, False), (2.0, False)):
+    for rf, spread, q in ((1.0 + np.pi / 16, True, 2),
+                          (1.0 + 3 / 16, True, 2), (1.7, True, 2),
+                          (1.5, False, 2), (2.0, False, 1)):
         _, (tp, tg) = _both(rf, 1)
-        args, kw, finish = trescan._banded_inputs(
+        sample_y, plan, finish = trescan._banded_inputs(
             torch.from_numpy(SAMPLE), tp, tg)
-        assert ("spread_weights" in kw) == spread, rf
-        folded = rescan_banded_fused(*args, **kw)
-        assert folded.shape[0] == (2 if spread else kw.get("q", 1))
+        assert (plan.n_spread > 0) == spread, rf
+        folded = rescan_banded_fused(sample_y, plan)
+        assert folded.shape[0] == plan.q == q
         assert finish(folded).shape == tg.canvas_shape
 
 
 def test_spread_guards():
-    args, kw = _kernel_inputs(1.0 + np.pi / 16, 1)
-    args = list(map(torch.from_numpy, args))
+    args, kw, _ = _kernel_inputs(1.0 + np.pi / 16, 1)
     with pytest.raises(ValueError, match="offsets2"):
-        rescan_banded_fused_reference(*args, **{**kw, "offsets2": None})
+        _k1(rescan_banded_fused_reference, args, {**kw, "offsets2": None})
     with pytest.raises(ValueError, match="class"):
-        rescan_banded_fused_reference(
-            *args, **kw, classes=torch.zeros(W, dtype=torch.int32))
+        _k1(rescan_banded_fused_reference, args,
+            {**kw, "classes": torch.zeros(W, dtype=torch.int32)})
     with pytest.raises(ValueError, match="wider than canvas"):
-        rescan_banded_fused_reference(*args, **{**kw, "wc": 136})
+        _k1(rescan_banded_fused_reference, args, {**kw, "wc": 136})
 
 
 def test_geometry_from_jax_irrational():

@@ -30,6 +30,7 @@ from rescan_line_sted_torch.data import samples
 from rescan_line_sted_torch.kernels import _build
 from rescan_line_sted_torch.kernels.poisson import poisson_flat
 from rescan_line_sted_torch.kernels.rescan_banded_fused import (
+    banded_plan,
     rescan_banded_fused,
 )
 from rescan_line_sted_torch.parallel import (
@@ -199,21 +200,29 @@ def test_auto_route_engages_on_row_sharded_samples(worlds, n, case):
 
 @pytest.mark.parametrize("n", WORLDS)
 def test_gathered_route_on_precondition_error(worlds, n):
-    """The NUFFT opt-out refuses inside the sharded engine: the route
+    """A geometry without band windows (a chunk whose frame window is not
+    narrower than the frame) refuses inside the sharded engine: the route
     attempts it, catches the ``ShardedPreconditionError`` and runs the
     unsharded engine on the gathered sample, returned by rows."""
     for facts in _facts(worlds.result, n):
-        assert facts["optout_irrational"]["engaged"] == (
-            ["space"] if n > 1 else [])
-        assert facts["optout_irrational"]["placements"] == ["S(0)"]
-        assert facts["optout_error"].startswith(
-            "ShardedPreconditionError: irrational placement step")
-    os.environ["RLS_BANDED_NUFFT"] = "0"   # the unsharded port ignores it
-    try:
-        want = _unsharded("irrational")
-    finally:
-        del os.environ["RLS_BANDED_NUFFT"]
-    _close(_rows(worlds.result, n, "optout_irrational"), want)
+        assert facts["unbanded"]["engaged"] == (["space"] if n > 1 else [])
+        assert facts["unbanded"]["placements"] == ["S(0)"]
+        assert facts["unbanded_error"].startswith(
+            "ShardedPreconditionError: no static band windows")
+    wide = T.RescanGeometry(T.Grid(W, W), rescan_factor=1.5,
+                            chunk=worker.WIDE_CHUNK)
+    want = T.rescanned_line_sted_image(_sample(), _params(), wide,
+                                       method="scan", device="cpu")
+    _close(_rows(worlds.result, n, "unbanded"), want.image.numpy())
+
+
+@pytest.mark.parametrize("n", WORLDS)
+def test_second_sharded_call_builds_no_tables(worlds, n):
+    """The sharded engine takes the entry's plan: a second call of a
+    geometry opens no ``rls.plan_build`` and no ``rls.read_back`` span,
+    on every case (classes, binning, NUFFT spreading)."""
+    for facts in _facts(worlds.result, n):
+        assert facts["second_call"] == {c: [] for c in CASES}
 
 
 @pytest.mark.parametrize("n", WORLDS)
@@ -583,7 +592,8 @@ def test_offset_key_wraps_modulo_the_key_range():
     assert got.tolist() == [5, 1]
 
 
-def _k1_inputs():
+def _k1_sample_and_plan():
+    """A sample and K1's plan for it (``banded_plan``)."""
     rng = np.random.default_rng(0)
     w, h = 64, 32
     sample_y = torch.from_numpy(rng.random((h, w), np.float32)) * 5.0
@@ -591,8 +601,8 @@ def _k1_inputs():
     eff = torch.exp(-0.5 * (x / 3.0) ** 2)
     gx = torch.exp(-0.5 * (x / 2.0) ** 2)
     offsets = torch.arange(w, dtype=torch.int32) // 2
-    kw = dict(wc=128, d_in=32, d_out=32, chunk=16)
-    return (sample_y, eff, gx, offsets), kw
+    return sample_y, banded_plan(eff, gx, offsets, wc=128, d_in=32,
+                                 d_out=32, chunk=16)
 
 
 @pytest.mark.parametrize("kernel", ["k1", "k2c"])
@@ -601,10 +611,10 @@ def test_key_argument_seeds_the_draws(kernel):
     different words different ones (the plain versions, drawing from
     ``key_generator``); a generator and a key together are refused."""
     if kernel == "k1":
-        args, kw = _k1_inputs()
+        sample_y, plan = _k1_sample_and_plan()
 
         def run(**k):
-            return rescan_banded_fused(*args, **kw, **k)
+            return rescan_banded_fused(sample_y, plan, **k)
     else:
         lam = torch.full((64, 64), 3.0)
 

@@ -138,8 +138,8 @@ def test_routing_helpers_match_jax(rf, b):
     assert _rel(trescan._rebin(torch.from_numpy(cam), 2),
                 jrescan._rebin(jnp.asarray(cam), 2)) <= 1e-6
     folded = np.random.default_rng(1).random((2, 96, 16), np.float32)
-    assert _rel(trescan._apply_class_residues(torch.from_numpy(folded),
-                                              [0.0, 0.5], 96),
+    assert _rel(trescan._residue_finish([0.0, 0.5], 96, "cpu")(
+                    torch.from_numpy(folded)),
                 jrescan._apply_class_residues(jnp.asarray(folded),
                                               [0.0, 0.5], 96)) <= 1e-5
 

@@ -20,10 +20,7 @@ import rescan_line_sted_torch as T
 from rescan_line_sted_torch import device as device_mod
 from rescan_line_sted_torch.imaging import analytic
 from rescan_line_sted_torch.imaging import rescan as trescan
-from rescan_line_sted_torch.kernels.rescan_banded_fused import (
-    banded_plan,
-    rescan_banded_fused,
-)
+from rescan_line_sted_torch.kernels.rescan_banded_fused import banded_plan
 
 torch.set_num_threads(1)
 
@@ -225,36 +222,38 @@ def test_a_results_dose_is_its_own(route):
 
 
 def _class_inputs():
-    args, kw, _ = trescan._banded_inputs(_sample(1), _params(), _geom(1.5))
-    assert kw["q"] == 2
+    """Raw arguments of K1's plan on the class route (R = 1.5: q = 2), as
+    the entry makes them."""
+    from rescan_line_sted_torch.imaging.line_sted import (
+        effective_line_profile)
+    from rescan_line_sted_torch.physics.psf import detection_profile
+
+    params, geom = _params(), _geom(1.5)
+    d_in, d_out, (p, q) = trescan._k1_windows(params, geom)
+    assert q == 2
+    w = SHAPE[1]
+    pos = torch.arange(w)
+    args = (params.brightness * effective_line_profile(w, params, "cpu"),
+            detection_profile(w, params.sigma_det, "cpu"),
+            torch.div(p * pos, q, rounding_mode="floor").to(torch.int32))
+    kw = dict(wc=geom.canvas_shape[1], d_in=d_in, d_out=d_out,
+              chunk=geom.chunk, classes=(pos % q).to(torch.int32), q=q)
     return args, kw
 
 
 @pytest.mark.parametrize("shift", [2, -3])
 def test_k1_without_a_plan_refuses_classes_out_of_range(shift):
-    """Called without a plan (the sharded engine, the smoke, outside
-    callers), K1's wrapper still reads its classes back and refuses any
-    outside ``[0, q)``; the engine's own plan checks them on the host."""
+    """``banded_plan`` without ``class_bounds`` reads the classes back
+    once and refuses any outside ``[0, q)``; given the bounds (the entry,
+    which makes the classes), it checks them on the host."""
     from torch.profiler import ProfilerActivity, profile
 
     args, kw = _class_inputs()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        rescan_banded_fused(*args, **kw)
+        banded_plan(*args, **kw)
     assert sum(e.name == "rls.read_back" for e in prof.events()) == 1
     bad = {**kw, "classes": kw["classes"] + shift}
     with pytest.raises(ValueError, match=r"classes must lie in \[0, 2\)"):
-        rescan_banded_fused(*args, **bad)
+        banded_plan(*args, **bad)
     with pytest.raises(ValueError, match=r"classes must lie in \[0, 2\)"):
-        banded_plan(*args[1:], **{**kw, "class_bounds": (
-            shift, shift + 1)})
-
-
-def test_k1_holds_a_plan_to_its_windows():
-    """A plan serves only the band windows and width it was built for;
-    given, it stands in for the tables the call would build."""
-    args, kw = _class_inputs()
-    plan = banded_plan(*args[1:], **kw)
-    assert torch.equal(rescan_banded_fused(*args, **kw, plan=plan),
-                       rescan_banded_fused(*args, **kw))
-    with pytest.raises(ValueError, match="plan built for"):
-        rescan_banded_fused(*args, **{**kw, "wc": kw["wc"] + 8}, plan=plan)
+        banded_plan(*args, **{**kw, "class_bounds": (shift, shift + 1)})

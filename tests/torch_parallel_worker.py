@@ -23,6 +23,8 @@ torch.set_num_threads(1)
 W = 192            # the smallest grid where the 128-aligned windows engage
 CASES = {"r1.5_b1": (1.5, 1), "r2_b2": (2.0, 2),
          "irrational": (1.0 + math.pi / 16, 1)}
+# a chunk whose frame window is not narrower than the frame: no band windows
+WIDE_CHUNK = 96
 SWEEP_SIZE = 32
 SWEEP_POWERS = 8
 
@@ -105,12 +107,21 @@ def main(rank: int, world: int, store: str, out: str) -> None:
         routed(f"routed_{name}", rows, geom)
         img = orig(sample, replicate(mesh, params), geom, mesh).image
         arrays[f"explicit_{name}"] = img.to_local().numpy()
-    # the NUFFT opt-out: attempted, refused inside, gathered route
-    os.environ["RLS_BANDED_NUFFT"] = "0"
-    routed("optout_irrational", rows, geoms["irrational"])
-    facts["optout_error"] = _error(lambda: orig(
-        rows, params, geoms["irrational"], mesh))
-    del os.environ["RLS_BANDED_NUFFT"]
+    # a second sharded call of each geometry: the entry's plan, cached
+    from torch.profiler import ProfilerActivity, profile
+
+    facts["second_call"] = {}
+    for name, geom in geoms.items():
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            orig(rows, params, geom, mesh)
+        facts["second_call"][name] = sorted(
+            e.name for e in prof.events()
+            if e.name in ("rls.plan_build", "rls.read_back"))
+    # no band windows: attempted, refused inside, gathered route
+    wide = T.RescanGeometry(T.Grid(W, W), rescan_factor=1.5,
+                            chunk=WIDE_CHUNK)
+    routed("unbanded", rows, wide)
+    facts["unbanded_error"] = _error(lambda: orig(rows, params, wide, mesh))
     # a replicated sample is not row-sharded: the gathered route
     routed("replicated", distribute_tensor(sample, mesh, [Replicate()],
                                            src_data_rank=None),
