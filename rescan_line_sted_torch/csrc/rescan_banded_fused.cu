@@ -69,6 +69,23 @@
 // read-modify-written once, in position order. In the spreading mode each
 // canvas row of either parity gathers its window taps straight from the
 // pass's unspread frame rows (only the taps that land in the pass's rows).
+// An item there is three consecutive canvas rows of one parity and one
+// float4 of lanes, both parities' rows in one sweep (~45 blocks of three
+// rows of each parity a pass at the irrational flagship, ~360 items, so 12
+// of the 16 warps place, three to a scheduler): each frame row it needs is
+// read once for the taps of all three rows (6 reads, not 12, for 4 taps
+// of 3 rows), without a branch, and each
+// frame's starts and row bounds are tabled once a pass in shared memory
+// before the barrier (the synchronous layout computes them where it reads
+// them). Measured (K1 alone, noisy, at the irrational flagship) against
+// one thread a row, a parity at a time (~132 threads, a quarter of the
+// warps): 4.59 ms; one thread a row and lane quad, 4.96; items of one, two,
+// three or five rows read unbranched, 4.94 / 4.51 / 4.26 / 4.43 (five
+// spill); three rows with a branch around each read, 4.51; the entries
+// computed where they are read in every layout instead of tabled, 4.37
+// against 4.25 (noise-free 3.27 against 3.13; at D_in = 256, generator
+// layout, 8.85 against 8.83, parent 8.74); with the groups also rotated
+// in this mode (pass_group keeps them in task order here), 3.89.
 // (Measured on the card: placing a pass while the next one convolves,
 // whether by the same warps or by a second half of them through named
 // barriers, gained nothing: both phases are issue-bound, so their
@@ -102,6 +119,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPassRows = 512;              // frame rows per pass (one ring slot)
 constexpr int kGroupRows = 32;              // frame rows per warp task
 constexpr int kTiles = kGroupRows / 8;      // n8 tiles per warp task
+constexpr int kSpreadRows = 3;              // canvas rows of a spreading item
+constexpr int kTapGroup = 4;                // taps a spreading item loads for at once
 constexpr uint32_t kTf32Mask = 0xffffe000u;
 
 struct K1Args {
@@ -125,7 +144,7 @@ struct K1Args {
 // 2: generator, synchronous (one binned window, scalars in device memory).
 struct Layout {
   int variant, dobp, fs, gs, ws, rs;   // dob padded to 32; strides of ring, G, window, raw
-  int raw0, raw1, bin, g, ill, scal0, scal1, taps0, taps1, floats;
+  int raw0, raw1, bin, g, ill, scal0, scal1, taps0, taps1, tab, floats;
 };
 
 // G's row stride when resident: dob rounded up to 8 (mod 32), so that the
@@ -137,6 +156,13 @@ __host__ __device__ inline int resident_stride(int dob) {
 // Length of G's generator, rounded to 4 floats.
 __host__ __device__ inline int gen_len(int d_in, int dob, int b) {
   return (b * (dob - 1) + d_in + 3) / 4 * 4;
+}
+
+// Ints of one slot of the spreading placement's frame table (spread_frame):
+// two int4 per (frame, parity) for the most frames a pass can hold.
+__host__ __device__ inline int spread_tab_ints(int dobp, int chunk) {
+  const int frames = (kPassRows - 1) / dobp + 2;
+  return 16 * (frames < chunk ? frames : chunk);
 }
 
 __host__ __device__ inline Layout make_layout(int variant, int d_in, int dob, int chunk, int b,
@@ -187,6 +213,13 @@ __host__ __device__ inline Layout make_layout(int variant, int d_in, int dob, in
     L.scal0 = L.scal1 = -1;
     L.taps0 = L.taps1 = at;
     at += taps;
+  }
+  // the spreading placement's frame table, one slot per ring slot (the
+  // synchronous layout computes its entries where it reads them)
+  L.tab = -1;
+  if (n_spread && async) {
+    L.tab = at;
+    at += 2 * spread_tab_ints(L.dobp, chunk);
   }
   L.floats = at;
   return L;
@@ -432,6 +465,94 @@ __device__ __forceinline__ void axpy_row(float (&sum)[kLanes], float wv, const f
   }
 }
 
+// One part (frame rows lo_r .. hm_r) of one frame into a spreading item's
+// kSpreadRows consecutive canvas rows, whose first is spread-frame row rs
+// of the part (its canvas row minus the part's start, mod wc): row m adds
+// w[u] * f[rs + m - u], taps u ascending (f2: the frame's row 0 in the ring,
+// at the item's lane quad; f_lo .. f_hm: the frame's rows in the pass).
+// Each frame row is read once for all the taps and rows it feeds, without a
+// branch: a row outside the part is read clamped and weighted 0, which adds
+// an exact zero where the frame is finite (the sums start at +0, so never
+// -0). A non-finite frame value (an Inf or NaN sample) therefore also
+// reaches the item's neighbouring rows that a skipped read would leave
+// finite: the sums equal a row-by-row gather's only for finite frames.
+// hit[m] records that a tap landed on row m.
+__device__ __forceinline__ void spread_part(float4 (&acc)[kSpreadRows],
+                                            bool (&hit)[kSpreadRows], const float* f2, int fs,
+                                            const float* wgt, int n_spread, int rs, int lo_r,
+                                            int hm_r, int f_lo, int f_hm, int wc) {
+  if (rs < 0) rs += wc;
+  if (rs > wc - kSpreadRows) rs -= wc;  // the rows straddle the part's start
+  if (rs + kSpreadRows - 1 < lo_r || rs - (n_spread - 1) > hm_r) return;
+#pragma unroll
+  for (int m = 0; m < kSpreadRows; ++m)
+    hit[m] = hit[m] || max(0, rs + m - hm_r) <= min(n_spread - 1, rs + m - lo_r);
+  constexpr int kLoads = kSpreadRows + kTapGroup - 1;
+  for (int u0 = 0; u0 < n_spread; u0 += kTapGroup) {
+    float w[kTapGroup];
+#pragma unroll
+    for (int uu = 0; uu < kTapGroup; ++uu) w[uu] = u0 + uu < n_spread ? wgt[u0 + uu] : 0.0f;
+    // frame row r2 (j ascending) feeds row m with tap u0 + j + m - (kSpreadRows - 1)
+    float4 v[kLoads];
+    bool ok[kLoads];
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+      const int r2 = rs - u0 + kSpreadRows - 1 - j;
+      ok[j] = r2 >= lo_r && r2 <= hm_r;
+      v[j] = *reinterpret_cast<const float4*>(f2 + min(max(r2, f_lo), f_hm) * fs);
+    }
+#pragma unroll
+    for (int j = 0; j < kLoads; ++j) {
+#pragma unroll
+      for (int m = 0; m < kSpreadRows; ++m) {
+        const int uu = j + m - (kSpreadRows - 1);
+        if (uu < 0 || uu >= kTapGroup) continue;
+        const float wv = ok[j] ? w[uu] : 0.0f;
+        acc[m].x = fmaf(wv, v[j].x, acc[m].x);
+        acc[m].y = fmaf(wv, v[j].y, acc[m].y);
+        acc[m].z = fmaf(wv, v[j].z, acc[m].z);
+        acc[m].w = fmaf(wv, v[j].w, acc[m].w);
+      }
+    }
+  }
+}
+
+// The canvas rows of one parity that a spreading pass (positions c_first ..
+// c_last, canvas starts slo / shi) hits: the lo placements cover [base_lo,
+// base_lo + len) (offsets grow with the position), the hi ones the same
+// range W/b earlier when the chunk wraps (split < dob). A row in both
+// ranges is taken with the lo range, so the hi range adds the rows rel =
+// t - base_lo (mod wc) in [max(o, len), min(o + len, wc)), o = base_hi -
+// base_lo (mod wc). Returns {base_lo, len, that first rel, rows}; the
+// host's spread_busy (kernels/rescan_banded_fused.py) is this formula.
+__device__ __forceinline__ int4 spread_rows(const int* slo, const int* shi, int c_first,
+                                            int c_last, int split, int dob, int span, int wc) {
+  const int base_lo = slo[c_first];
+  int diff = slo[c_last] - base_lo;
+  if (diff < 0) diff += wc;
+  const int len = min(diff + span, wc);
+  int o = shi[c_first] - base_lo;
+  if (o < 0) o += wc;
+  const int rel_hi = max(o, len);
+  const int n_hi = split < dob ? max(0, min(o + len, wc) - rel_hi) : 0;
+  return make_int4(base_lo, len, rel_hi, len + n_hi);
+}
+
+// The spreading placement's table entry of frame c2, parity pi, in the pass
+// [first, end): a = {its lo part's canvas start, its hi part's, the ring
+// offset of its row 0, the offset of its parity's taps}; r = {the first and
+// last frame row of its lo part in the pass (rows below the split), of its
+// hi part} (an empty part ends before it starts).
+__device__ __forceinline__ void spread_frame(int4& a, int4& r, const int* lo, const int* hi,
+                                             int pstride, int c2, int pi, int first, int end,
+                                             int dobp, int dob, int split, int fs,
+                                             int n_spread) {
+  const int f_lo = max(0, first - c2 * dobp), f_hi = min(dob, end - c2 * dobp);
+  a = make_int4(lo[pi * pstride + c2], hi[pi * pstride + c2], (c2 * dobp - first) * fs,
+                (c2 * 2 + pi) * n_spread);
+  r = make_int4(f_lo, min(f_hi, split) - 1, max(f_lo, split), f_hi - 1);
+}
+
 // Chunk ic's raw sample window and placement scalars into buffer `buf`
 // (asynchronous layouts), one cp.async group.
 __device__ __forceinline__ void stage_async(const K1Args& p, const Layout& L, float* smem,
@@ -576,55 +697,77 @@ rescan_banded_fused_kernel(const K1Args p, const Layout L) {
       const int c_first = first / dobp;
       const int c_last = (end - 1) / dobp;
       if (kSpread) {
-        // Canvas rows of parity pi hit by the pass: the lo placements of
-        // its positions cover [base_lo, base_lo + len) (offsets grow with
-        // the position), the hi ones the same range W/b earlier. Each row
-        // is taken by one thread, once (a row in both ranges with the lo
-        // range), and gathers sum_{c2, u} w[c2, pi, u] * f[c2, t - start
-        // - u] over both parts, the part decided on the unspread row.
+        // Items (parity, kSpreadRows consecutive canvas rows, lane quad):
+        // both parities' rows (spread_rows) in one sweep, the lo range's and
+        // the hi range's each in blocks of kSpreadRows, a warp 8 blocks x 4
+        // quads, quad-major (a quarter-warp's 16-byte ring reads, rows 3
+        // apart, then fall on distinct banks). An item's rows gather
+        // sum_{c2, u} w[c2, pi, u] * f[c2, t - start - u] over both parts
+        // (frames ascending, lo part before hi, taps ascending) and are added
+        // to the canvas once.
         const int span = dob + n_spread - 1;
-        for (int pi = 0; pi < 2; ++pi) {
-          const int* slo = lo + pi * pstride;
-          const int* shi = hi + pi * pstride;
-          const int base_lo = slo[c_first];
-          const int base_hi = shi[c_first];
-          int diff = slo[c_last] - base_lo;
-          if (diff < 0) diff += wc;
-          const int len = min(diff + span, wc);
-          const int n_cand = split < dob ? 2 * len : len;
-          for (int idx = tid; idx < n_cand; idx += kThreads) {
-            int t = idx < len ? base_lo + idx : base_hi + (idx - len);
-            if (t >= wc) t -= wc;
-            if (idx >= len) {
-              int rel = t - base_lo;
-              if (rel < 0) rel += wc;
-              if (rel < len) continue;  // taken with the lo range
-            }
-            float sum[kLanes];
+        const int4 h0 = spread_rows(lo, hi, c_first, c_last, split, dob, span, wc);
+        const int4 h1 =
+            spread_rows(lo + pstride, hi + pstride, c_first, c_last, split, dob, span, wc);
+        constexpr int R = kSpreadRows;
+        const int nl0 = (h0.y + R - 1) / R, nb0 = nl0 + (h0.w - h0.y + R - 1) / R;
+        const int nl1 = (h1.y + R - 1) / R, blocks = nb0 + nl1 + (h1.w - h1.y + R - 1) / R;
+        const int nf = c_last - c_first + 1;
+        const int4* tab = kAsync ? reinterpret_cast<const int4*>(
+                                       smem + L.tab + (pass_no & 1) * spread_tab_ints(dobp, chunk))
+                                 : nullptr;
+        for (int i = tid; i < 32 * ((blocks + 7) >> 3); i += kThreads) {
+          const int bi = ((i >> 5) << 3) | (i & 7), qd = (i >> 3) & 3;
+          if (bi >= blocks) continue;
+          const int pi = bi >= nb0;
+          const int4 hd = pi ? h1 : h0;
+          const int nl = pi ? nl1 : nl0, bj = pi ? bi - nb0 : bi;
+          const bool in_lo = bj < nl;
+          const int row0 = (in_lo ? bj : bj - nl) * R;  // within its range
+          const int n_rows = min(R, (in_lo ? hd.y : hd.w - hd.y) - row0);
+          int t0 = hd.x + (in_lo ? row0 : hd.z + row0);
+          if (t0 >= wc) t0 -= wc;
+          float* dst[R];
+          float4 acc[R], old[R];
+          bool hit[R];
 #pragma unroll
-            for (int j = 0; j < kLanes; ++j) sum[j] = 0.0f;
-            bool hit = false;
-            for (int c2 = c_first; c2 <= c_last; ++c2) {
-              const float* wgt = w_s + (c2 * 2 + pi) * n_spread;
-              // c2's frame rows in this pass
-              const int f_lo = max(0, first - c2 * dobp), f_hi = min(dob, end - c2 * dobp);
-              const float* f2 = f_s + (c2 * dobp - first) * fs;
-              for (int ph = 0; ph < 2; ++ph) {
-                int rs = t - (ph ? shi[c2] : slo[c2]);  // spread-frame row
-                if (rs < 0) rs += wc;
-                // the part's rows r2 = rs - u: [split, dob) hi, [0, split) lo
-                const int lo_r = ph ? max(f_lo, split) : f_lo;
-                const int hi_r = ph ? f_hi : min(f_hi, split);
-                const int u1 = min(n_spread - 1, rs - lo_r);
-                for (int u = max(0, rs - hi_r + 1); u <= u1; ++u) {
-                  hit = true;
-                  axpy_row(sum, wgt[u], f2 + (rs - u) * fs);
-                }
-              }
+          for (int m = 0; m < R; ++m) {
+            int t = t0 + m;
+            if (t >= wc) t -= wc;
+            dst[m] = p.out + (static_cast<long long>(pi) * wc + t) * hb + lane0 + 4 * qd;
+            old[m] = full_tile && m < n_rows ? *reinterpret_cast<const float4*>(dst[m])
+                                             : float4{};
+            acc[m] = float4{};
+            hit[m] = false;
+          }
+          for (int k = 0; k < nf; ++k) {
+            int4 a, r;
+            if (kAsync) {
+              a = tab[4 * k + 2 * pi];
+              r = tab[4 * k + 2 * pi + 1];
+            } else {
+              spread_frame(a, r, lo, hi, pstride, c_first + k, pi, first, end, dobp, dob, split,
+                           fs, n_spread);
             }
-            if (hit)
-              add_row(p.out + (static_cast<long long>(pi) * wc + t) * hb + lane0, sum,
-                      full_tile, lanes_left);
+            const float* f2 = f_s + a.z + 4 * qd;
+            spread_part(acc, hit, f2, fs, w_s + a.w, n_spread, t0 - a.x, r.x, r.y, r.x, r.w, wc);
+            spread_part(acc, hit, f2, fs, w_s + a.w, n_spread, t0 - a.y, r.z, r.w, r.x, r.w, wc);
+          }
+#pragma unroll
+          for (int m = 0; m < R; ++m) {
+            if (m >= n_rows || !hit[m]) continue;
+            if (full_tile) {
+              old[m].x += acc[m].x;
+              old[m].y += acc[m].y;
+              old[m].z += acc[m].z;
+              old[m].w += acc[m].w;
+              *reinterpret_cast<float4*>(dst[m]) = old[m];
+            } else {
+              const float sum[4] = {acc[m].x, acc[m].y, acc[m].z, acc[m].w};
+#pragma unroll
+              for (int l = 0; l < 4; ++l)
+                if (4 * qd + l < lanes_left) dst[m][l] += sum[l];
+            }
           }
         }
       } else {
@@ -676,6 +819,16 @@ rescan_banded_fused_kernel(const K1Args p, const Layout L) {
       float* f_s = ring + (pass_no & 1) * kPassRows * fs;
       const int first = ps * kPassRows;
       const int end = min(first + kPassRows, rows_used);
+      if (kSpread && kAsync) {
+        // the pass's spreading table, in the slot its placement reads after
+        // the barrier (the slot's last reader placed two passes ago)
+        int4* tab = reinterpret_cast<int4*>(smem + L.tab +
+                                            (pass_no & 1) * spread_tab_ints(dobp, chunk));
+        const int c_first = first / dobp;
+        for (int i = tid; i < 2 * ((end - 1) / dobp - c_first + 1); i += kThreads)
+          spread_frame(tab[2 * i], tab[2 * i + 1], lo, hi, pstride, c_first + (i >> 1), i & 1,
+                       first, end, dobp, dob, split, fs, n_spread);
+      }
       // Each warp convolves whole 32-row groups and, in a noisy run, draws
       // their rows itself (one row a lane), so no barrier parts the two.
       const int n_groups = (end - first) / kGroupRows;

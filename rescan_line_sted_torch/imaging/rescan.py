@@ -369,8 +369,10 @@ def _nufft_spread_tables(offs, p: int = _NUFFT_P, device=None):
     P/2-tap filters and two integer offsets. Built in float64 on the host
     (floor and Python-sign modulo on int64), weights cast to f32 last.
 
-    Returns ``(offsets2 [2, W] int32, weights [W, 2 * P/2] f32)`` on
-    ``device`` for ``banded_plan(spread_weights=, offsets2=)``.
+    Returns ``(offsets2 [2, W] int32, weights [W, 2 * P/2] f32)`` for
+    ``banded_plan(spread_weights=, offsets2=)``: the offsets on the host,
+    where the plan counts its spreading items before it sends them to
+    ``device``, the weights on ``device``.
     """
     offs = np.asarray(offs, np.float64)
     p2 = p // 2
@@ -390,7 +392,7 @@ def _nufft_spread_tables(offs, p: int = _NUFFT_P, device=None):
         taps = n0[:, None] + t0[:, None] + 2 * np.arange(p2)[None, :]
         offsets2[parity] = (n0 + t0 - parity) // 2
         weights[:, parity * p2:(parity + 1) * p2] = phi(taps - fine[:, None])
-    return (host_table(offsets2.astype(np.int32), device),
+    return (torch.from_numpy(offsets2.astype(np.int32)),
             host_table(weights.astype(np.float32), device))
 
 

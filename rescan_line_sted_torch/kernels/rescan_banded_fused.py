@@ -44,7 +44,7 @@ import dataclasses
 
 import torch
 
-from rescan_line_sted_torch.device import read_back
+from rescan_line_sted_torch.device import host_table, read_back
 from rescan_line_sted_torch.kernels import _build, fftconv
 from rescan_line_sted_torch.kernels.poisson import poisson_reference
 from rescan_line_sted_torch.utils.observability import span
@@ -54,6 +54,9 @@ from rescan_line_sted_torch.utils.observability import span
 # rls_rescan_banded_fused_smem
 _LANES = 16
 _PASS_ROWS = 512
+_THREADS = 512             # threads per CTA (kThreads)
+_GROUP_ROWS = 32           # frame rows a warp's product takes (kGroupRows)
+_SPREAD_ROWS = 3           # canvas rows of a spreading item (kSpreadRows)
 _RING_STRIDE = 20          # floats per ring row in the asynchronous layouts
 # dynamic shared memory a block may opt into on Hopper (H100, H200): a
 # constant, not a device query, so the route never depends on the card
@@ -67,15 +70,20 @@ def layout_smem_bytes(d_in: int, dob: int, chunk: int, binning: int = 1,
     Each holds the two-slot frame-row ring (rows of 16 floats; 20 in the
     first two) and the illumination window; the first two the raw sample
     window twice (16 b + 8 floats a row, for the copy of the next chunk),
-    a binned one when b > 1 (24 a row) and two buffers of placement
-    scalars (5 C + 4 ints) and spreading taps; the third one binned window
-    (16 a row) and one buffer of taps."""
+    a binned one when b > 1 (24 a row), two buffers of placement scalars
+    (5 C + 4 ints) and spreading taps and, when spreading, two slots of
+    the placement's frame table (16 ints for each of the most frames a
+    512-row pass holds); the third one binned window (16 a row) and one
+    buffer of taps."""
     b = binning
     gen = (b * (dob - 1) + d_in + 3) // 4 * 4
     g_res = d_in * (dob + (8 - dob % 32) % 32)
     ill, taps = chunk * d_in, chunk * 2 * n_spread
+    dobp = -(-dob // _GROUP_ROWS) * _GROUP_ROWS
+    tab = 16 * min(chunk, (_PASS_ROWS - 1) // dobp + 2) if n_spread else 0
     staged = (2 * _PASS_ROWS * _RING_STRIDE + 2 * d_in * (16 * b + 8)
-              + (d_in * 24 if b > 1 else 0) + 2 * (5 * chunk + 4) + 2 * taps)
+              + (d_in * 24 if b > 1 else 0) + 2 * (5 * chunk + 4) + 2 * taps
+              + 2 * tab)
     lean = 2 * _PASS_ROWS * _LANES + d_in * 16 + gen + ill + taps
     return (4 * (staged + g_res + ill), 4 * (staged + gen + ill), 4 * lean)
 
@@ -112,8 +120,9 @@ def kernel_smem_bytes(d_in: int, dob: int, chunk: int, binning: int = 1,
 # The launch shape of K1's last launch in each mode (LAUNCHES' names): the
 # layout (0 G resident, 1 generator, 2 generator with synchronous staging),
 # its bytes of shared memory per CTA, CTAs, CTAs per SM, threads per CTA,
-# the windows, and the band's group-k-steps a chunk and their share of the
-# whole windows' (``band_runs``)
+# the windows, the band's group-k-steps a chunk and their share of the
+# whole windows' (``band_runs``), and the spreading placement's busy
+# threads (``spread_busy``; 0.0 in class mode)
 LAUNCH_SHAPE: dict[str, dict] = {}
 LAYOUTS = ("resident", "generator", "generator, synchronous staging")
 
@@ -140,9 +149,6 @@ def three_pass_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ah, al = tf32_split(a)
     bh, bl = tf32_split(b)
     return ah @ bh + (al @ bh + ah @ bl)
-
-
-_GROUP_ROWS = 32        # frame rows a warp's product takes (kGroupRows)
 
 
 def band_runs(d_in: int, dob: int, chunk: int, binning: int = 1,
@@ -186,6 +192,38 @@ def band_k_steps(d_in: int, dob: int, chunk: int, binning: int = 1,
     return band, chunk * -(-dob // _GROUP_ROWS) * -(-d_in // 8)
 
 
+def spread_busy(sa_lo: torch.Tensor, sa_hi: torch.Tensor, m0: torch.Tensor,
+                *, wc: int, dob: int, chunk: int, n_spread: int) -> float:
+    """The share of K1's 512 threads that hold a spreading placement item
+    in a pass, averaged over the launch's passes, from the placement
+    scalars (``[2, W]`` canvas starts per parity, ``[W / C]`` wrap splits)
+    on the host. A pass (512 frame rows of a chunk) places, per parity,
+    the canvas rows its lo placements cover, ``len = min(diff + dob +
+    n_spread - 1, wc)`` from its first position's start (``diff`` to its
+    last one's), and, where the chunk wraps (``m0 < dob``), those of the
+    same range ``W/b`` earlier that the first range misses (``spread_rows``
+    in ``csrc/rescan_banded_fused.cu``). Each range is cut into blocks of
+    three rows, and each block is four items (lane quads), a warp's 32
+    threads 8 blocks: ``min(4 B, 512)`` threads hold one, for the ``B``
+    blocks of both parities."""
+    span = dob + n_spread - 1
+    dobp = -(-dob // _GROUP_ROWS) * _GROUP_ROWS
+    rows_used = chunk * dobp
+    first = torch.arange(0, rows_used, _PASS_ROWS)
+    end = (first + _PASS_ROWS).clamp(max=rows_used)
+    c_first, c_last = first // dobp, (end - 1) // dobp          # [passes]
+    slo = sa_lo.long().reshape(2, -1, chunk)                     # [2, n, C]
+    base_lo, last = slo[..., c_first], slo[..., c_last]          # [2, n, P]
+    length = ((last - base_lo) % wc + span).clamp(max=wc)
+    o = (sa_hi.long().reshape(2, -1, chunk)[..., c_first] - base_lo) % wc
+    rel_hi = torch.maximum(o, length)
+    n_hi = ((o + length).clamp(max=wc) - rel_hi).clamp(min=0)
+    n_hi = torch.where((m0.long() < dob)[None, :, None], n_hi, 0)
+    blocks = (-(-length // _SPREAD_ROWS) - (-n_hi // _SPREAD_ROWS)).sum(0)
+    busy = (4 * blocks).clamp(max=_THREADS).double() / _THREADS  # [n, P]
+    return float(busy.mean())
+
+
 def _check(w, *, wc, d_in, d_out, chunk, binning, n_spread=0,
            supports=None):
     """The JAX wrapper's argument guards (minus its TPU sub-row rule), and
@@ -218,6 +256,9 @@ def _spread_args(w, classes, q, spread_weights, offsets2):
     if spread_weights.shape != (w, 2 * n_spread) or offsets2.shape != (2, w):
         raise ValueError("spread_weights must be [W, 2 * P/2] and offsets2 "
                          "[2, W]")
+    if offsets2.device.type != "cpu":
+        raise ValueError("offsets2 must be on the host, where the plan "
+                         "counts its spreading items")
     return n_spread, 2
 
 
@@ -231,9 +272,11 @@ class BandedPlan:
     table (module doc); the placement scalars ``sa_lo`` / ``sa_hi``
     (``[W]`` canvas starts, or ``[2, W]`` per parity in NUFFT mode), ``m0``
     (``[W / C]``) and ``cls`` (``[W]``); the spreading taps ``taps`` (NUFFT
-    mode, else None); the shape they were built for; and the band
+    mode, else None); the shape they were built for; the band
     ``supports`` (None: the whole windows) with its group-k-steps a chunk
-    and their share of the whole windows' (``band_k_steps``)."""
+    and their share of the whole windows' (``band_k_steps``); and the
+    spreading placement's busy threads (``spread_busy``; 0.0 in class
+    mode)."""
 
     w: int
     wc: int
@@ -254,6 +297,7 @@ class BandedPlan:
     supports: tuple[int, int] | None
     band_k_steps: int
     band_share: float
+    spread_busy: float
 
 
 def banded_plan(eff_scaled: torch.Tensor, gx: torch.Tensor,
@@ -279,8 +323,10 @@ def banded_plan(eff_scaled: torch.Tensor, gx: torch.Tensor,
     NUFFT spreading placement (``imaging.rescan._nufft_spread_tables``):
     ``spread_weights`` [W, 2 * P/2] per-position window taps split by
     parity of the 2x-oversampled fine grid, and ``offsets2`` [2, W] int32
-    per-parity integer offsets. Then ``q`` is 2 (the parity canvases),
-    ``classes`` must be None and ``int_offsets`` is ignored.
+    per-parity integer offsets, on the host, where the plan counts its
+    ``spread_busy`` before it sends them to ``device``. Then ``q`` is 2
+    (the parity canvases), ``classes`` must be None and ``int_offsets`` is
+    ignored.
 
     ``supports = (s_exc, s_det)``: the half-widths (px) beyond which the
     illumination and the detection profile are taken as zero
@@ -314,15 +360,24 @@ def banded_plan(eff_scaled: torch.Tensor, gx: torch.Tensor,
     ill_w = eff_scaled[(w // 2 + di - s_in - ci) % w]            # [C, Di]
     g0w = fftconv.circulant_window(gx, d_out, d_in, s_out, s_in)  # [Do, Di]
 
-    p0s = torch.arange(w // chunk, device=dev) * chunk
-    gstart = torch.div(p0s - s_out, b, rounding_mode="floor")
-    k0 = torch.div(gstart, wb, rounding_mode="floor")
-    m0 = (wb * (k0 + 1) - gstart).to(torch.int32)
-    icp = torch.arange(w, device=dev) // chunk
-    offs = int_offsets if offsets2 is None else offsets2
-    sa_lo = torch.remainder(gstart[icp] + offs.to(dev, torch.int64)
-                            - wb * k0[icp], wc)
-    sa_hi = torch.remainder(sa_lo - wb, wc)
+    def placement(offs, on):
+        """(m0, sa_lo, sa_hi) of ``offs`` on device ``on``."""
+        p0s = torch.arange(w // chunk, device=on) * chunk
+        gstart = torch.div(p0s - s_out, b, rounding_mode="floor")
+        k0 = torch.div(gstart, wb, rounding_mode="floor")
+        icp = torch.arange(w, device=on) // chunk
+        sa_lo = torch.remainder(gstart[icp] + offs.to(on, torch.int64)
+                                - wb * k0[icp], wc)
+        return ((wb * (k0 + 1) - gstart).to(torch.int32), sa_lo,
+                torch.remainder(sa_lo - wb, wc))
+
+    offs, busy = int_offsets, 0.0
+    if offsets2 is not None:
+        m0_host, lo_host, hi_host = placement(offsets2, "cpu")
+        busy = spread_busy(lo_host, hi_host, m0_host, wc=wc, dob=dob,
+                           chunk=chunk, n_spread=n_spread)
+        offs = host_table(offsets2.numpy(), dev)
+    m0, sa_lo, sa_hi = placement(offs, dev)
     cls = (torch.zeros(w, dtype=torch.int32, device=dev) if classes is None
            else classes.to(dev, torch.int32))
     if supports is not None:
@@ -336,7 +391,8 @@ def banded_plan(eff_scaled: torch.Tensor, gx: torch.Tensor,
         sa_hi=sa_hi.to(torch.int32), m0=m0, cls=cls,
         taps=(None if spread_weights is None
               else spread_weights.to(dev).contiguous()),
-        supports=supports, band_k_steps=steps, band_share=steps / whole)
+        supports=supports, band_k_steps=steps, band_share=steps / whole,
+        spread_busy=busy)
 
 
 def banded_table(plan: BandedPlan) -> torch.Tensor:
@@ -498,5 +554,5 @@ def rescan_banded_fused(
             "ctas": info[2], "ctas_per_sm": info[3], "threads": info[4],
             "d_in": d_in, "dob": dob, "chunk": chunk, "binning": b,
             "band_k_steps": plan.band_k_steps,
-            "band_share": plan.band_share}
+            "band_share": plan.band_share, "spread_busy": plan.spread_busy}
         return out

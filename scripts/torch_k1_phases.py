@@ -6,7 +6,9 @@
 Builds variants of DIR's ``rescan_line_sted_torch/csrc/rescan_banded_fused.cu``
 (default: this checkout's) in which the staging of the sample window and
 placement scalars (1), the convolution (2), the draws (3) or the placement
-(4) is compiled out (``variant_source``), and times each (CUDA events,
+(4) is compiled out (``variant_source``; ``placement_only`` keeps the
+staging, so that the placement reads real scalars and writes inside the
+canvas), and times each (CUDA events,
 median of 7 after a warm-up) on the flagship cell of ``chip_smoke.py``
 (2048^2, R = 1.5, chunk 32, class placement), or on another mode's cell
 of ``chip_smoke.K1_MODES`` (``--mode``: ``rescan_banded_fused_spread``,
@@ -49,7 +51,7 @@ VARIANTS = {"whole": (), "no_staging": ("staging",),
             "no_convolution": ("convolution",), "no_draws": ("draws",),
             "no_placement": ("placement",),
             "convolution_only": ("staging", "draws", "placement"),
-            "placement_only": ("staging", "convolution", "draws")}
+            "placement_only": ("convolution", "draws")}
 
 
 def spans(src: str) -> dict:

@@ -452,3 +452,117 @@ def test_no_supports_convolve_the_whole_windows():
                     jnp.asarray(a["gx"]), jnp.asarray(a["offsets"]),
                     classes=jnp.asarray(a["classes"]), interpret=True, **kw)
     assert not torch.equal(tight, none) and _rel(tight, want) <= 1e-5
+
+
+# ---- K1's spreading placement: its threads' items ---------------------------
+
+def _spread_plan(case):
+    """K1's plan of one spreading case on the CPU: the irrational
+    flagship's (R = 1 + pi/16, chunk 32) at 256^2 and 2048^2 and at
+    binning 2 as the entry builds it, and the two card cases of
+    ``test_banded_kernel_spread_matches_plain`` at 64 columns whose
+    chunks wrap (step 0.618, chunk 16) or whose pass covers the whole
+    64-row canvas (step 1.45)."""
+    import rescan_line_sted_torch as T
+    from rescan_line_sted_torch.imaging import rescan as trescan
+
+    if case.startswith("flagship"):
+        n, b = {"flagship_256": (256, 1), "flagship_2048": (2048, 1),
+                "flagship_256_b2": (256, 2)}[case]
+        params = T.LineSTEDParams.create(sigma_exc=3.0, sigma_det=3.0,
+                                         stripe_period=12.0, depletion=8.0,
+                                         slit_halfwidth=4.0, brightness=1.0)
+        geom = T.RescanGeometry(T.Grid(n, n), binning=b, chunk=32,
+                                rescan_factor=1.0 + b * np.pi / 16)
+        return trescan._banded_tables(params, geom, "subpixel",
+                                      torch.device("cpu")).k1
+    step, chunk, wc = {"wrapping": (0.6180339887, 16, 104),
+                       "whole_canvas": (1.45, 32, 64)}[case]
+    w = 64
+    offsets2, weights = trescan._nufft_spread_tables(
+        step * np.arange(w, dtype=np.float64))
+    return banded_plan(torch.from_numpy(_profile(w, 1.6)),
+                       torch.from_numpy(_profile(w, 1.4)),
+                       torch.zeros(w, dtype=torch.int32), wc=wc, d_in=32,
+                       d_out=48, chunk=chunk, spread_weights=weights,
+                       offsets2=offsets2)
+
+
+def _busy_by_count(plan):
+    """``spread_busy`` by brute force: in each 512-row pass of each chunk,
+    the canvas rows of each parity that its frames' spread rows (dob +
+    n_spread - 1 from each start) reach from their lo starts and, where
+    the chunk wraps (m0 < dob), from their hi starts and not from the lo
+    ones, as sets; each set in blocks of three rows, four lane quads a
+    block, 512 threads."""
+    dob = plan.d_out // plan.binning
+    span, dobp = dob + plan.n_spread - 1, -(-dob // 32) * 32
+    lo, hi = plan.sa_lo.tolist(), plan.sa_hi.tolist()
+    shares = []
+    for ic, split in enumerate(plan.m0.tolist()):
+        p0 = ic * plan.chunk
+        for first in range(0, plan.chunk * dobp, 512):
+            end = min(first + 512, plan.chunk * dobp)
+            frames = range(p0 + first // dobp, p0 + (end - 1) // dobp + 1)
+            blocks = 0
+            for pi in (0, 1):
+                lo_rows = {(lo[pi][c] + k) % plan.wc for c in frames
+                           for k in range(span)}
+                hi_rows = {(hi[pi][c] + k) % plan.wc for c in frames
+                           for k in range(span)} if split < dob else set()
+                blocks += -(-len(lo_rows) // 3) - (-len(hi_rows - lo_rows)
+                                                   // 3)
+            shares.append(min(4 * blocks, 512) / 512)
+    return sum(shares) / len(shares)
+
+
+@pytest.mark.parametrize("case", ["flagship_256", "flagship_2048",
+                                  "flagship_256_b2", "wrapping",
+                                  "whole_canvas"])
+def test_spread_busy_counts_the_kernels_items(case):
+    """The plan's ``spread_busy`` (the host's copy of K1's item formula)
+    equals a brute-force count of each pass's canvas rows; at the
+    irrational flagship three quarters of the 512 threads place in a pass
+    (one thread a row, a parity at a time, held ~132: 0.26)."""
+    plan = _spread_plan(case)
+    dob = plan.d_out // plan.binning
+    assert plan.n_spread == 4 and bool((plan.m0 < dob).any())
+    assert plan.spread_busy == pytest.approx(_busy_by_count(plan),
+                                             rel=1e-12)
+    assert 0.0 < plan.spread_busy < 1.0
+    if case in ("flagship_256", "flagship_2048"):
+        assert plan.spread_busy >= 0.7
+
+
+def _parent_layout_bytes(d_in, dob, chunk, b, n_spread):
+    """K1's three layouts' bytes before the spreading placement's frame
+    table (``layout_smem_bytes`` as it was)."""
+    gen = (b * (dob - 1) + d_in + 3) // 4 * 4
+    g_res = d_in * (dob + (8 - dob % 32) % 32)
+    ill, taps = chunk * d_in, chunk * 2 * n_spread
+    staged = (2 * 512 * 20 + 2 * d_in * (16 * b + 8)
+              + (d_in * 24 if b > 1 else 0) + 2 * (5 * chunk + 4) + 2 * taps)
+    lean = 2 * 512 * 16 + d_in * 16 + gen + ill + taps
+    return 4 * (staged + g_res + ill), 4 * (staged + gen + ill), 4 * lean
+
+
+def test_class_placement_keeps_its_bytes_and_no_spread_items():
+    """Without spreading, K1's layouts keep their bytes for every window
+    and the plan counts no spreading items; with it, only the two
+    asynchronous layouts add the two slots of the frame table (16 ints a
+    frame a 512-row pass can hold), and the host bound is unchanged."""
+    from rescan_line_sted_torch.kernels import rescan_banded_fused as k1
+
+    for d_in in range(32, 1345, 40):
+        for dob in sorted({max(1, d_in // 4), d_in // 2 + 3, d_in,
+                           d_in + 131}):
+            for chunk, b in ((8, 1), (32, 1), (16, 2), (32, 3)):
+                want = _parent_layout_bytes(d_in, dob, chunk, b, 0)
+                assert k1.layout_smem_bytes(d_in, dob, chunk, b, 0) == want
+                res, gen, lean = _parent_layout_bytes(d_in, dob, chunk, b, 4)
+                frames = min(chunk, 511 // (-(-dob // 32) * 32) + 2)
+                assert k1.layout_smem_bytes(d_in, dob, chunk, b, 4) == (
+                    res + 128 * frames, gen + 128 * frames, lean)
+    a, kw = _case(2, 1, 1.5)
+    s, e, g, o, c = _torch_args(a)
+    assert banded_plan(e, g, o, classes=c, **kw).spread_busy == 0.0

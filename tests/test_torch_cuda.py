@@ -295,12 +295,13 @@ def test_banded_kernel_partial_lane_tile(cuda, h):
 
 @pytest.mark.parametrize("h,b,wide,spread", [
     (18, 1, False, False), (74, 2, False, False), (40, 1, True, False),
-    (70, 1, False, True), (54, 2, True, True)])
+    (70, 1, False, True), (54, 2, True, True), (65, 1, False, True)])
 def test_banded_kernel_ragged_tiles_every_layout(cuda, h, b, wide, spread):
     """Lane tiles that end mid-tile (H/b off the 16-lane tile, and off the
     16-byte copies where H % 4 != 0) in each layout (resident; generator,
     or at b = 2 with D_in = 320 the synchronous one), integer and spreading
-    placement, against the plain version."""
+    placement, against the plain version; at H = 65 the last tile holds one
+    lane past a whole quad (the spreading placement's items are quads)."""
     from rescan_line_sted_torch.kernels import rescan_banded_fused as k1
 
     w = 512 if wide else 64
@@ -546,7 +547,10 @@ def test_flagship_band_share(cuda, rf):
     """The flagship's K1 call, as the entry makes it (2048^2, chunk 32,
     supports 24 / 24, class placement at R = 1.5, NUFFT spreading at the
     irrational R), records the host's band: 560 of 2048 group-k-steps a
-    chunk (17.5 of 64 a position)."""
+    chunk (17.5 of 64 a position); and the spreading placement's busy
+    threads as the host counts them, 0.70 of the CTA's at the irrational
+    R (one thread a row, a parity at a time, held 0.26), 0.0 in class
+    mode."""
     from rescan_line_sted_torch.imaging.rescan import _banded_inputs
     from rescan_line_sted_torch.kernels import rescan_banded_fused as k1
 
@@ -565,6 +569,9 @@ def test_flagship_band_share(cuda, rf):
     assert plan.supports == (24, 24) and (steps, whole) == (560, 2048)
     assert shape["band_k_steps"] == steps
     assert shape["band_share"] == steps / whole
+    assert shape["spread_busy"] == plan.spread_busy
+    assert (shape["spread_busy"] >= 0.7 if plan.n_spread
+            else shape["spread_busy"] == 0.0)
 
 
 @pytest.mark.parametrize("step,b,chunk,wc", [

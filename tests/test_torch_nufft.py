@@ -234,6 +234,9 @@ def test_spread_guards():
     args, kw, _ = _kernel_inputs(1.0 + np.pi / 16, 1)
     with pytest.raises(ValueError, match="offsets2"):
         _k1(rescan_banded_fused_reference, args, {**kw, "offsets2": None})
+    with pytest.raises(ValueError, match="offsets2 must be on the host"):
+        _k1(rescan_banded_fused_reference, args,
+            {**kw, "offsets2": kw["offsets2"].to("meta")})
     with pytest.raises(ValueError, match="class"):
         _k1(rescan_banded_fused_reference, args,
             {**kw, "classes": torch.zeros(W, dtype=torch.int32)})
