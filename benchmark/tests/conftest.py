@@ -12,28 +12,47 @@ REPO = Path(__file__).resolve().parents[2]
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
-# the CPU tests' sizes, the smallest at which every fault reads above its
-# limit: K1's band windows need a field wider than 128 columns, and the
-# dispersion of n row or tile sums reads sqrt(n / 2) without draws (limit
-# 10): 512 rows, 32 x 32 tiles of the sweep's 8 x 8
-SMALL = {"line_sted_2048": [512, 512], "dose_sweep_256": [256, 256]}
+
+def cut_to_small_fields(manifest, root):
+    """Each configuration of ``manifest`` under ``root`` cut to the
+    ``small_field`` its own file gives: the field at which the CPU tests
+    run it, the smallest at which every fault reads above its limit."""
+    for c in manifest["configs"]:
+        path = root / c["file"]
+        cfg = json.loads(path.read_text())
+        if "small_field" not in cfg:
+            raise ValueError(f"configuration {c['name']!r} ({c['file']}) "
+                             "has no 'small_field' for the CPU tests")
+        cfg["field"] = cfg["small_field"]
+        path.write_text(json.dumps(cfg))
 
 
 @pytest.fixture
-def small_tree(tmp_path):
-    """A copy of the benchmark with every configuration's field cut to
-    ``SMALL``: ``(manifest, bench_dir)`` for ``core.run``."""
+def bench_tree(tmp_path):
+    """A copy of the benchmark and ``BENCHMARK.json`` as they stand:
+    ``(manifest, bench_dir)``."""
     bench = tmp_path / "benchmark"
     shutil.copytree(REPO / "benchmark", bench,
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     manifest = json.loads((REPO / "BENCHMARK.json").read_text())
-    for c in manifest["configs"]:
-        path = tmp_path / c["file"]
-        cfg = json.loads(path.read_text())
-        cfg["field"] = SMALL[c["name"]]
-        path.write_text(json.dumps(cfg))
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(manifest))
     return manifest, bench
+
+
+@pytest.fixture
+def small_tree(bench_tree):
+    """``bench_tree`` with every configuration cut to its ``small_field``
+    (``cut_to_small_fields``): ``(manifest, bench_dir)`` for ``core.run``."""
+    manifest, bench = bench_tree
+    cut_to_small_fields(manifest, bench.parent)
+    return manifest, bench
+
+
+@pytest.fixture
+def cut_tree():
+    """``cut_to_small_fields``, for a test that adds a configuration to a
+    ``bench_tree`` before it is cut."""
+    return cut_to_small_fields
 
 
 @pytest.fixture

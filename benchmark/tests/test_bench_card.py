@@ -2,7 +2,7 @@
 the program keeps every number under its limit, while the TF32 control and
 each planted fault read above one. On the card at each cell's own sizes
 (``python -m pytest benchmark/tests/test_bench_card.py -m cuda``), and on
-the CPU at the small sizes of ``conftest.SMALL``."""
+the CPU at each configuration's ``small_field``."""
 
 import json
 from pathlib import Path

@@ -53,6 +53,10 @@ def test_config_entry(cfg):
     assert all(NAME.match(k) for k in cfg["reduced"]) and len(cfg["reduced"]) <= 16
     body = json.loads((REPO / cfg["file"]).read_text())
     assert body["reduced"] == cfg["reduced"] and body["name"] == cfg["name"]
+    # the field the CPU tests cut it to (``conftest.cut_to_small_fields``)
+    small = body["small_field"]
+    assert len(small) == 2 and all(type(n) is int and n > 0 for n in small)
+    assert all(s <= f for s, f in zip(small, body["field"]))
     assert not any(k.endswith(("_dim", "_rank")) for k in cfg["reduced"])
     assert any(w["config"] == cfg["name"] for w in MANIFEST["workloads"])
 
@@ -119,12 +123,13 @@ def test_roofline_names():
             assert m["unit"] == "%" and m["better"] == "higher"
 
 
-def test_a_cell_from_files_alone(small_tree):
+def test_a_cell_from_files_alone(bench_tree, cut_tree):
     """A new configuration, cell, metric and driver by new files and new
-    entries only: the harness runs it without an edit."""
-    manifest, bench = small_tree
+    entries only: the tree is cut to the new configuration's own small
+    field, and the harness runs it without an edit."""
+    manifest, bench = bench_tree
     cfg = json.loads((bench / "configs" / "line_sted_2048.json").read_text())
-    cfg.update(name="line_sted_dummy", sigma_exc=2.5)
+    cfg.update(name="line_sted_dummy", sigma_exc=2.5, small_field=[256, 512])
     (bench / "configs" / "line_sted_dummy.json").write_text(json.dumps(cfg))
     wl = json.loads((bench / "workloads" / "rescan_2048_analytic.json")
                     .read_text())
@@ -148,9 +153,29 @@ def test_a_cell_from_files_alone(small_tree):
     manifest["end_to_end"].append(dict(
         name="calls_done", unit="calls", better="higher", bound=0.05,
         source="host_clock", workloads=["dummy_cell"]))
+    cut_tree(manifest, bench.parent)
+    spec = core.load_spec("dummy_cell", manifest, bench)
+    assert spec.config["field"] == [256, 512]
     res = core.run("dummy_cell", 5, 0.05, False, "cpu", time.perf_counter(),
                    manifest=manifest, bench=bench)
     assert res["correct"], res["checks"]
     # setup_s has no workloads list, so a new cell reports it unasked
     assert set(res["metrics"]) == {"calls_done", "setup_s"}
     assert res["metrics"]["calls_done"]["value"] == res["attempted"] >= 1
+
+
+def test_a_configuration_without_its_small_field_is_named(bench_tree,
+                                                          cut_tree):
+    """A configuration file that lacks ``small_field`` stops the cut with
+    a message that names the configuration and the key."""
+    manifest, bench = bench_tree
+    cfg = json.loads((bench / "configs" / "line_sted_2048.json").read_text())
+    cfg.pop("small_field")
+    cfg.update(name="line_sted_bare")
+    (bench / "configs" / "line_sted_bare.json").write_text(json.dumps(cfg))
+    manifest["configs"].append(dict(
+        name="line_sted_bare", source="https://example.org/bare",
+        file="benchmark/configs/line_sted_bare.json", reduced=[],
+        why="a test's configuration"))
+    with pytest.raises(ValueError, match="'line_sted_bare'.*'small_field'"):
+        cut_tree(manifest, bench.parent)
