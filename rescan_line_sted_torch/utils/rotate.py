@@ -3,7 +3,7 @@ JAX package's ``utils/rotate.py``).
 
 The JAX package rotates with ``jax.scipy.ndimage.map_coordinates`` and
 vmaps over the angles; the port takes a batch of angles in one call and
-computes the same four-corner gather, in the same float32 order:
+computes the same four-corner gather:
 
 * source coordinates ``cos*y + sin*x + cy`` and ``-sin*y + cos*x + cx``
   (inverse mapping about ``(h//2, w//2)``);
@@ -17,12 +17,16 @@ computes the same four-corner gather, in the same float32 order:
 coordinates to [-1, 1] and back moves them by ~(W-1)/2 * 6e-8 px in
 float32, which misses the 1e-5 bar at 512^2 and above.
 
-``cos`` and ``sin`` of the angles are taken on the host in float32 with
-numpy, and sent to the device as one pinned table: numpy's float32
-``sin`` agrees with XLA's on the CPU where torch's differs by an ulp (at
--pi/3), and an ulp moves a coordinate by ~6e-5 px at 2048^2; on the card,
-``cosf`` would be one more implementation. What remains against the JAX
-package is XLA's fused rounding, ~1e-7 of the image's maximum.
+The coordinates are exact, not the JAX package's float32: ``cos`` and
+``sin`` of the angles are taken on the host in float64 (numpy) and sent
+to the device as one pinned table, and the coordinate grid, the source
+coordinates, ``floor`` and each axis's weights are computed in float64;
+each corner's weight ``w_y * w_x`` is rounded to float32 once. In float32
+a source coordinate reaches ~1448 px at 2048^2, where one ulp is 1.2e-4
+px: the rotated Siemens star then lies 1.5e-4 of its maximum off the
+exact bilinear rotation at 2048^2 and 2.8e-5 at 512^2 (the JAX package's
+own reading there), against the float32 images' 1e-5 bar. The values
+gathered and their weighted sum stay float32, in the order above.
 """
 
 from __future__ import annotations
@@ -60,16 +64,18 @@ def rotate_image(img: torch.Tensor, theta) -> torch.Tensor:
 def rotation_corners(h: int, w: int, theta, device) -> tuple:
     """What a rotation by ``theta`` gathers, built once on ``device``:
     the angles' shape and, per corner in summation order, the flat source
-    index [..., H*W] (clamped), the weight ``w_y * w_x`` and the validity
-    mask [..., H, W] (leading dimensions: the angles'). Linear operators
-    that rotate by fixed angles build it once (``algorithms/fusion``)."""
-    theta = torch.as_tensor(theta, dtype=torch.float32, device="cpu").numpy()
+    index [..., H*W] (clamped), the weight ``w_y * w_x`` (taken in float64,
+    rounded to float32 once) and the validity mask [..., H, W] (leading
+    dimensions: the angles'). Linear operators that rotate by fixed angles
+    build it once (``algorithms/fusion``)."""
+    theta = torch.as_tensor(theta, dtype=torch.float64, device="cpu").numpy()
     trig = devices.host_table(np.stack([np.cos(theta), np.sin(theta)]),
                               device)
     cos, sin = trig[0][..., None, None], trig[1][..., None, None]
     cy, cx = h // 2, w // 2
-    y = (torch.arange(h, dtype=torch.float32, device=device) - cy)[:, None]
-    x = (torch.arange(w, dtype=torch.float32, device=device) - cx)[None, :]
+    # float64 coordinates and axis weights (the module's docstring)
+    y = (torch.arange(h, dtype=torch.float64, device=device) - cy)[:, None]
+    x = (torch.arange(w, dtype=torch.float64, device=device) - cx)[None, :]
     # inverse rotation: the source coordinates of each output pixel
     src_y = cos * y + sin * x + cy
     src_x = -sin * y + cos * x + cx
@@ -85,7 +91,7 @@ def rotation_corners(h: int, w: int, theta, device) -> tuple:
     for iy, wy, vy in nodes(src_y, h):
         for ix, wx, vx in nodes(src_x, w):
             idx = iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
-            corners.append((idx.reshape(*theta.shape, h * w), wy * wx,
-                            vy & vx))
+            corners.append((idx.reshape(*theta.shape, h * w),
+                            (wy * wx).float(), vy & vx))
     return theta.shape, corners
 

@@ -183,18 +183,20 @@ NESTING = {
               "rls.sweep.rescan": "rls.sweep",
               "rls.fusion.rl": ("rls.sweep.point", "rls.sweep.line",
                                 "rls.sweep.ism"),
+              "rls.fusion.acquire": "rls.sweep.rescan",
               "rls.fusion.operator": "rls.sweep.rescan",
               "rls.fusion.build": "rls.sweep.rescan",
+              "rls.fusion.adjoint": "rls.fusion.operator",
               "rls.frc": ("rls.sweep.point", "rls.sweep.line",
                           "rls.sweep.ism", "rls.sweep.rescan"),
               "rls.k2c": ("rls.sweep.point", "rls.sweep.line",
-                          "rls.sweep.ism", "rls.sweep.rescan"),
-              "rls.image.tables": "rls.sweep.rescan",
-              "rls.image.products": ("rls.sweep.rescan",
+                          "rls.sweep.ism", "rls.fusion.acquire"),
+              "rls.image.tables": ("rls.sweep.rescan", "rls.fusion.acquire"),
+              "rls.image.products": ("rls.fusion.acquire",
                                      "rls.fusion.operator"),
               "rls.sweep.columns": "rls.sweep",
               "rls.host_table": ("rls.sweep.line", "rls.sweep.ism",
-                                 "rls.sweep.rescan", "rls.fusion.build",
+                                 "rls.fusion.acquire", "rls.fusion.build",
                                  "rls.sweep.columns")},
 }
 # (read-backs, host tables) per call, from the code's sites: none in a
@@ -211,10 +213,13 @@ NESTING = {
 COUNTS = {"per_step": (0, 0), "nufft": (0, 0), "analytic": (0, 0),
           "sweep": (1, 8), "fused": (1, 58)}
 # spans per fused sweep at B = 2 powers: for each power the rescan arm
-# fuses three times (its two acquisitions and the point source's
-# canvases), each through an operator that builds its rotation once: 3 *
-# 2 builds; each of the 4 arms takes one FRC per power: 4 * 2
-FUSED = {"rls.fusion.build": 3 * 2, "rls.frc": 4 * 2}
+# acquires and fuses three times (its two acquisitions and the point
+# source's canvases), each through an operator that builds its rotation
+# once and applies its adjoint once for the normaliser and once in each of
+# the 2 iterations: 3 * 2 acquisitions and builds, 3 * 2 * 3 adjoints;
+# each of the 4 arms takes one FRC per power: 4 * 2
+FUSED = {"rls.fusion.acquire": 3 * 2, "rls.fusion.build": 3 * 2,
+         "rls.fusion.adjoint": 3 * 2 * 3, "rls.frc": 4 * 2}
 
 
 def _spanned_call(path):

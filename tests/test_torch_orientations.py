@@ -4,7 +4,11 @@ CPU, on the same numpy inputs.
 
 Noise-free agreement: max|port - jax| / max|jax| <= 1e-5 per array. The
 512^2 rotations are the ones a rotation through ``grid_sample`` misses
-(its [-1, 1] round trip moves coordinates by ~(W-1)/2 * 6e-8 px). Noisy
+(its [-1, 1] round trip moves coordinates by ~(W-1)/2 * 6e-8 px). The
+port's rotation coordinates are float64, the JAX package's float32, which
+at 512^2 lie ~3e-5 of the image's maximum off the exact rotation: there
+the port's rotations are held to the float64 bilinear rotation of
+``benchmark/reference/report_sweep.py`` instead, at the same 1e-5. Noisy
 views are drawn by one generator in order where the JAX package splits
 one key per view, so they are held to statistics and to the cases of
 ``tests/test_orientations.py`` on the port alone.
@@ -18,6 +22,7 @@ import pytest
 import torch
 
 import rescan_line_sted_torch as T
+from benchmark.reference import plain, report_sweep
 from rescan_line_sted_torch.algorithms import richardson_lucy_views
 from rescan_line_sted_torch.algorithms.metrics import fwhm_2d
 from rescan_line_sted_torch.convert import geometry_from_jax, params_from_jax
@@ -58,16 +63,36 @@ def _image(shape, seed=0):
     return (pts + rng.random(shape, np.float32) * ramp).astype(np.float32)
 
 
+# the shapes at which the JAX package's float32 angles and rotation
+# coordinates miss the exact rotation by more than 1e-5
+EXACT_SHAPES = [(512, 512)]
+
+
+def _exact_rotation(img, theta) -> np.ndarray:
+    """The float64 bilinear rotation of ``img`` by ``theta``."""
+    h, w = img.shape
+    rot = report_sweep.Rotation(h, w, theta, "cpu", plain.Precision("float64"))
+    return rot(torch.from_numpy(img)).numpy()
+
+
 @pytest.mark.parametrize("theta", ANGLES,
                          ids=["0", "pi/7", "-pi/3", "pi/2", "2pi"])
 @pytest.mark.parametrize("shape", [(64, 64), (512, 512), (48, 64), (63, 65)],
                          ids=["64", "512", "48x64", "63x65"])
 def test_rotate_matches_jax(shape, theta):
     img = _image(shape)
-    want = np.asarray(j_rotate(jnp.asarray(img), jnp.float32(theta)))
+    jax_img = np.asarray(j_rotate(jnp.asarray(img), jnp.float32(theta)))
     got = rotate_image(torch.from_numpy(img), theta)
     assert got.dtype == torch.float32 and got.device.type == "cpu"
-    assert rel(got, want) <= TOL
+    if shape in EXACT_SHAPES and theta != 0.0:
+        # no rotation is within 1e-5 of both the JAX package's float32
+        # coordinates and the exact ones here: the port keeps the exact
+        assert rel(got, _exact_rotation(img, theta)) <= TOL
+        if theta == math.pi / 7:
+            assert rel(jax_img, _exact_rotation(
+                img, float(np.float32(theta)))) > TOL
+    else:
+        assert rel(got, jax_img) <= TOL
 
 
 def test_rotate_batches_angles():
