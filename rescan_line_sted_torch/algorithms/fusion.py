@@ -14,14 +14,18 @@ the transpose of the bilinear rotation is its scatter adjoint, not a
 rotation by the opposite angle. The JAX package takes it with
 ``jax.linear_transpose``; the port takes the vector-Jacobian product of
 the same forward map with autograd (the map is linear, so the product is
-``A^T y`` at any point, and autograd through the complex placement and
-``irfft`` gives the real transpose). In the RL loop one autograd pass
-returns ``A(est)`` and the function that applies ``A^T``, so no
-iteration runs the forward map twice; ``rescan_fusion`` stacks its views
-into one operator, so that pass serves every view at once (the eager ops
-per iteration, not their size, set the time at small fields). An
+``A^T y`` at any point, and autograd through the placement and ``irfft``
+gives the real transpose). The placement is the FFT of the real
+phase-split rows, extended periodically, where ``R * (W/b)`` is the
+canvas width, and the complex product with the phase table elsewhere
+(``analytic._canvas_map``); autograd transposes either exactly. In the
+RL loop one autograd pass returns ``A(est)`` and the function that
+applies ``A^T``, so no iteration runs the forward map twice;
+``rescan_fusion`` stacks its views into one operator, so that pass
+serves every view at once (the eager ops per iteration, not their size,
+set the time at small fields). An
 operator's constants (the rotation's gather indices and weights, the
-canvas's row matrix, column-phase kernels and placement phases) are
+canvas's row matrix, column-phase kernels and any placement phases) are
 built once, when the operator is: the rotation's, inside the span
 ``rls.fusion.build``, whose occurrences count the builds. The loop runs
 inside ``rls.fusion.operator``; each application of an operator's adjoint

@@ -14,11 +14,22 @@ placement uses band-limited phase ramps; detector binning by b splits the
 map into b column-phase kernels ``H_rho``. The canvas differs from the
 per-step scan only through circular wrap, so the two agree on samples that
 are zero within ~PSF support of their x-edges.
+
+The placement of phase-split column m at canvas column R*m takes one of
+two routes, chosen once per plan from the geometry alone
+(``_fft_placement``). Where ``R * (W/b)`` is exactly the canvas width
+``Wc`` (R = 1.5, 2, 3, ... at the usual widths), ``R*m/Wc = m/(W/b)``:
+the placement is the plain length-``W/b`` DFT, extended periodically to
+the canvas's ``Wc//2+1`` frequencies, and runs as an FFT. At any other R
+(R = 1 + pi/16) it is a complex product with the host-built phase table
+``pm``. Both compute the same linear map, so autograd's transpose of
+either is the exact adjoint.
 """
 
 from __future__ import annotations
 
 import functools
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -66,14 +77,14 @@ def _np_phases(theta: np.ndarray, device=None) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=4)
 def _phase_tables(w: int, wc: int, r: float, b: int, device: torch.device):
-    """The static phase tables of the rescan closed form, built in float64
-    on the host and held as complex64 on ``device``: the detection
-    centring ``center_ph`` [K], the stretched line's phases ``pe`` [W, K],
-    the residue phases ``rho_ph`` [b, K] and the placement ``pm`` [w/b, K]
-    of column m at R*m (K = Wc//2+1). Cached per geometry and device, as
-    the JAX package builds them once per compile (~67 MB on the card at
-    2048^2, R = 2), outside inference mode (they serve autograd calls);
-    do not mutate."""
+    """The static phase tables of the rescan kernels, built in float64 on
+    the host and held as complex64 on ``device``: the detection centring
+    ``center_ph`` [K], the stretched line's phases ``pe`` [W, K] and the
+    residue phases ``rho_ph`` [b, K] (K = Wc//2+1). Cached per geometry
+    and device, as the JAX package builds them once per compile (~34 MB
+    on the card at 2048^2, R = 2), outside inference mode (they serve
+    autograd calls); do not mutate. The placement's table, where the
+    geometry needs one, is ``_placement_phases``."""
     kk = np.arange(wc // 2 + 1, dtype=np.float64)
     t_c = np.arange(w, dtype=np.float64) - w // 2
     with torch.inference_mode(False):
@@ -81,15 +92,44 @@ def _phase_tables(w: int, wc: int, r: float, b: int, device: torch.device):
                 _np_phases(-kk[None, :] * (r - 1.0) * t_c[:, None]
                            / (b * wc), device),
                 _np_phases(kk[None, :] * (r - 1.0) * np.arange(b)[:, None]
-                           / (b * wc), device),
-                _np_phases(kk[None, :] * r * np.arange(w // b)[:, None]
-                           / wc, device))
+                           / (b * wc), device))
+
+
+@functools.lru_cache(maxsize=4)
+def _placement_phases(w: int, wc: int, r: float, b: int,
+                      device: torch.device):
+    """The placement table ``pm`` [w/b, K] of phase-split column m at R*m,
+    ``exp(-2i pi k R m / Wc)``, built and cached as ``_phase_tables`` are.
+    Only the product route builds it (``_fft_placement`` false)."""
+    kk = np.arange(wc // 2 + 1, dtype=np.float64)
+    with torch.inference_mode(False):
+        return _np_phases(kk[None, :] * r * np.arange(w // b)[:, None] / wc,
+                          device)
 
 
 def _tables(geom, device):
     return _phase_tables(geom.grid.width, geom.canvas_shape[1],
                          float(geom.rescan_factor), geom.binning,
                          torch.device(device or "cpu"))
+
+
+def _fft_placement(geom) -> bool:
+    """Whether the placement at R*m is the plain length-``W/b`` DFT:
+    exactly where ``R * (W/b) == Wc``, in exact arithmetic (``R`` as the
+    binary fraction it is), so that no tolerance decides the route."""
+    w, b = geom.grid.width, geom.binning
+    return (Fraction(float(geom.rescan_factor)) * (w // b)
+            == geom.canvas_shape[1])
+
+
+def _periodic(f: torch.Tensor, k: int) -> torch.Tensor:
+    """``f`` [..., n] extended periodically along its last axis to ``k``
+    columns, ``f[..., j mod n]``: a view where ``k <= n``, else one
+    ``cat``."""
+    n = f.shape[-1]
+    if k <= n:
+        return f[..., :k]
+    return torch.cat([f] * (k // n) + [f[..., :k % n]], dim=-1)
 
 
 def rescan_x_kernels_rfft(geom, params, device=None) -> torch.Tensor:
@@ -102,7 +142,7 @@ def rescan_x_kernels_rfft(geom, params, device=None) -> torch.Tensor:
     """
     b = geom.binning
     w, wc = geom.grid.width, geom.canvas_shape[1]
-    center_ph, pe, rho_ph, _ = _tables(geom, device)
+    center_ph, pe, rho_ph = _tables(geom, device)
 
     eff = models.effective_line_profile(w, params, device)
     det_x = psfs.detection_profile(w, params.sigma_det, device)
@@ -130,13 +170,17 @@ def _canvas_constants(params, geom, device):
     geometry, device) where they can key a cache (``device.plan_cache``):
     the y-convolve + row-bin matrix ``gy_t`` [h/b, h] (a dense circulant,
     16 MB at 2048^2), the column-phase kernels ``h_hat`` [b, 1, K] and the
-    placement phases ``pm`` [w/b, K]."""
+    placement's route: ``pm`` None where the placement is an FFT
+    (``_fft_placement``, decided here, once a plan), else the placement
+    phases ``pm`` [w/b, K]."""
     b = geom.binning
     h = geom.grid.height
     det_y = psfs.detection_profile(h, params.sigma_det, device)
     gy_t = _binned_row_matrix(h, b, det_y).T                     # [hc, h]
     h_hat = rescan_x_kernels_rfft(geom, params, device)[:, None, :]
-    pm = _tables(geom, device)[3]                                # [w/b, K]
+    pm = (None if _fft_placement(geom) else
+          _placement_phases(geom.grid.width, geom.canvas_shape[1],
+                            float(geom.rescan_factor), b, device))
     return gy_t, h_hat, pm
 
 
@@ -144,7 +188,13 @@ def _canvas_map(params, geom, device):
     """The rescan closed form as a function ``sample [..., H, W] -> canvas
     [..., H/b, Wc]`` (leading dimensions batch), on its constants
     (``_canvas_constants``). Linear in ``sample``; ``rescan_canvas_mean``
-    and the fusion operators (``algorithms/fusion.py``) share it."""
+    and the fusion operators (``algorithms/fusion.py``) share it.
+
+    The placement of the phase-split rows ``s_ph`` [.., b, hc, w/b] on
+    the canvas's K = Wc//2+1 frequencies takes the plan's route: where
+    ``R * (W/b) == Wc``, ``fft(s_ph)`` extended periodically to K columns
+    (``_periodic``), inside the counter span ``rls.image.fft_placement``,
+    once an application; elsewhere the complex product ``s_ph @ pm``."""
     b = geom.binning
     h, w = geom.grid.shape
     hc, wc = geom.canvas_shape
@@ -158,8 +208,13 @@ def _canvas_map(params, geom, device):
         s_yb = gy_t @ sample                                     # [.., hc, w]
         # split columns by phase: a = b*m + rho -> [.., b(rho), hc, w/b(m)]
         s_ph = s_yb.reshape(*lead, hc, w // b, b).movedim(-1, -3)
-        canvas_rfft = ((s_ph.to(torch.complex64) @ pm)
-                       * h_hat).sum(-3)                          # [.., hc, K]
+        if pm is None:
+            with span("rls.image.fft_placement"):
+                placed = _periodic(torch.fft.fft(s_ph, dim=-1),
+                                   wc // 2 + 1)                  # [.., K]
+        else:
+            placed = s_ph.to(torch.complex64) @ pm
+        canvas_rfft = (placed * h_hat).sum(-3)                   # [.., hc, K]
         return params.brightness * torch.fft.irfft(canvas_rfft, n=wc,
                                                    dim=-1)
 

@@ -1739,6 +1739,59 @@ def test_rescan_operator_adjoint_on_card(cuda):
     assert _rel(aty, cpu_adj(y)) <= 1e-5
 
 
+def test_canvas_placement_routes_agree_on_card(cuda, monkeypatch):
+    """The fusion cell's four-view canvas map (the star rotated by v pi /
+    4, R = 2) at 512^2 on the card, forward and autograd adjoint, against
+    the same map in float64 with the placement as the exact phase table
+    (complex128): the FFT placement within 1e-6 of the maximum, and no
+    further from it than the phase-table product in complex64, forced
+    (its float32 sums over 512 columns read ~1.1e-6 on an H100)."""
+    from rescan_line_sted_torch.data import siemens_star
+    from rescan_line_sted_torch.imaging import analytic
+    from rescan_line_sted_torch.utils import rotate_image
+
+    params, geom = _fusion_setup(512)
+    n = 512
+    hc, wc = geom.canvas_shape
+    x = rotate_image(siemens_star((n, n), device=cuda),
+                     -torch.arange(4) * (np.pi / 4))
+    y = torch.rand((4, hc, wc),
+                   generator=torch.Generator().manual_seed(6)).to(cuda)
+
+    def apply(canvas, x, y):
+        xg = x.clone().requires_grad_()
+        out = canvas(xg)
+        return out.detach(), torch.autograd.grad(out, xg, y)[0]
+
+    analytic._canvas_constants.cache_clear()
+    try:
+        assert analytic._fft_placement(geom)
+        fft = apply(analytic._canvas_map(params, geom, cuda), x, y)
+        gy_t, h_hat, pm = analytic._canvas_constants(params, geom, cuda)
+        assert pm is None
+        monkeypatch.setattr(analytic, "_fft_placement", lambda g: False)
+        analytic._canvas_constants.cache_clear()
+        gemm = apply(analytic._canvas_map(params, geom, cuda), x, y)
+    finally:
+        analytic._canvas_constants.cache_clear()
+
+    k = np.arange(wc // 2 + 1)
+    table = torch.from_numpy(np.exp(-2j * np.pi * k[None, :]
+                                    * geom.rescan_factor
+                                    * np.arange(n)[:, None] / wc)).to(cuda)
+
+    def exact(s):
+        s_ph = (gy_t.double() @ s).reshape(4, hc, n, 1).movedim(-1, -3)
+        rfft = ((s_ph.to(torch.complex128) @ table)
+                * h_hat.to(torch.complex128)).sum(-3)
+        return params.brightness * torch.fft.irfft(rfft, n=wc, dim=-1)
+
+    want = apply(exact, x.double(), y.double())
+    for got, prod, ref in zip(fft, gemm, want):
+        assert got.is_cuda and _rel(got, ref) <= 1e-6
+        assert _rel(got, ref) <= _rel(prod, ref)
+
+
 @pytest.mark.parametrize("accelerate,num_iter", [(False, 30), (True, 15)],
                          ids=["plain", "accelerate"])
 def test_rescan_fusion_on_card_matches_cpu(cuda, accelerate, num_iter):

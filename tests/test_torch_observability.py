@@ -163,6 +163,7 @@ NESTING = {
               "rls.image.finish": "rls.image"},
     "analytic": {"rls.image": None, "rls.image.tables": "rls.image",
                  "rls.image.products": "rls.image",
+                 "rls.image.fft_placement": "rls.image.products",
                  "rls.k2c": "rls.image"},
     "sweep": {"rls.sweep": None, "rls.sweep.generators": "rls.sweep",
               "rls.read_back": "rls.sweep.generators",
@@ -194,6 +195,7 @@ NESTING = {
               "rls.image.tables": ("rls.sweep.rescan", "rls.fusion.acquire"),
               "rls.image.products": ("rls.fusion.acquire",
                                      "rls.fusion.operator"),
+              "rls.image.fft_placement": "rls.image.products",
               "rls.sweep.columns": "rls.sweep",
               "rls.host_table": ("rls.sweep.line", "rls.sweep.ism",
                                  "rls.fusion.acquire", "rls.fusion.build",
@@ -217,9 +219,12 @@ COUNTS = {"per_step": (0, 0), "nufft": (0, 0), "analytic": (0, 0),
 # source's canvases), each through an operator that builds its rotation
 # once and applies its adjoint once for the normaliser and once in each of
 # the 2 iterations: 3 * 2 acquisitions and builds, 3 * 2 * 3 adjoints;
+# each acquisition and each operator's forward (the normaliser's and one
+# an iteration) places its canvas by an FFT (R = 2): 3 * 2 * (1 + 3);
 # each of the 4 arms takes one FRC per power: 4 * 2
 FUSED = {"rls.fusion.acquire": 3 * 2, "rls.fusion.build": 3 * 2,
-         "rls.fusion.adjoint": 3 * 2 * 3, "rls.frc": 4 * 2}
+         "rls.fusion.adjoint": 3 * 2 * 3,
+         "rls.image.fft_placement": 3 * 2 * (1 + 3), "rls.frc": 4 * 2}
 
 
 def _spanned_call(path):

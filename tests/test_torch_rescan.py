@@ -71,6 +71,67 @@ def test_analytic_matches_jax(rf, b):
     assert _rel(got, want) <= 1e-5
 
 
+# (R, b) of the closed form's placement: an FFT where R * (W/b) == Wc,
+# the phase-table product elsewhere
+PLACEMENTS = {"r1.5_b1": (1.5, 1), "r1.5_b2": (1.5, 2), "r2_b1": (2.0, 1),
+              "r2_b2": (2.0, 2), "r3_b1": (3.0, 1), "r3_b2": (3.0, 2),
+              "r1+pi/16_b1": (1.0 + np.pi / 16, 1)}
+
+
+@pytest.mark.parametrize("case", list(PLACEMENTS))
+def test_canvas_placement_routes(case, monkeypatch):
+    """The closed form's placement route on four views at 64^2: decided
+    once per plan from the geometry; where ``R * (W/b) == Wc`` an FFT
+    equal to the phase-table product (forced here) within 1e-6 of the
+    canvas's maximum, elsewhere that product itself; either route's
+    autograd adjoint satisfies <A x, y> = <x, A^T y> to 1e-5."""
+    from rescan_line_sted_torch.imaging import analytic
+
+    rf, b = PLACEMENTS[case]
+    n = 64
+    params = T.LineSTEDParams.create(**KW)
+    geom = T.RescanGeometry(T.Grid(n, n), rescan_factor=rf, binning=b)
+    wc = geom.canvas_shape[1]
+    fft = case != "r1+pi/16_b1"
+    assert analytic._fft_placement(geom) == fft
+    assert (rf * (n // b) == wc) == fft
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.random((4, n, n), np.float32))
+    y = torch.from_numpy(rng.random((4,) + geom.canvas_shape, np.float32))
+    decide = analytic._fft_placement
+    decisions = []
+
+    def counted(g):
+        decisions.append(g)
+        return decide(g)
+
+    monkeypatch.setattr(analytic, "_fft_placement", counted)
+    analytic._canvas_constants.cache_clear()
+    try:
+        canvas = analytic._canvas_map(params, geom, "cpu")
+        got = canvas(x)
+        assert torch.equal(analytic._canvas_map(params, geom, "cpu")(x), got)
+        assert len(decisions) == 1
+        assert (analytic._canvas_constants(params, geom, torch.device(
+            "cpu"))[2] is None) == fft
+
+        xg = x.clone().requires_grad_()
+        aty = torch.autograd.grad(canvas(xg), xg, y)[0]
+        lhs = float((got.double() * y.double()).sum())
+        rhs = float((x.double() * aty.double()).sum())
+        assert abs(lhs - rhs) <= 1e-5 * abs(lhs)
+
+        monkeypatch.setattr(analytic, "_fft_placement", lambda g: False)
+        analytic._canvas_constants.cache_clear()
+        want = analytic._canvas_map(params, geom, "cpu")(x)
+    finally:
+        analytic._canvas_constants.cache_clear()
+    if fft:
+        assert _rel(got, want) <= 1e-6
+    else:
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("rf,b,reassignment", [
     (2.0, 1, "auto"), (1.5, 1, "auto"), (3.0, 2, "auto"),
     (1.5, 1, "rounded"), (2.0, 2, "subpixel")])
